@@ -1,0 +1,313 @@
+"""Band-MoE flow-matching DiT backbone (port of ``versband_tpu/models/dit.py``).
+
+Depth-4, hidden-768 transformer over VAE latents: adaLN-zero conditioning on
+timestep + pooled caption, RoPE self-attention (kernel K1 when ``use_flash``)
+with a tanh-gated text cross path, and the Band-MoE FFN (caption
+cross-attention, a 2-way group gate on the timestep embedding, per-token
+Gumbel gates over 4 SwiGLU experts per group, and frequency-band experts over
+hidden-channel partitions, with the usage*log(usage) load-balancing loss).
+
+Parameter names are the reference checkpoint's (``layers.{i}.attention.wq``,
+``feed_forward.caption_experts.{e}.w1``, ``feed_forward.cross_attention.in_proj_weight``,
+...). Experts are evaluated densely and mixed by their gates, as the JAX
+package does at 4 experts; its ``ragged_dot`` routed path (off by default
+there) is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from versband_tpu_torch.nn.core import (
+    ConditionEmbedder, FeedForward, JointAttention, RMSNorm, TimestepEmbedder,
+    modulate, precompute_rope, sdpa,
+)
+
+
+def anneal_temperature(step: int, init: float = 2.0, decay: float = 0.9999,
+                       floor: float = 0.3) -> float:
+    """tau(step) = max(floor, init * decay^step), computed in float32 as the
+    reference does. A Python number, so the forward never copies a host
+    scalar to the card."""
+    f32 = np.float32
+    return float(max(f32(floor), f32(init) * f32(decay) ** f32(step)))
+
+
+def anneal_loss_weight(step: int, decay: float = 0.9999, floor: float = 0.01) -> float:
+    return float(max(np.float32(floor), np.float32(decay) ** np.float32(step)))
+
+
+def gumbel_softmax(logits: torch.Tensor, temperature: float, hard: bool) -> torch.Tensor:
+    """Gumbel-softmax in its deterministic limit (no noise: the sampler's
+    routing): soft -> softmax, hard -> one-hot argmax, straight-through."""
+    y_soft = torch.softmax(logits / temperature, dim=-1)
+    if hard:
+        idx = y_soft.argmax(dim=-1)
+        y_hard = F.one_hot(idx, logits.shape[-1]).to(logits.dtype)
+        return y_hard - y_soft.detach() + y_soft
+    return y_soft
+
+
+class StackedSwiGLU(nn.ModuleList):
+    """E SwiGLU experts (``{e}.w1/w2/w3``), evaluated densely or band-diagonally."""
+
+    def __init__(self, num_experts: int, dim: int, hidden_dim: int, multiple_of: int = 256):
+        super().__init__([FeedForward(dim, hidden_dim, multiple_of)
+                          for _ in range(num_experts)])
+
+    def dense(self, x: torch.Tensor) -> torch.Tensor:
+        """Every expert on the shared input ``[B, T, d]`` -> ``[E, B, T, d]``."""
+        return torch.stack([expert(x) for expert in self])
+
+    def band_diagonal(self, x: torch.Tensor) -> torch.Tensor:
+        """Expert e on channel band e only, its band-e outputs kept -> ``[B, T, d]``.
+
+        Equals running expert e on x masked to band e and keeping band e of its
+        output, with the matmuls contracted over the band alone.
+        """
+        band = x.shape[-1] // len(self)
+        outs = []
+        for e, expert in enumerate(self):
+            sl = slice(e * band, (e + 1) * band)
+            xb = x[..., sl]
+            a = F.linear(xb, expert.w1.weight[:, sl])
+            b = F.linear(xb, expert.w3.weight[:, sl])
+            outs.append(F.linear(F.silu(a) * b, expert.w2.weight[sl]))
+        return torch.cat(outs, dim=-1)
+
+
+class CaptionCrossAttention(nn.Module):
+    """Biased multi-head attention (q = x, kv = caption) with
+    ``nn.MultiheadAttention``'s parameter names; plain :func:`sdpa` inside."""
+
+    def __init__(self, dim: int, num_heads: int = 8):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x: torch.Tensor, caption: torch.Tensor) -> torch.Tensor:
+        B, T, d = x.shape
+        hd = d // self.num_heads
+        wq, wk, wv = self.in_proj_weight.chunk(3)
+        bq, bk, bv = self.in_proj_bias.chunk(3)
+        q = F.linear(x, wq, bq).view(B, T, self.num_heads, hd)
+        k = F.linear(caption, wk, bk).view(B, caption.shape[1], self.num_heads, hd)
+        v = F.linear(caption, wv, bv).view(B, caption.shape[1], self.num_heads, hd)
+        return self.out_proj(sdpa(q, k, v).reshape(B, T, d))
+
+
+class BandMoE(nn.Module):
+    """The Band-MoE FFN block; ``forward`` returns (output, load_balance_loss)."""
+
+    def __init__(self, dim: int, hidden_dim: int, num_experts: int = 4,
+                 multiple_of: int = 256, temperature_init: float = 2.0):
+        super().__init__()
+        self.num_experts = num_experts
+        self.temperature_init = temperature_init
+        self.cross_attention = CaptionCrossAttention(dim)
+        self.high_level_gating_network = nn.Linear(dim, 2)
+        self.caption_gating_network = nn.Linear(dim, num_experts)
+        self.acoustic_gating_network = nn.Linear(dim, num_experts)
+        for lin in (self.high_level_gating_network, self.caption_gating_network,
+                    self.acoustic_gating_network):
+            nn.init.xavier_uniform_(lin.weight)
+            nn.init.zeros_(lin.bias)
+        self.caption_experts = StackedSwiGLU(num_experts, dim, hidden_dim, multiple_of)
+        self.acoustic_experts = StackedSwiGLU(num_experts, dim, hidden_dim, multiple_of)
+        self.freq_experts = StackedSwiGLU(num_experts, dim, hidden_dim, multiple_of)
+
+    def forward(self, x: torch.Tensor, t_emb: torch.Tensor, caption: torch.Tensor,
+                acoustic: torch.Tensor, step: int = 0, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, T, _ = x.shape
+        E = self.num_experts
+        temperature = anneal_temperature(step, self.temperature_init)
+        hard = not train
+
+        cap_feat = self.cross_attention(x, caption)
+        hl_probs = gumbel_softmax(self.high_level_gating_network(t_emb), 1.0, hard=False)
+        cap_mask = hl_probs[:, 0][:, None, None]
+        ac_mask = hl_probs[:, 1][:, None, None]
+
+        cap_probs = gumbel_softmax(self.caption_gating_network(cap_feat), temperature, hard)
+        ac_probs = gumbel_softmax(self.acoustic_gating_network(acoustic), temperature, hard)
+
+        y = (torch.einsum("ebtd,bte->btd", self.caption_experts.dense(x), cap_probs) * cap_mask
+             + torch.einsum("ebtd,bte->btd", self.acoustic_experts.dense(x), ac_probs) * ac_mask)
+        z = self.freq_experts.band_diagonal(y)
+
+        cap_m = cap_mask.expand(B, T, 1).reshape(-1, 1)
+        ac_m = ac_mask.expand(B, T, 1).reshape(-1, 1)
+        probs_all = torch.cat([cap_probs.reshape(-1, E), ac_probs.reshape(-1, E)], dim=1)
+        masks_all = torch.cat([cap_m.expand(-1, E), ac_m.expand(-1, E)], dim=1)
+        usage = (probs_all * masks_all).sum(0) / (masks_all.sum() + 1e-10)
+        lb_loss = torch.mean(usage * torch.log(usage + 1e-10))
+        return z, lb_loss
+
+
+class FinalLayer(nn.Module):
+    """adaLN-zero final projection."""
+
+    def __init__(self, hidden_size: int, out_channels: int):
+        super().__init__()
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 2 * hidden_size))
+        self.linear = nn.Linear(hidden_size, out_channels)
+        for lin in (self.adaLN_modulation[1], self.linear):
+            nn.init.zeros_(lin.weight)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
+        x = F.layer_norm(x, x.shape[-1:], eps=1e-6)
+        return self.linear(modulate(x, shift, scale))
+
+
+class TransformerBlock(nn.Module):
+    """adaLN (6-way) -> gated joint attention -> Band-MoE FFN; returns (h, lb_loss)."""
+
+    def __init__(self, dim: int, n_heads: int, y_dim: int, num_experts: int = 4,
+                 n_kv_heads: Optional[int] = None, multiple_of: int = 256,
+                 norm_eps: float = 1e-5, qk_norm: bool = False, use_flash: bool = False):
+        super().__init__()
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(dim, 6 * dim))
+        nn.init.zeros_(self.adaLN_modulation[1].weight)
+        nn.init.zeros_(self.adaLN_modulation[1].bias)
+        self.attention_norm = RMSNorm(dim, norm_eps)
+        self.attention_y_norm = RMSNorm(y_dim, norm_eps)
+        self.ffn_norm = RMSNorm(dim, norm_eps)
+        self.attention = JointAttention(dim, n_heads, n_kv_heads, qk_norm, y_dim,
+                                        use_flash=use_flash)
+        self.feed_forward = BandMoE(dim, dim, num_experts, multiple_of)
+
+    def forward(self, x, x_mask, y, y_mask, rope_cos, rope_sin, adaln_input,
+                t_emb, caption, acoustic, step: int = 0, train: bool = False):
+        (shift_msa, scale_msa, gate_msa,
+         shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(adaln_input).chunk(6, dim=-1)
+        attn_in = modulate(self.attention_norm(x), shift_msa, scale_msa)
+        h = x + gate_msa[:, None, :] * self.attention(
+            attn_in, x_mask, rope_cos, rope_sin, self.attention_y_norm(y), y_mask)
+        ffn_in = modulate(self.ffn_norm(h), shift_mlp, scale_mlp)
+        out, lb = self.feed_forward(ffn_in, t_emb, caption, acoustic, step=step, train=train)
+        return h + gate_mlp[:, None, :] * out, lb
+
+
+class ConvLeakyPool(nn.Sequential):
+    """conv(k5) -> LeakyReLU(0.01) -> AvgPool1d(2) over ``[B, C, T]`` (key ``0`` is the conv)."""
+
+    def __init__(self, hidden_size: int, kernel_size: int = 5, pool: int = 2):
+        super().__init__(nn.Conv1d(hidden_size, hidden_size, kernel_size,
+                                   padding=kernel_size // 2),
+                         nn.LeakyReLU(0.01), nn.AvgPool1d(pool))
+
+
+class BandMoeDiT(nn.Module):
+    """The shipped vocal2music backbone (``configs/vocal2music.yaml``).
+
+    ``forward(x [B,C,T_lat], t [B], context) -> (v [B,C,T_lat], lb_loss)`` with
+    ``context = {'c_concat': {'midi': [B,1,T], 'beats': [B,1,T]},
+    'c_crossattn': caption [B,Ty,ori_dim]}``; midi/beats are frame ids at mel
+    rate, embedded, conv-projected and 2x pooled to the latent rate.
+    ``{"encode_only": True}`` returns the t-independent encodings, which a
+    sampler feeds back as ``{"c_encoded": ...}`` on every step.
+    """
+
+    def __init__(self, in_channels: int, context_dim: int = 768, hidden_size: int = 768,
+                 depth: int = 4, num_heads: int = 8, max_len: int = 1500,
+                 num_experts: int = 4, ori_dim: int = 1024,
+                 n_kv_heads: Optional[int] = None, multiple_of: int = 256,
+                 norm_eps: float = 1e-5, qk_norm: bool = False,
+                 rope_scaling_factor: float = 1.0, ntk_factor: float = 1.0,
+                 midi_vocab: int = 130, beats_vocab: int = 3, use_flash: bool = False):
+        super().__init__()
+        self.in_channels = in_channels
+        self.depth = depth
+        self.head_dim = hidden_size // num_heads
+        self.max_len = max_len
+        self.rope_scaling_factor = rope_scaling_factor
+        self.ntk_factor = ntk_factor
+        self._rope: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+        self.midi_embedding = nn.Embedding(midi_vocab, hidden_size)
+        self.beats_embedding = nn.Embedding(beats_vocab, hidden_size)
+        self.midi_proj = ConvLeakyPool(hidden_size)
+        self.beats_proj = ConvLeakyPool(hidden_size)
+        self.final_proj = nn.Conv1d(hidden_size, hidden_size, 1)
+        self.c_embedder = ConditionEmbedder(ori_dim, hidden_size)
+        self.cap_embedder = nn.Sequential(nn.LayerNorm(hidden_size, eps=1e-6),
+                                          nn.Linear(hidden_size, hidden_size))
+        nn.init.xavier_uniform_(self.cap_embedder[1].weight)
+        self.proj_in = nn.Conv1d(in_channels, hidden_size, 5, padding=2)
+        self.t_embedder = TimestepEmbedder(hidden_size)
+        self.layers = nn.ModuleList([
+            TransformerBlock(hidden_size, num_heads, hidden_size, num_experts=num_experts,
+                             n_kv_heads=n_kv_heads, multiple_of=multiple_of,
+                             norm_eps=norm_eps, qk_norm=qk_norm, use_flash=use_flash)
+            for _ in range(depth)])
+        self.final_layer = FinalLayer(hidden_size, in_channels)
+
+    def rope_tables(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """fp32 RoPE tables on ``device``, made once per device (kept out of the
+        module's buffers so a cast of the model to bf16 leaves them fp32)."""
+        if device not in self._rope:
+            cos, sin = precompute_rope(self.head_dim, self.max_len,
+                                       rope_scaling_factor=self.rope_scaling_factor,
+                                       ntk_factor=self.ntk_factor)
+            self._rope[device] = (torch.from_numpy(cos).to(device),
+                                  torch.from_numpy(sin).to(device))
+        return self._rope[device]
+
+    def encode(self, context: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The t- and x-independent conditioning: acoustic, caption, cap_emb."""
+        dtype = self.proj_in.weight.dtype
+        midi = context["c_concat"]["midi"]
+        beats = context["c_concat"]["beats"]
+        if midi.ndim == 3:
+            midi = midi[:, 0, :]
+        if beats.ndim == 3:
+            beats = beats[:, 0, :]
+        midi_e = self.midi_proj(self.midi_embedding(midi.long()).transpose(1, 2))
+        beats_e = self.beats_proj(self.beats_embedding(beats.long()).transpose(1, 2))
+        acoustic = self.final_proj(midi_e + beats_e).transpose(1, 2)  # [B, T_mel/2, H]
+        caption = self.c_embedder(context["c_crossattn"].to(dtype))  # [B, Ty, H]
+        cap_emb = self.cap_embedder(caption.mean(dim=1))
+        return {"acoustic": acoustic, "caption": caption, "cap_emb": cap_emb}
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, context: Dict[str, Any],
+                step: int = 0, train: bool = False):
+        encoded = context.get("c_encoded")
+        if encoded is None:
+            encoded = self.encode(context)
+        if context.get("encode_only"):
+            return encoded
+        acoustic, caption, cap_emb = encoded["acoustic"], encoded["caption"], encoded["cap_emb"]
+
+        dtype = self.proj_in.weight.dtype
+        rope_cos, rope_sin = self.rope_tables(x.device)
+        h = self.proj_in(x.to(dtype)).transpose(1, 2)  # [B, T, H]
+
+        # +-2 frame reconciliation of the acoustic stream with the latent
+        T, Ta = h.shape[1], acoustic.shape[1]
+        if T > Ta:
+            acoustic = torch.cat([acoustic, acoustic[:, -1:].expand(-1, T - Ta, -1)], dim=1)
+        elif Ta > T:
+            acoustic = acoustic[:, :T]
+
+        t_emb = self.t_embedder(t)
+        h = acoustic + h
+        adaln_input = t_emb + cap_emb
+        lb_total = 0.0
+        for block in self.layers:
+            h, lb = block(h, None, caption, None, rope_cos, rope_sin, adaln_input,
+                          t_emb, caption, acoustic, step, train)
+            lb_total = lb_total + lb
+        lb_loss = lb_total / self.depth * anneal_loss_weight(step)
+        out = self.final_layer(h, adaln_input)
+        return out.transpose(1, 2), lb_loss

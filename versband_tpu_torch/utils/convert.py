@@ -1,0 +1,139 @@
+"""JAX params -> the port's state_dict: weights carried across.
+
+``state_dict_from_jax(params, family)`` takes a flax param tree of
+``versband_tpu`` (nested dicts of arrays, optionally under ``"params"``) for
+``family`` in ``{"dit", "vae", "hifigan"}`` and returns a state_dict that
+loads into the matching port module. It inverts the JAX package's torch ->
+flax converter without importing it:
+
+* Dense kernels ``[in, out]`` -> ``[out, in]``; Conv ``[k, in, out]`` ->
+  ``[out, in, k]``; ConvTranspose ``[k, in, out]`` -> ``[in, out, k]``;
+* ``scale`` and ``embedding`` -> ``weight``;
+* stacked experts ``[E, d, h]`` -> ``{grp}_experts.{e}.w{n}.weight``;
+* caption cross-attention ``wq/wk/wv`` -> packed ``in_proj_weight/bias``;
+* ``resblocks_{i}_{j}`` -> ``resblocks.{i*K+j}``;
+* ``kernel_v``/``kernel_g`` folded with the JAX convention (per output channel).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Callable, Dict, List, Tuple, Union
+
+import numpy as np
+import torch
+
+from versband_tpu_torch.vocoder.conv import fold_weight_norm_jax
+
+Repl = Union[str, Callable[[re.Match], str]]
+
+_DIT_RULES: List[Tuple[str, Repl]] = [
+    (r"^(midi|beats)_proj/conv/", r"\1_proj.0."),
+    (r"^(t|c)_embedder/fc1/", r"\1_embedder.mlp.0."),
+    (r"^(t|c)_embedder/fc2/", r"\1_embedder.mlp.2."),
+    (r"^c_embedder/ln/", "c_embedder.norm."),
+    (r"^cap_embedder_norm/", "cap_embedder.0."),
+    (r"^cap_embedder/", "cap_embedder.1."),
+    (r"^blocks_(\d+)/adaLN_modulation/", r"layers.\1.adaLN_modulation.1."),
+    (r"^blocks_(\d+)/feed_forward/(caption|acoustic)_gate/",
+     r"layers.\1.feed_forward.\2_gating_network."),
+    (r"^blocks_(\d+)/feed_forward/high_level_gate/",
+     r"layers.\1.feed_forward.high_level_gating_network."),
+    (r"^blocks_(\d+)/feed_forward/cross_attention/wo/",
+     r"layers.\1.feed_forward.cross_attention.out_proj."),
+    (r"^blocks_(\d+)/", r"layers.\1."),
+    (r"^final_layer/adaLN_modulation/", "final_layer.adaLN_modulation.1."),
+]
+
+_VAE_RULES: List[Tuple[str, Repl]] = [
+    (r"^(encoder|decoder)/(down|up)_(\d+)_(block|attn)_(\d+)/", r"\1.\2.\3.\4.\5."),
+    (r"^encoder/down_(\d+)_downsample/", r"encoder.down.\1.downsample."),
+    (r"^decoder/up_(\d+)_upsample/", r"decoder.up.\1.upsample."),
+    (r"^(encoder|decoder)/mid_(block_\d+|attn_\d+)/", r"\1.mid.\2."),
+]
+
+
+def _hifigan_rules(num_kernels: int) -> List[Tuple[str, Repl]]:
+    return [
+        (r"^ups_(\d+)/", r"ups.\1."),
+        (r"^resblocks_(\d+)_(\d+)/",
+         lambda m: f"resblocks.{int(m[1]) * num_kernels + int(m[2])}."),
+        (r"(convs[12]?)_(\d+)/", r"\1.\2."),
+    ]
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def _fold(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    out = {}
+    for key, w in flat.items():
+        if key.endswith("kernel_v"):
+            out[key[:-2]] = fold_weight_norm_jax(w, flat[key[:-1] + "g"])
+        elif not key.endswith("kernel_g"):
+            out[key] = w
+    return out
+
+
+def _rename(path: str, rules: List[Tuple[str, Repl]]) -> str:
+    for pattern, repl in rules:
+        path = re.sub(pattern, repl, path)
+    return path.replace("/", ".")
+
+
+def _leaf(key: str, w: np.ndarray, transposed: bool) -> Tuple[str, np.ndarray]:
+    mod, _, leaf = key.rpartition(".")
+    if leaf == "kernel":
+        if w.ndim == 2:
+            w = w.T
+        elif w.ndim == 3:
+            w = w.transpose(1, 2, 0) if transposed else w.transpose(2, 1, 0)
+        leaf = "weight"
+    elif leaf in ("scale", "embedding"):
+        leaf = "weight"
+    return f"{mod}.{leaf}", w
+
+
+def _dit_special(flat: Dict[str, np.ndarray], sd: Dict[str, np.ndarray]) -> None:
+    """Unstack experts and pack the cross-attention q/k/v (popped from ``flat``)."""
+    for key in [k for k in flat if re.match(r"^blocks_\d+/feed_forward/\w+_experts/w\d$", k)]:
+        w = flat.pop(key)  # [E, in, out]
+        m = re.match(r"^blocks_(\d+)/feed_forward/(\w+_experts)/(w\d)$", key)
+        for e in range(w.shape[0]):
+            sd[f"layers.{m[1]}.feed_forward.{m[2]}.{e}.{m[3]}.weight"] = w[e].T
+    for key in [k for k in flat if k.endswith("/cross_attention/wq/kernel")]:
+        base = key[: -len("/wq/kernel")]
+        blk = re.match(r"^blocks_(\d+)/", base)[1]
+        dst = f"layers.{blk}.feed_forward.cross_attention"
+        sd[f"{dst}.in_proj_weight"] = np.concatenate(
+            [flat.pop(f"{base}/{n}/kernel").T for n in ("wq", "wk", "wv")], axis=0)
+        sd[f"{dst}.in_proj_bias"] = np.concatenate(
+            [flat.pop(f"{base}/{n}/bias") for n in ("wq", "wk", "wv")], axis=0)
+
+
+def state_dict_from_jax(params: Dict[str, Any], family: str) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a ``versband_tpu`` param tree of ``family``."""
+    if family not in ("dit", "vae", "hifigan"):
+        raise ValueError(f"unknown family {family!r}; expected dit, vae or hifigan")
+    tree = params.get("params", params)
+    flat = _fold(_flatten(tree))
+    sd: Dict[str, np.ndarray] = {}
+    if family == "dit":
+        _dit_special(flat, sd)
+        rules = _DIT_RULES
+    elif family == "vae":
+        rules = _VAE_RULES
+    else:
+        ks = [int(m[1]) for k in flat if (m := re.match(r"^resblocks_\d+_(\d+)/", k))]
+        rules = _hifigan_rules(1 + max(ks) if ks else 1)
+    for path, w in flat.items():
+        transposed = family == "hifigan" and path.startswith("ups_")
+        key, w = _leaf(_rename(path, rules), w, transposed)
+        sd[key] = w
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}

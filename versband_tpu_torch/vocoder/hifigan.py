@@ -1,0 +1,168 @@
+"""HiFi-GAN vocoder (port of ``versband_tpu/vocoder/hifigan.py``).
+
+``HifiGanGenerator`` maps a mel ``[B, 80, T]`` to a waveform ``[B, T*hop]``
+with plain (weight-norm folded) ``nn.Conv1d`` / ``nn.ConvTranspose1d``;
+parameter names are the reference's (``conv_pre``, ``ups.{i}``,
+``resblocks.{i*K+j}.convs1.{n}``, ``conv_post``). Defaults are the 24 kHz /
+hop-320 generator: upsample rates (5, 4, 4, 4), kernels (9, 8, 8, 8).
+``HifiGAN`` is the runtime wrapper that loads a checkpoint directory.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from versband_tpu_torch.device import DeviceLike, resolve_device
+from versband_tpu_torch.vocoder.conv import LRELU_SLOPE, fold_torch_weight_norm, get_padding
+
+
+def _conv(ch_in: int, ch_out: int, k: int, dilation: int = 1, std: Optional[float] = 0.01):
+    conv = nn.Conv1d(ch_in, ch_out, k, dilation=dilation, padding=get_padding(k, dilation))
+    if std is not None:  # the reference's init_weights: normal(0, 0.01)
+        nn.init.normal_(conv.weight, std=std)
+    return conv
+
+
+class ResBlock1(nn.Module):
+    """Two-conv residual units at dilations (1, 3, 5)."""
+
+    def __init__(self, channels: int, kernel_size: int = 3, dilations: Sequence[int] = (1, 3, 5)):
+        super().__init__()
+        self.convs1 = nn.ModuleList([_conv(channels, channels, kernel_size, d) for d in dilations])
+        self.convs2 = nn.ModuleList([_conv(channels, channels, kernel_size) for _ in dilations])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for c1, c2 in zip(self.convs1, self.convs2):
+            x = x + c2(F.leaky_relu(c1(F.leaky_relu(x, LRELU_SLOPE)), LRELU_SLOPE))
+        return x
+
+
+class ResBlock2(nn.Module):
+    """Single-conv residual units at dilations (1, 3)."""
+
+    def __init__(self, channels: int, kernel_size: int = 3, dilations: Sequence[int] = (1, 3)):
+        super().__init__()
+        self.convs = nn.ModuleList([_conv(channels, channels, kernel_size, d) for d in dilations])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for c in self.convs:
+            x = x + c(F.leaky_relu(x, LRELU_SLOPE))
+        return x
+
+
+class HifiGanGenerator(nn.Module):
+    """mel ``[B, in_channels, T]`` -> waveform ``[B, T*prod(upsample_rates)]``."""
+
+    def __init__(self, in_channels: int = 80, upsample_initial_channel: int = 512,
+                 upsample_rates: Sequence[int] = (5, 4, 4, 4),
+                 upsample_kernel_sizes: Sequence[int] = (9, 8, 8, 8), resblock: str = "1",
+                 resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+                 resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3):
+        super().__init__()
+        self.in_channels = in_channels
+        self.num_kernels = len(resblock_kernel_sizes)
+        self.conv_pre = _conv(in_channels, upsample_initial_channel, 7, std=None)
+        res_cls = ResBlock1 if str(resblock) == "1" else ResBlock2
+        self.ups = nn.ModuleList()
+        self.resblocks = nn.ModuleList()
+        ch = upsample_initial_channel
+        for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
+            ch = upsample_initial_channel // (2 ** (i + 1))
+            up = nn.ConvTranspose1d(2 * ch, ch, k, u, padding=(k - u) // 2)
+            nn.init.normal_(up.weight, std=0.01)
+            self.ups.append(up)
+            for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
+                self.resblocks.append(res_cls(ch, rk, tuple(rd)))
+        self.conv_post = _conv(ch, 1, 7)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        x = self.conv_pre(mel.to(self.conv_pre.weight.dtype))
+        K = self.num_kernels
+        for i, up in enumerate(self.ups):
+            x = up(F.leaky_relu(x, LRELU_SLOPE))
+            acc = self.resblocks[i * K](x)
+            for j in range(1, K):
+                acc = acc + self.resblocks[i * K + j](x)
+            x = acc / K
+        return torch.tanh(self.conv_post(F.leaky_relu(x, 0.01)))[:, 0]
+
+
+_CONFIG_KEYS = [("audio_num_mel_bins", "in_channels"),
+                ("upsample_initial_channel", "upsample_initial_channel"),
+                ("upsample_rates", "upsample_rates"),
+                ("upsample_kernel_sizes", "upsample_kernel_sizes"),
+                ("resblock", "resblock"),
+                ("resblock_kernel_sizes", "resblock_kernel_sizes"),
+                ("resblock_dilation_sizes", "resblock_dilation_sizes")]
+
+
+def load_generator_state_dict(path: str) -> dict:
+    """A generator state_dict from a reference checkpoint (``state_dict`` ->
+    ``model_gen``, weight norm folded) or from the port's own ``torch.save``."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("state_dict", "model_gen", "generator"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+    return fold_torch_weight_norm(obj)
+
+
+class HifiGAN:
+    """Runtime wrapper: ``HifiGAN(ckpt_dir)(mel) -> np.ndarray`` waveform.
+
+    ``vocoder_ckpt`` is a directory with an optional ``config.yaml`` and a
+    generator checkpoint (``model_gen.pt``, ``generator.pt`` or the
+    reference's ``model_ckpt_steps_*.ckpt``, the last by name). Without one
+    the generator keeps a random init made from ``seed``.
+    """
+
+    def __init__(self, vocoder_ckpt: Optional[str] = None, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32, seed: int = 0, **config_overrides):
+        from versband_tpu_torch.utils.config import load_config
+
+        self.device = resolve_device(device)
+        cfg = {}
+        if vocoder_ckpt and os.path.exists(os.path.join(vocoder_ckpt, "config.yaml")):
+            cfg = dict(load_config(os.path.join(vocoder_ckpt, "config.yaml")))
+        cfg.update(config_overrides)
+        kw = {dst: cfg[src] for src, dst in _CONFIG_KEYS if src in cfg}
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.model = HifiGanGenerator(**kw)
+        path = self._find_ckpt(vocoder_ckpt) if vocoder_ckpt else None
+        if path is not None:
+            self.model.load_state_dict(load_generator_state_dict(path))
+        self.model.to(device=self.device, dtype=dtype).eval()
+
+    @staticmethod
+    def _find_ckpt(ckpt_dir: str) -> Optional[str]:
+        for name in ("model_gen.pt", "generator.pt"):
+            path = os.path.join(ckpt_dir, name)
+            if os.path.exists(path):
+                return path
+        found = sorted(glob.glob(os.path.join(ckpt_dir, "model_ckpt_steps_*.ckpt")))
+        return found[-1] if found else None
+
+    @torch.no_grad()
+    def spec2wav(self, mel) -> np.ndarray:
+        mel = torch.as_tensor(np.asarray(mel) if not torch.is_tensor(mel) else mel)
+        if mel.ndim == 2:
+            mel = mel[None]
+        if mel.shape[1] != self.model.in_channels:
+            mel = mel.transpose(1, 2)
+        wav = self.model(mel.to(self.device))
+        return wav.float().cpu().numpy().reshape(-1)
+
+    def vocode(self, mel) -> np.ndarray:
+        if np.ndim(mel) != 2:
+            raise ValueError("vocode takes one mel [n_mels, T]")
+        return self.spec2wav(mel)
+
+    def __call__(self, mel) -> np.ndarray:
+        return self.spec2wav(mel)
