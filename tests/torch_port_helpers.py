@@ -75,3 +75,39 @@ def jax_context(midi, beats, caption):
 
     return {"c_concat": {"midi": jnp.asarray(midi), "beats": jnp.asarray(beats)},
             "c_crossattn": jnp.asarray(caption)}
+
+
+class Draws:
+    """Stands in for a ``jax.random`` sampler: returns the given arrays (in
+    their own dtypes) in call order."""
+
+    def __init__(self, arrays):
+        self.queue = [np.asarray(a) for a in arrays]
+
+    def __call__(self, key, shape=(), *args, **kwargs):
+        import jax.numpy as jnp
+
+        a = self.queue.pop(0)
+        assert a.shape == tuple(shape), (a.shape, shape)
+        return jnp.asarray(a)
+
+
+def assert_grads_match(model, jax_grads, tol=1e-4, floor=1e-3):
+    """The module's ``.grad`` against a JAX gradient tree (mapped with
+    ``state_dict_from_jax``), leaf by leaf: within ``tol`` of the leaf's own
+    largest JAX gradient, or of ``floor`` x the largest over all leaves where
+    the leaf's own is smaller (a leaf near 0 has no scale of its own). The
+    self-attention projections, which the flash kernels' backward feeds, must
+    get a nonzero gradient."""
+    ref = state_dict_from_jax(jax_grads, "dit")
+    got = {k: p.grad for k, p in model.named_parameters()}
+    assert set(ref) == set(got)
+    scale = max(v.abs().max().item() for v in ref.values())
+    assert scale > 0
+    for k, g in got.items():
+        g = torch.zeros_like(ref[k]) if g is None else g
+        err = (g - ref[k]).abs().max().item()
+        own = ref[k].abs().max().item()
+        assert err <= tol * max(own, floor * scale), (k, err, own, scale)
+        if k.endswith(("attention.wq.weight", "attention.wk.weight", "attention.wv.weight")):
+            assert g.abs().max().item() > 0, k

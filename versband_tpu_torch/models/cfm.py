@@ -1,17 +1,22 @@
-"""Conditional flow matching over VAE latents: the sampling half
-(port of ``versband_tpu/models/cfm.py``).
+"""Conditional flow matching over VAE latents (port of ``versband_tpu/models/cfm.py``).
 
-Euler ODE integration over ``linspace(0, 1, 25)`` with classifier-free
-guidance as one batch-doubled forward, t floored to an int timestep as the
-reference does, and the t-independent conditioning encoded once before the
-loop. The JAX ``lax.scan`` is a Python loop here; nothing in it waits for the
-card, so a caller can queue several requests. The schedule (floored
-timesteps and step sizes) is computed in float32 exactly as ``jnp.linspace``
-and the JAX loop compute it.
+Sampling: Euler ODE integration over ``linspace(0, 1, 25)`` with
+classifier-free guidance as one batch-doubled forward, t floored to an int
+timestep as the reference does, and the t-independent conditioning encoded
+once before the loop. The JAX ``lax.scan`` is a Python loop here; nothing in
+it waits for the card, so a caller can queue several requests. The schedule
+(floored timesteps and step sizes) is computed in float32 exactly as
+``jnp.linspace`` and the JAX loop compute it.
 
-The training half (``p_losses``, ``stochastic_encode``, the diffusion
-schedules) and the text tower (``cond_stage_config``) are not ported yet:
-callers pass caption embeddings.
+Training: the OT flow-matching loss (:func:`cfm_p_losses`) plus the MoE
+load-balance loss, ``t`` drawn as randint(0, 1000), latents from the frozen
+VAE's posterior sample scaled by ``scale_factor`` (``scale_by_std``: 1/std of
+the first batch's latents). Randomness comes from a ``torch.Generator`` or is
+handed in as tensors (``noise``, ``gumbel``), so tests feed both packages the
+same draws.
+
+The text tower (``cond_stage_config``) is not ported yet: callers pass
+caption embeddings.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ import torch
 import torch.nn as nn
 
 from versband_tpu_torch.device import DeviceLike, resolve_device
-from versband_tpu_torch.models.dit import BandMoeDiT
+from versband_tpu_torch.models.dit import BandMoeDiT, GumbelSource
+from versband_tpu_torch.models.schedules import (
+    DiffusionSchedule, make_ddim_sampling_parameters, make_ddim_timesteps)
 from versband_tpu_torch.utils.config import instantiate_from_config
 
 
@@ -32,6 +39,26 @@ def _cond_to_context(cond: Dict[str, Any]) -> Dict[str, Any]:
     """``{'caption': z, 'acoustic': {...}}`` -> the DiT context dict; non-tensor entries dropped."""
     acoustic = {k: v for k, v in cond["acoustic"].items() if torch.is_tensor(v)}
     return {"c_crossattn": cond["caption"], "c_concat": acoustic}
+
+
+def cfm_p_losses(model: nn.Module, x_start: torch.Tensor, cond: Dict[str, Any],
+                 t: torch.Tensor, noise: torch.Tensor, *, sigma_min: float = 1e-4,
+                 num_timesteps: int = 1000, l_simple_weight: float = 1.0, step: int = 0,
+                 gumbel: Optional[GumbelSource] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """OT-CFM loss. ``x_start``: [B, C, T] latents (x1); ``noise``: x0;
+    ``t``: int [B] in [0, num_timesteps). Training routing (soft, Gumbel noise
+    from ``gumbel``) when ``gumbel`` is given, eval routing otherwise, as the
+    JAX function ties ``train`` to its Gumbel key."""
+    x1, x0 = x_start, noise
+    ut = x1 - (1.0 - sigma_min) * x0
+    t_frac = (t.float() / num_timesteps)[:, None, None]
+    x_noisy = t_frac * x1 + (1.0 - (1.0 - sigma_min) * t_frac) * x0
+    model_out, lb_loss = model(x_noisy, t, _cond_to_context(cond), step=step,
+                               train=gumbel is not None, gumbel=gumbel)
+    loss_simple = ((model_out - ut) ** 2).mean(dim=tuple(range(1, ut.ndim)))
+    loss = l_simple_weight * loss_simple.mean() + lb_loss
+    return loss, {"loss_simple": loss_simple.mean(), "lb_loss": lb_loss, "loss": loss}
 
 
 def _tree_concat(a: Any, b: Any) -> Any:
@@ -97,20 +124,33 @@ def euler_cfg_sample(model: nn.Module, x0: torch.Tensor, cond: Dict[str, Any],
 
 
 class LatentDiffusion:
-    """Frozen VAE first stage + backbone, built from the reference YAML's
-    ``model.params`` on ``device`` in ``dtype``. Keys of the training config
-    that the sampler does not use are accepted and ignored."""
+    """Frozen VAE first stage + trainable backbone, built from the reference
+    YAML's ``model.params`` on ``device`` in ``dtype``. The training keys are
+    kept (``scale_by_std``, ``l_simple_weight``, the beta schedule, and
+    ``use_ema`` and ``scheduler_config``, which :class:`CFMTrainer` reads);
+    keys that neither sampling nor training reads are accepted and ignored."""
 
     def __init__(self, unet_config=None, first_stage_config=None, timesteps: int = 1000,
-                 mel_dim: int = 20, scale_factor: float = 1.0,
+                 beta_schedule: str = "linear", linear_start: float = 0.00085,
+                 linear_end: float = 0.012, cosine_s: float = 8e-3,
+                 mel_dim: int = 20, scale_by_std: bool = True, scale_factor: float = 1.0,
+                 use_ema: bool = False, scheduler_config=None, l_simple_weight: float = 1.0,
                  device: DeviceLike = None, dtype: torch.dtype = torch.float32, **kwargs):
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.schedule = DiffusionSchedule.create(timesteps, beta_schedule, linear_start,
+                                                 linear_end, cosine_s)
         self.num_timesteps = timesteps
         self.mel_dim = mel_dim
+        self.scale_by_std = scale_by_std
         self.scale_factor = float(scale_factor)
+        self.use_ema = use_ema
+        self.scheduler_config = scheduler_config
+        self.l_simple_weight = l_simple_weight
         self.model = self._build(unet_config)
         self.first_stage = self._build(first_stage_config)
+        if self.first_stage is not None:
+            self.first_stage.requires_grad_(False)  # frozen: never trained here
 
     def _build(self, config) -> Optional[nn.Module]:
         if not config:
@@ -118,8 +158,28 @@ class LatentDiffusion:
         return instantiate_from_config(config).to(device=self.device, dtype=self.dtype).eval()
 
     @torch.no_grad()
+    def encode_first_stage(self, mel: torch.Tensor, generator: Optional[torch.Generator] = None,
+                           sample: bool = True, noise: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """[B, 80, T] mel -> scaled latent [B, 20, T/2]: the posterior sample
+        (from ``generator``, or ``mean + std * noise``) or its mode."""
+        post = self.first_stage.encode(mel)
+        draw = sample and (generator is not None or noise is not None)
+        z = post.sample(generator, noise) if draw else post.mode()
+        return self.scale_factor * z
+
+    @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.first_stage.decode(z / self.scale_factor)
+
+    @torch.no_grad()
+    def compute_scale_factor(self, mel: torch.Tensor,
+                             generator: Optional[torch.Generator] = None,
+                             noise: Optional[torch.Tensor] = None) -> float:
+        """scale_by_std: 1/std(z) of a posterior sample of ``mel`` (population std)."""
+        z = self.first_stage.encode(mel).sample(generator, noise)
+        self.scale_factor = float(1.0 / z.float().std(unbiased=False).item())
+        return self.scale_factor
 
     def latent_length(self, cond_length: int) -> int:
         """ceil(T_cond / 2): latent frames for a conditioning of T mel frames."""
@@ -127,7 +187,50 @@ class LatentDiffusion:
 
 
 class CFM(LatentDiffusion):
-    """Flow-matching latent model: CFG Euler sampling."""
+    """Flow-matching latent model: the training loss and CFG Euler sampling."""
+
+    sigma_min: float = 1e-4
+
+    def p_losses(self, x_start: torch.Tensor, cond: Dict[str, Any], t: torch.Tensor,
+                 generator: Optional[torch.Generator] = None, step: int = 0,
+                 train: bool = True, noise: Optional[torch.Tensor] = None,
+                 gumbel: Optional[GumbelSource] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The CFM loss at timesteps ``t``. ``noise`` (x0) is drawn from
+        ``generator`` unless given; in training mode the Gumbel noise comes
+        from ``gumbel`` if given, else from ``generator``."""
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                                dtype=x_start.dtype)
+        if not train:
+            gumbel = None
+        elif gumbel is None:
+            gumbel = generator
+        return cfm_p_losses(self.model, x_start, cond, t, noise, sigma_min=self.sigma_min,
+                            num_timesteps=self.num_timesteps,
+                            l_simple_weight=self.l_simple_weight, step=step, gumbel=gumbel)
+
+    def training_losses(self, x_start: torch.Tensor, cond: Dict[str, Any],
+                        generator: Optional[torch.Generator] = None, step: int = 0
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Draw t ~ randint(0, num_timesteps) and compute the CFM loss."""
+        t = torch.randint(0, self.num_timesteps, (x_start.shape[0],), generator=generator,
+                          device=x_start.device)
+        return self.p_losses(x_start, cond, t, generator, step=step)
+
+    def stochastic_encode(self, x0: torch.Tensor, t_index: int,
+                          generator: Optional[torch.Generator] = None, ddim_steps: int = 25,
+                          noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Partial-noise start for img2img-style sampling: sqrt(a) x0 +
+        sqrt(1 - a) noise at DDIM step ``t_index`` of a uniform schedule."""
+        ddim_ts = make_ddim_timesteps("uniform", ddim_steps, self.num_timesteps)
+        _, alphas, _ = make_ddim_sampling_parameters(self.schedule.alphas_cumprod, ddim_ts,
+                                                     eta=0.0)
+        a = torch.from_numpy(alphas).to(x0.device)[t_index]
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, device=x0.device,
+                                dtype=x0.dtype)
+        return torch.sqrt(a) * x0 + torch.sqrt(1.0 - a) * noise
 
     def sample_cfg(self, cond: Dict[str, Any], guidance_scale: float,
                    uncond: Optional[Dict[str, Any]] = None,

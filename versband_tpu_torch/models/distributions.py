@@ -1,7 +1,8 @@
 """Diagonal Gaussian posterior of the KL-VAE (port of ``versband_tpu/models/distributions.py``).
 
 Moments are ``[mean, logvar]`` concatenated on the channel axis; logvar is
-clamped to [-30, 20]. Sampling takes a ``torch.Generator``.
+clamped to [-30, 20]. Sampling takes a ``torch.Generator`` or the
+noise itself.
 """
 
 from __future__ import annotations
@@ -21,11 +22,15 @@ class DiagonalGaussian:
         self.std = torch.exp(0.5 * self.logvar)
         self.var = torch.exp(self.logvar)
 
-    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def sample(self, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * eps, eps from ``generator`` unless ``noise`` is given."""
         if self.deterministic:
             return self.mean
-        return self.mean + self.std * torch.randn(
-            self.mean.shape, generator=generator, device=self.mean.device, dtype=self.mean.dtype)
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
+                                dtype=self.mean.dtype)
+        return self.mean + self.std * noise.to(self.mean)
 
     def mode(self) -> torch.Tensor:
         return self.mean

@@ -12,16 +12,26 @@ Parameter names are the reference checkpoint's (``layers.{i}.attention.wq``,
 ...). Experts are evaluated densely and mixed by their gates, as the JAX
 package does at 4 experts; its ``ragged_dot`` routed path (off by default
 there) is not ported.
+
+Training routing (``train=True``) is soft. Its Gumbel noise comes from the
+``gumbel`` argument of :meth:`BandMoeDiT.forward`: a ``torch.Generator`` to
+draw from, or an iterator of noise tensors handed in, consumed per block in
+the JAX order (high-level gate ``[B, 2]``, caption gate ``[B, T, E]``,
+acoustic gate ``[B, T, E]``). Without it, training routing is soft with no
+noise, as in JAX without a ``gumbel`` rng. The noise of a block is drawn
+before the block runs, so ``remat`` (``torch.utils.checkpoint`` per block)
+recomputes the block with the same noise.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from versband_tpu_torch.nn.core import (
     ConditionEmbedder, FeedForward, JointAttention, RMSNorm, TimestepEmbedder,
@@ -42,10 +52,30 @@ def anneal_loss_weight(step: int, decay: float = 0.9999, floor: float = 0.01) ->
     return float(max(np.float32(floor), np.float32(decay) ** np.float32(step)))
 
 
-def gumbel_softmax(logits: torch.Tensor, temperature: float, hard: bool) -> torch.Tensor:
-    """Gumbel-softmax in its deterministic limit (no noise: the sampler's
-    routing): soft -> softmax, hard -> one-hot argmax, straight-through."""
-    y_soft = torch.softmax(logits / temperature, dim=-1)
+GumbelSource = Union[torch.Generator, Iterator[torch.Tensor]]
+
+
+def draw_gumbel(source: GumbelSource, shape: Tuple[int, ...], like: torch.Tensor
+                ) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape``: drawn from a generator as
+    ``-log(-log(u))``, u uniform in [tiny, 1), or the next tensor handed in."""
+    if isinstance(source, torch.Generator):
+        u = torch.rand(shape, generator=source, device=source.device)
+        g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    else:
+        g = next(source)
+        if tuple(g.shape) != tuple(shape):
+            raise ValueError(f"Gumbel noise of shape {tuple(g.shape)}, expected {shape}")
+    return g.to(device=like.device, dtype=like.dtype)
+
+
+def gumbel_softmax(logits: torch.Tensor, temperature: float, hard: bool,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gumbel-softmax, straight-through when ``hard``. Without ``noise`` it is
+    the deterministic limit (the sampler's routing): soft -> softmax, hard ->
+    one-hot argmax."""
+    y = logits if noise is None else logits + noise
+    y_soft = torch.softmax(y / temperature, dim=-1)
     if hard:
         idx = y_soft.argmax(dim=-1)
         y_hard = F.one_hot(idx, logits.shape[-1]).to(logits.dtype)
@@ -124,21 +154,31 @@ class BandMoE(nn.Module):
         self.acoustic_experts = StackedSwiGLU(num_experts, dim, hidden_dim, multiple_of)
         self.freq_experts = StackedSwiGLU(num_experts, dim, hidden_dim, multiple_of)
 
+    def noise_shapes(self, B: int, T: int) -> List[Tuple[int, ...]]:
+        """Shapes of the Gumbel noise one training forward draws, in order."""
+        return [(B, 2), (B, T, self.num_experts), (B, T, self.num_experts)]
+
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor, caption: torch.Tensor,
-                acoustic: torch.Tensor, step: int = 0, train: bool = False
+                acoustic: torch.Tensor, step: int = 0, train: bool = False,
+                noise: Optional[List[torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``noise``: the (high-level, caption, acoustic) Gumbel draws of a
+        training forward, or None for no noise."""
         B, T, _ = x.shape
         E = self.num_experts
         temperature = anneal_temperature(step, self.temperature_init)
         hard = not train
+        hl_g, cap_g, ac_g = noise if (train and noise is not None) else (None, None, None)
 
         cap_feat = self.cross_attention(x, caption)
-        hl_probs = gumbel_softmax(self.high_level_gating_network(t_emb), 1.0, hard=False)
+        hl_probs = gumbel_softmax(self.high_level_gating_network(t_emb), 1.0, False, hl_g)
         cap_mask = hl_probs[:, 0][:, None, None]
         ac_mask = hl_probs[:, 1][:, None, None]
 
-        cap_probs = gumbel_softmax(self.caption_gating_network(cap_feat), temperature, hard)
-        ac_probs = gumbel_softmax(self.acoustic_gating_network(acoustic), temperature, hard)
+        cap_probs = gumbel_softmax(self.caption_gating_network(cap_feat), temperature, hard,
+                                   cap_g)
+        ac_probs = gumbel_softmax(self.acoustic_gating_network(acoustic), temperature, hard,
+                                  ac_g)
 
         y = (torch.einsum("ebtd,bte->btd", self.caption_experts.dense(x), cap_probs) * cap_mask
              + torch.einsum("ebtd,bte->btd", self.acoustic_experts.dense(x), ac_probs) * ac_mask)
@@ -188,14 +228,15 @@ class TransformerBlock(nn.Module):
         self.feed_forward = BandMoE(dim, dim, num_experts, multiple_of)
 
     def forward(self, x, x_mask, y, y_mask, rope_cos, rope_sin, adaln_input,
-                t_emb, caption, acoustic, step: int = 0, train: bool = False):
+                t_emb, caption, acoustic, step: int = 0, train: bool = False, noise=None):
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(adaln_input).chunk(6, dim=-1)
         attn_in = modulate(self.attention_norm(x), shift_msa, scale_msa)
         h = x + gate_msa[:, None, :] * self.attention(
             attn_in, x_mask, rope_cos, rope_sin, self.attention_y_norm(y), y_mask)
         ffn_in = modulate(self.ffn_norm(h), shift_mlp, scale_mlp)
-        out, lb = self.feed_forward(ffn_in, t_emb, caption, acoustic, step=step, train=train)
+        out, lb = self.feed_forward(ffn_in, t_emb, caption, acoustic, step=step, train=train,
+                                    noise=noise)
         return h + gate_mlp[:, None, :] * out, lb
 
 
@@ -217,6 +258,8 @@ class BandMoeDiT(nn.Module):
     rate, embedded, conv-projected and 2x pooled to the latent rate.
     ``{"encode_only": True}`` returns the t-independent encodings, which a
     sampler feeds back as ``{"c_encoded": ...}`` on every step.
+    ``remat`` recomputes each block in the backward (``torch.utils.checkpoint``)
+    instead of keeping its activations.
     """
 
     def __init__(self, in_channels: int, context_dim: int = 768, hidden_size: int = 768,
@@ -225,9 +268,11 @@ class BandMoeDiT(nn.Module):
                  n_kv_heads: Optional[int] = None, multiple_of: int = 256,
                  norm_eps: float = 1e-5, qk_norm: bool = False,
                  rope_scaling_factor: float = 1.0, ntk_factor: float = 1.0,
-                 midi_vocab: int = 130, beats_vocab: int = 3, use_flash: bool = False):
+                 midi_vocab: int = 130, beats_vocab: int = 3, use_flash: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.in_channels = in_channels
+        self.remat = remat
         self.depth = depth
         self.head_dim = hidden_size // num_heads
         self.max_len = max_len
@@ -280,8 +325,12 @@ class BandMoeDiT(nn.Module):
         cap_emb = self.cap_embedder(caption.mean(dim=1))
         return {"acoustic": acoustic, "caption": caption, "cap_emb": cap_emb}
 
+    def gumbel_shapes(self, B: int, T: int) -> List[Tuple[int, ...]]:
+        """Shapes of all Gumbel noise a training forward of latent length T draws."""
+        return [s for blk in self.layers for s in blk.feed_forward.noise_shapes(B, T)]
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: Dict[str, Any],
-                step: int = 0, train: bool = False):
+                step: int = 0, train: bool = False, gumbel: Optional[GumbelSource] = None):
         encoded = context.get("c_encoded")
         if encoded is None:
             encoded = self.encode(context)
@@ -305,8 +354,16 @@ class BandMoeDiT(nn.Module):
         adaln_input = t_emb + cap_emb
         lb_total = 0.0
         for block in self.layers:
-            h, lb = block(h, None, caption, None, rope_cos, rope_sin, adaln_input,
-                          t_emb, caption, acoustic, step, train)
+            noise = None
+            if train and gumbel is not None:
+                noise = [draw_gumbel(gumbel, shape, h)
+                         for shape in block.feed_forward.noise_shapes(h.shape[0], T)]
+            args = (h, None, caption, None, rope_cos, rope_sin, adaln_input,
+                    t_emb, caption, acoustic, step, train, noise)
+            if self.remat and torch.is_grad_enabled():
+                h, lb = checkpoint(block, *args, use_reentrant=False)
+            else:
+                h, lb = block(*args)
             lb_total = lb_total + lb
         lb_loss = lb_total / self.depth * anneal_loss_weight(step)
         out = self.final_layer(h, adaln_input)
