@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-Drives the port's two paths at the shipped widths of configs/vocal2music.yaml
+Drives the port's paths at the shipped widths of configs/vocal2music.yaml
 (random weights from a seed) and holds every CUDA kernel of them against its
 plain PyTorch version on the card:
 
-* serving -- Band-MoE DiT inside the CFG Euler sampler, VAE decode,
-  HiFi-GAN -- through ``PipelinedGenerator``;
+* serving -- Band-MoE DiT inside the CFG Euler sampler, VAE decode, then the
+  vocoder as ``build_vocoder`` builds it for ``--vocoder hifigan`` (bf16),
+  ``bigvgan`` (fp32, K4 in every activation) and ``pwg`` (fp32, K5 in every
+  residual layer) -- through ``PipelinedGenerator``;
 * training -- the CFM step (frozen-VAE encode, OT-CFM + load-balance loss,
   backward through the flash-attention kernels, clip, AdamW) -- through
   ``CFMTrainer.fit``.
@@ -19,22 +21,32 @@ Phases (any failure raises and exits non-zero):
   3. K1 (flash-attention forward), out and log-sum-exp, against its plain
      version at the serving and training shapes and on ragged, masked and
      scaled cases; times kernel, plain version and
-     ``F.scaled_dot_product_attention`` (a yardstick only);
+     ``F.scaled_dot_product_attention`` (a yardstick only) at both shapes;
   4. K2 (dQ) and K3 (dK, dV), the flash-attention backward, against the
      plain backward at the training and serving shapes and on ragged,
      masked and scaled cases, fp32 and bf16; times each kernel, its plain
      version and the backward of ``F.scaled_dot_product_attention``;
-  5. the shipped-width DiT forward (fp32) on the card against the CPU, and
-     the VAE decoder and HiFi-GAN likewise at a short length;
-  6. serves 3 requests (20 s clips, bf16, CFG 2.0, 25 steps) and checks the
-     waveforms and that every DiT self-attention went through K1;
-  7. trains 5 steps at full width (fp32, batch 8, 1500-frame mels padded to
+  5. K4 (fused alias-free Snake) against its plain version at the four
+     BigVGAN serving shapes, Snake and SnakeBeta, logscale on and off, B = 2
+     and T of 1, 5 and 37, fp32 and bf16; times kernel and plain version at
+     each serving shape;
+  6. K5 (fused WaveNet layer) against its plain version at full width and
+     T = 481,280 for every dilation of the config (1..512), and at B = 2 on a
+     ragged T and a T shorter than 2d, fp32 and bf16; times one layer;
+  7. the shipped-width DiT forward (fp32) on the card against the CPU, and
+     the VAE decoder, HiFi-GAN, BigVGAN (73 K4) and PWG (30 K5) likewise at
+     a short length;
+  8. serves 3 requests (20 s clips, bf16 sampler and decoder, CFG 2.0, 25
+     steps) once per vocoder family (hifigan, bigvgan, pwg) and checks the
+     waveforms and the launches per clip: 96 K1, and 73 K4 (bigvgan) or 30
+     K5 (pwg);
+  9. trains 5 steps at full width (fp32, batch 8, 1500-frame mels padded to
      1536) through ``CFMTrainer.fit`` with the shipped LR scaling and
      schedule; checks finite losses, moved weights, a ``last`` checkpoint
      with ``scale_factor``, and 4 K1 + 4 K2 + 4 K3 launches per step;
-  8. one train step at full width (batch 2) on the card and on the CPU from
+ 10. one train step at full width (batch 2) on the card and on the CPU from
      the same weights, batch and draws: loss and gradients agree;
-  9. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
+ 11. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
@@ -53,18 +65,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from versband_tpu_torch.cli.generate import build_vocoder
 from versband_tpu_torch.models.autoencoder import AutoencoderKL
 from versband_tpu_torch.models.cfm import CFM
 from versband_tpu_torch.models.dit import BandMoeDiT
 from versband_tpu_torch.ops import _build
 from versband_tpu_torch.ops import flash_attention as fa
+from versband_tpu_torch.ops import fused_act1d as fa1
+from versband_tpu_torch.ops import fused_wavenet as fw
 from versband_tpu_torch.sample.pipeline import PipelinedGenerator
 from versband_tpu_torch.train.callbacks import Callback
 from versband_tpu_torch.train.lr_schedules import scale_base_lr
 from versband_tpu_torch.train.state import TrainState, make_adamw
 from versband_tpu_torch.train.step import make_cfm_train_step
 from versband_tpu_torch.train.trainer import CFMTrainer
-from versband_tpu_torch.vocoder.hifigan import HifiGAN, HifiGanGenerator
+from versband_tpu_torch.vocoder.bigvgan import BigVGANGenerator
+from versband_tpu_torch.vocoder.hifigan import HifiGanGenerator
+from versband_tpu_torch.vocoder.pwg import ParallelWaveGANGenerator, ResidualBlock
 
 SEED = 0
 SR, HOP = 24000, 320
@@ -79,6 +96,12 @@ VAE = dict(embed_dim=20, ddconfig=dict(
     double_z=True, in_channels=80, out_ch=80, z_channels=20, kernel_size=5, ch=384,
     ch_mult=[1, 2, 4], num_res_blocks=2, attn_layers=[3], down_layers=[0], dropout=0.0))
 LAUNCHES_PER_CLIP = (STEPS - 1) * DIT["depth"]  # one K1 per block per Euler step
+VOCODERS = ("hifigan", "bigvgan", "pwg")  # served in this order; hifigan in bf16
+# the generators' defaults (BigVGANGenerator(), ParallelWaveGANGenerator())
+BIGVGAN_CH0, BIGVGAN_RATES, BIGVGAN_ACTS_PER_STAGE = 512, (5, 4, 4, 4), 3 * 3 * 2
+PWG_R, PWG_GATE, PWG_S, PWG_A, PWG_LAYERS, PWG_PER_STACK = 64, 128, 64, 80, 30, 10
+K4_PER_CLIP = BIGVGAN_ACTS_PER_STAGE * len(BIGVGAN_RATES) + 1  # + activation_post
+K5_PER_CLIP = PWG_LAYERS
 # training: data.params (batch 8, 1500-frame crops), model.base_learning_rate
 # scaled as accum * devices * batch * base, and model.params.scheduler_config
 TRAIN_B, TRAIN_T_MEL, TRAIN_STEPS = 8, 1500, 5
@@ -99,6 +122,14 @@ K1_LSE_TOL = 1e-4
 # to fp32 on both sides and each gradient rounded to bf16 once (half an ulp
 # is 2^-9 of a value, and the largest values set the scale).
 K23_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# K4 against its plain version: fp32 as max|kernel - plain| / max(1, max|plain|)
+# (the JAX test's 2e-5: FIRs and sinf in another order); bf16 / max|plain|
+# (fp32 math on both sides from the same bf16 input, output rounded once).
+K4_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# K5 against its plain version, (x', skip') each over its max|plain|: fp32 1e-5
+# (JAX's bar: sums of 3R + A = 272 and G = 64 terms in another order); bf16
+# x' 1e-2 (rounded to bf16 once), skip' fp32 on both sides 1e-5.
+K5_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
 # fp32 modules on the card against the CPU (TF32 off): summation order over
 # 768-1536-wide products through 4 blocks / ~30 conv layers.
 MODULE_TOL = 2e-3
@@ -159,11 +190,38 @@ def bwd_bound_ms(q, k, kv_len, kernel: str) -> tuple:
 
 
 def reset_launches() -> None:
-    fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+    fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = fa1.LAUNCHES = fw.LAUNCHES = 0
 
 
 def launches() -> tuple:
+    """Launch counts of K1, K2, K3 (the training path's kernels)."""
     return fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV
+
+
+def k4_serving_shapes() -> list:
+    """((C, T), calls) of K4 per 20 s clip through ``BigVGANGenerator()``."""
+    shapes, T = [], T_MEL
+    for i, r in enumerate(BIGVGAN_RATES):
+        T *= r
+        last = i == len(BIGVGAN_RATES) - 1
+        shapes.append(((BIGVGAN_CH0 // 2 ** (i + 1), T), BIGVGAN_ACTS_PER_STAGE + int(last)))
+    return shapes
+
+
+def k4_bound_ms(x) -> tuple:
+    """K4's bound: 24 multiply-adds and 2 Snake evaluations (sin + 4 ops) per
+    output element; x read once, out written once."""
+    return bound_ms((2 * 24 + 2 * 5) * x.numel(), 2 * x.numel() * x.element_size(), x.dtype)
+
+
+def k5_bound_ms(x, A: int, S: int, G: int) -> tuple:
+    """K5's bound: the gate conv and aux 1x1 (3R + A -> 2G), tanh and sigmoid,
+    the skip and out 1x1s (G -> S + R) per sample; x, c, skip read once, x'
+    and skip' written once."""
+    B, R, T = x.shape
+    flops = (2 * (2 * G * (3 * R + A) + (S + R) * G) + 2 * G) * B * T
+    nbytes = B * T * ((R + A + R) * x.element_size() + 2 * S * 4)
+    return bound_ms(flops, nbytes, x.dtype)
 
 
 def phase_card() -> str:
@@ -244,10 +302,13 @@ def phase_k1(dev) -> dict:
               f"kernel at {bound / ms:.1%} of bound")
         timing[dtype] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
     q, k, v = qkv(TRAIN_B, T_TRAIN, T_TRAIN, 8, 96, torch.float32)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
     bound, by = k1_bound_ms(q, k, v, None)
-    print(f"[k1] training float32 q{tuple(q.shape)}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
-          f"({by}), kernel at {bound / ms:.1%} of bound")
+    print(f"[k1] training float32 q{tuple(q.shape)}: kernel {ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib:.4f} ms, bound {bound:.4f} ms ({by}), kernel at "
+          f"{bound / ms:.1%} of bound")
     return {"max_abs_err": errs[("serving", torch.bfloat16)], **timing[torch.bfloat16]}
 
 
@@ -323,6 +384,114 @@ def phase_k23(dev) -> dict:
             "dkv": {"max_abs_err": max(train_err["dk"], train_err["dv"]), **t32["dkv"]}}
 
 
+def _snake_params(gen, C: int, dev, beta: bool, logscale: bool):
+    """Per-channel alpha (and beta): around 0 before exp, or in [0.2, 1.2]."""
+    draw = ((lambda: torch.randn(C, generator=gen, device=dev) * 0.3) if logscale
+            else (lambda: torch.rand(C, generator=gen, device=dev) + 0.2))
+    return draw(), (draw() if beta else None)
+
+
+def phase_k4(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    serving = k4_serving_shapes()
+    cases = [(f"serving C{C}", 1, C, T, True, True) for (C, T), _ in serving]
+    cases += [("snake", 1, 64, 4001, False, True), ("snake lin", 1, 64, 4001, False, False),
+              ("snakebeta lin", 1, 64, 4001, True, False), ("B=2", 2, 32, 3001, True, True)]
+    cases += [(f"T={T}", 2, 8, T, True, True) for T in (1, 5, 37)]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).replace("torch.", "")
+        for name, B, C, T, beta, logscale in cases:
+            x = torch.randn(B, C, T, generator=gen, device=dev).to(dtype)
+            alpha, b = _snake_params(gen, C, dev, beta, logscale)
+            out = fa1.fused_alias_free_snake(x, alpha, b, logscale)
+            ref = fa1.alias_free_snake_reference(x, alpha, b, logscale)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            big = ref.float().abs().max().item()
+            scale = max(1.0, big) if dtype == torch.float32 else big
+            print(f"[k4] {name:13s} {dt:8s} x{tuple(x.shape)} max|kernel-plain| {err:.3e} "
+                  f"(tol {K4_TOL[dtype]:g} x {scale:.3f})")
+            if not (err <= K4_TOL[dtype] * scale and torch.isfinite(out).all()
+                    and out.dtype == dtype):
+                raise AssertionError(f"K4 disagrees with its plain version on {name} {dt}: {err}")
+            errs[(name, dtype)] = err
+
+    timing, clip_ms = {}, 0.0
+    for (C, T), calls in serving:
+        x = torch.randn(1, C, T, generator=gen, device=dev)
+        alpha, b = _snake_params(gen, C, dev, True, True)
+        ms = cuda_ms(lambda: fa1.fused_alias_free_snake(x, alpha, b), 50)
+        plain = cuda_ms(lambda: fa1.alias_free_snake_reference(x, alpha, b), 10)
+        bound, by = k4_bound_ms(x)
+        clip_ms += calls * ms
+        print(f"[k4] serving float32 x[1, {C}, {T}] ({calls} per clip): kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}), kernel at {bound / ms:.1%} "
+              f"of bound")
+        timing[(C, T)] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+    print(f"[k4] {K4_PER_CLIP} launches per clip: {clip_ms:.4f} ms of kernel time")
+    (C, T), _ = serving[-1]
+    return {"max_abs_err": errs[(f"serving C{C}", torch.float32)], **timing[(C, T)],
+            "library_ms": None}
+
+
+def _k5_weights(dev, R: int, G2: int, S: int, A: int, d: int, seed: int):
+    torch.manual_seed(seed)
+    blk = ResidualBlock(3, R, G2, S, A, d).to(dev)
+    return (blk.conv.weight, blk.conv.bias, blk.conv1x1_aux.weight, blk.conv1x1_skip.weight,
+            blk.conv1x1_skip.bias, blk.conv1x1_out.weight, blk.conv1x1_out.bias)
+
+
+def _k5_inputs(gen, dev, B: int, T: int, R: int, A: int, S: int, dtype):
+    return (torch.randn(B, R, T, generator=gen, device=dev).to(dtype),
+            torch.randn(B, A, T, generator=gen, device=dev).to(dtype),
+            torch.randn(B, S, T, generator=gen, device=dev))
+
+
+@torch.no_grad()
+def phase_k5(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    R, G2, S, A = PWG_R, PWG_GATE, PWG_S, PWG_A
+    T = T_MEL * HOP
+    dilations = [2 ** i for i in range(PWG_PER_STACK)]
+    cases = [("serving", 1, T, d, torch.float32) for d in dilations]
+    cases.append(("serving", 1, T, 1, torch.bfloat16))
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [("B=2 ragged", 2, 3001, 4, dtype), ("B=2 T<2d", 2, 700, 512, dtype)]
+    errs = {}
+    for name, B, t, d, dtype in cases:
+        dt = str(dtype).replace("torch.", "")
+        w = _k5_weights(dev, R, G2, S, A, d, SEED + d)
+        x, c, skip = _k5_inputs(gen, dev, B, t, R, A, S, dtype)
+        got = fw.fused_wavenet_layer(x, c, skip, *w, d)
+        ref = fw.wavenet_layer_reference(x, c, skip, *w, d)
+        torch.cuda.synchronize()
+        row = []
+        for a, r, tol in zip(got, ref, K5_TOL[dtype]):
+            err, big = (a.float() - r.float()).abs().max().item(), r.float().abs().max().item()
+            row.append(err)
+            if not (err <= tol * big and torch.isfinite(a).all()):
+                raise AssertionError(f"K5 disagrees with its plain version on {name} d={d} "
+                                     f"{dt}: {err} > {tol} x {big}")
+        print(f"[k5] {name:10s} {dt:8s} x[{B}, {R}, {t}] d={d:3d}: max|kernel-plain| x' "
+              f"{row[0]:.3e} skip' {row[1]:.3e} (tol {K5_TOL[dtype][0]:g} / "
+              f"{K5_TOL[dtype][1]:g} x max|plain|)")
+        errs[(name, d, dtype)] = max(row)
+
+    timing = {}
+    x, c, skip = _k5_inputs(gen, dev, 1, T, R, A, S, torch.float32)
+    for d in (1, dilations[-1]):
+        w = _k5_weights(dev, R, G2, S, A, d, SEED + d)
+        ms = cuda_ms(lambda: fw.fused_wavenet_layer(x, c, skip, *w, d), 20)
+        plain = cuda_ms(lambda: fw.wavenet_layer_reference(x, c, skip, *w, d), 5)
+        bound, by = k5_bound_ms(x, A, S, G2 // 2)
+        print(f"[k5] serving float32 x[1, {R}, {T}] d={d}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of "
+              f"bound; {K5_PER_CLIP} layers per clip {K5_PER_CLIP * ms:.2f} ms")
+        timing[d] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+    return {"max_abs_err": errs[("serving", 1, torch.float32)], **timing[1], "library_ms": None}
+
+
 def perturb_zero_init(model: torch.nn.Module, seed: int, std: float = 0.02) -> None:
     """adaLN-zero layers and attention gates start at 0 (the DiT would output
     0); give them small random values."""
@@ -381,6 +550,28 @@ def phase_modules(dev) -> None:
         if not err <= MODULE_TOL:
             raise AssertionError(f"{name} on the card disagrees with the CPU: {err}")
 
+    # BigVGAN and PWG at full width, fp32: card (K4 / K5) against CPU (plain)
+    mel = torch.from_numpy(rng.randn(1, 80, 48).astype(np.float32))
+    noise = torch.from_numpy(rng.randn(1, 1, 44 * HOP).astype(np.float32))  # 48 - 2 x 2 frames
+    torch.manual_seed(SEED + 2)
+    big = BigVGANGenerator().eval()
+    pwg = ParallelWaveGANGenerator(fused_inference=True).eval()
+    for name, model, args, counter, want in (
+            ("BigVGAN", big, (mel,), fa1, K4_PER_CLIP),
+            ("ParallelWaveGAN", pwg, (noise, mel), fw, K5_PER_CLIP)):
+        ref = model(*args)
+        model.to(dev)
+        n = counter.LAUNCHES
+        out = model(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        n = counter.LAUNCHES - n
+        err = _max_diff(out, ref)
+        print(f"[modules] {name} fp32 {tuple(ref.shape)} card ({n} launches of "
+              f"{'K4' if counter is fa1 else 'K5'}) vs CPU (plain): max|d| {err:.3e} "
+              f"(tol {MODULE_TOL:g}), |out|max {ref.abs().max():.3f}")
+        if not (err <= MODULE_TOL and n == want and ref.abs().max() > 0):
+            raise AssertionError(f"{name} on the card: max|d| {err}, {n} launches (want {want})")
+
 
 def build_serving(dev, n_requests: int = N_REQUESTS):
     """The shipped-width serving models in bf16 (random weights from SEED),
@@ -391,7 +582,7 @@ def build_serving(dev, n_requests: int = N_REQUESTS):
                                       params=VAE),
               mel_dim=20, scale_factor=1.0, device=dev, dtype=DTYPE)
     perturb_zero_init(cfm.model, SEED)
-    voc = HifiGAN(device=dev, dtype=DTYPE, seed=SEED)
+    voc = build_vocoder("hifigan", device=dev, dtype=DTYPE)  # seed 0 = SEED
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     uncond = {"caption": torch.zeros(1, 80, 1024, device=dev, dtype=DTYPE),
@@ -408,9 +599,12 @@ def build_serving(dev, n_requests: int = N_REQUESTS):
     return cfm, voc, uncond, requests
 
 
-def phase_serve(dev) -> dict:
-    cfm, voc, uncond, requests = build_serving(dev)
-    events, launches = [], []
+def serve_family(family: str, cfm, voc, uncond, requests) -> dict:
+    """Serve ``requests`` through ``PipelinedGenerator`` with vocoder ``voc``;
+    check the waveforms and the launches per clip; print the per-clip times."""
+    events, counts = [], []
+    want_k4 = K4_PER_CLIP if family == "bigvgan" else 0
+    want_k5 = K5_PER_CLIP if family == "pwg" else 0
 
     def sample_fn(cond, generator):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -419,7 +613,7 @@ def phase_serve(dev) -> dict:
         ev[0].record()
         z = cfm.sample_cfg(cond, CFG_SCALE, uncond, generator, timesteps=STEPS)
         ev[1].record()
-        launches.append(fa.LAUNCHES - n0)
+        counts.append([fa.LAUNCHES - n0])
         return z
 
     def decode_fn(z):
@@ -428,42 +622,60 @@ def phase_serve(dev) -> dict:
         return mel
 
     def vocode_fn(mel):
-        wav = voc.model(mel)[0]
+        n4, n5 = fa1.LAUNCHES, fw.LAUNCHES
+        wav = voc.waveform(mel)[0]
         events[-1][3].record()
+        counts[-1] += [fa1.LAUNCHES - n4, fw.LAUNCHES - n5]
         return wav
 
     pipe = PipelinedGenerator(sample_fn, decode_fn, vocode_fn, depth=2)
     torch.cuda.synchronize()
-    fa.LAUNCHES = 0  # count only the main path's launches
+    reset_launches()  # count only the main path's launches
     t0 = time.perf_counter()
     with torch.inference_mode():
         wavs = list(pipe.generate(requests))
     wall = time.perf_counter() - t0
-    main_launches = fa.LAUNCHES
+    main = {"k1": fa.LAUNCHES, "k4": fa1.LAUNCHES, "k5": fw.LAUNCHES}
 
     n = T_MEL * HOP
     for i, w in enumerate(wavs):
         if w.shape != (n,) or not np.isfinite(w).all() or not w.std() > 0:
-            raise AssertionError(f"request {i}: waveform shape {w.shape}, "
+            raise AssertionError(f"{family} request {i}: waveform shape {w.shape}, "
                                  f"finite {np.isfinite(w).all()}, std {w.std()}")
-    if launches != [LAUNCHES_PER_CLIP] * N_REQUESTS or main_launches != sum(launches):
-        raise AssertionError(f"K1 launches per request {launches}, total {main_launches}; "
-                             f"expected {LAUNCHES_PER_CLIP} each")
+    want = [LAUNCHES_PER_CLIP, want_k4, want_k5]
+    if counts != [want] * len(requests) or [main["k1"], main["k4"], main["k5"]] != \
+            [sum(c[j] for c in counts) for j in range(3)]:
+        raise AssertionError(f"{family}: K1/K4/K5 launches per request {counts}, total {main}; "
+                             f"expected {want} each")
     audio_s = n / SR
     rows = []
     for i, ev in enumerate(events):
         r = dict(sample=ev[0].elapsed_time(ev[1]), decode=ev[1].elapsed_time(ev[2]),
                  vocode=ev[2].elapsed_time(ev[3]), total=ev[0].elapsed_time(ev[3]))
         rows.append(r)
-        print(f"[serve] request {i}: waveform [{n}] finite, K1 launches {launches[i]}; "
-              + ", ".join(f"{k} {v:.2f} ms" for k, v in r.items()))
+        print(f"[serve] {family} request {i}: waveform [{n}] finite, K1/K4/K5 launches "
+              f"{counts[i]}; " + ", ".join(f"{k} {v:.2f} ms" for k, v in r.items()))
     med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
-    print(f"[serve] per clip (median of {N_REQUESTS}, device time): "
+    print(f"[serve] per clip ({family}, median of {len(rows)}, device time): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
-          + f"; rtf {audio_s / (med['total'] / 1e3):.2f}x for {audio_s:.3f} s of audio")
-    print(f"[serve] host wall for {N_REQUESTS} pipelined requests {wall * 1e3:.1f} ms "
-          f"({audio_s * N_REQUESTS / wall:.2f}x real time)")
-    return {"launches": main_launches}
+          + f"; rtf {audio_s / (med['total'] / 1e3):.2f}x for {audio_s:.3f} s of audio; "
+          f"vocoder rtf {audio_s / (med['vocode'] / 1e3):.2f}x")
+    print(f"[serve] {family}: host wall for {len(rows)} pipelined requests {wall * 1e3:.1f} ms "
+          f"({audio_s * len(rows) / wall:.2f}x real time)")
+    return main
+
+
+def phase_serve(dev, families=VOCODERS) -> dict:
+    """Serve the requests once per vocoder family, HiFi-GAN (bf16, the
+    serving dtype) first; the other two as ``build_vocoder`` builds them
+    (fp32)."""
+    cfm, voc, uncond, requests = build_serving(dev)
+    served = {}
+    for family in families:
+        if family != "hifigan":
+            voc = build_vocoder(family, device=dev)
+        served[family] = serve_family(family, cfm, voc, uncond, requests)
+    return served
 
 
 def training_configs():
@@ -650,26 +862,38 @@ def main() -> None:
     phase_build()
     k1 = phase_k1(dev)
     k23 = phase_k23(dev)
+    k4 = phase_k4(dev)
+    k5 = phase_k5(dev)
     phase_modules(dev)
     served = phase_serve(dev)
     trained = phase_train(dev)
     phase_grad_parity(dev)
     n_train = trained["launches"]
+    n_serve = {k: sum(f[k] for f in served.values()) for k in ("k1", "k4", "k5")}
     bwd_src = "versband_tpu_torch/ops/csrc/flash_attn_bwd.cu"
     table = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/flash_attn_fwd.cu",
          "replaces": "versband_tpu/ops/flash_attention.py:57",
-         "launches": served["launches"] + n_train[0], **k1},
+         "launches": n_serve["k1"] + n_train[0], **k1},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": bwd_src,
          "replaces": "versband_tpu/ops/flash_attention.py:162", "launches": n_train[1],
          **k23["dq"]},
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": bwd_src,
          "replaces": "versband_tpu/ops/flash_attention.py:196", "launches": n_train[2],
          **k23["dkv"]},
+        {"name": "fused_alias_free_snake", "route": "cuda",
+         "source": "versband_tpu_torch/ops/csrc/fused_act1d.cu",
+         "replaces": "versband_tpu/ops/fused_act1d.py:94", "launches": n_serve["k4"], **k4},
+        {"name": "fused_wavenet_layer", "route": "cuda",
+         "source": "versband_tpu_torch/ops/csrc/fused_wavenet.cu",
+         "replaces": "versband_tpu/ops/fused_wavenet.py:46", "launches": n_serve["k5"], **k5},
     ]
-    print(f"kernels: {[k['name'] for k in table]}; K1 launches: serving {served['launches']}, "
-          f"training {n_train[0]}")
+    if not all(k["launches"] > 0 for k in table):
+        raise AssertionError(f"a kernel did not run on the main path: "
+                             f"{[(k['name'], k['launches']) for k in table]}")
+    print(f"kernels: {[k['name'] for k in table]}; K1 launches: serving {n_serve['k1']}, "
+          f"training {n_train[0]}; K4 {n_serve['k4']} (bigvgan), K5 {n_serve['k5']} (pwg)")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,7 @@
 
 * Round trip: the port's state_dict -> the JAX package's converter ->
   ``state_dict_from_jax`` gives back the same keys and bit-identical values,
-  for every family of the slice.
+  for every family of the port (DiT, VAE, HiFi-GAN, BigVGAN, PWG).
 * No file of ``versband_tpu_torch/`` and not ``chip_smoke.py`` imports
   ``jax``, ``flax`` or ``versband_tpu``.
 """
@@ -17,8 +17,11 @@ import torch
 from versband_tpu_torch.models.autoencoder import AutoencoderKL
 from versband_tpu_torch.models.dit import BandMoeDiT
 from versband_tpu_torch.utils.convert import state_dict_from_jax
+from versband_tpu_torch.vocoder.bigvgan import BigVGANGenerator
 from versband_tpu_torch.vocoder.hifigan import HifiGanGenerator
-from torch_port_helpers import DIT_TINY, VAE_TINY, VOC_TINY, to_jax
+from versband_tpu_torch.vocoder.pwg import ParallelWaveGANGenerator
+from torch_port_helpers import (BIGVGAN_TINY, DIT_TINY, PWG_TINY, VAE_TINY, VOC_TINY,
+                                randomize_, to_jax)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "flax", "versband_tpu"}
@@ -30,6 +33,9 @@ FORBIDDEN = {"jax", "flax", "versband_tpu"}
     ("hifigan", lambda: HifiGanGenerator(**{**VOC_TINY, "resblock_kernel_sizes": (3, 7, 11),
                                             "resblock_dilation_sizes": ((1, 3, 5),) * 3}),
      {"num_resblock_kernels": 3}),
+    ("bigvgan", lambda: randomize_(BigVGANGenerator(**BIGVGAN_TINY), 1),
+     {"num_resblock_kernels": 2}),
+    ("pwg", lambda: ParallelWaveGANGenerator(**PWG_TINY), {}),
 ])
 def test_state_dict_round_trip(family, build, kw):
     torch.manual_seed(0)
@@ -45,7 +51,7 @@ def test_state_dict_round_trip(family, build, kw):
 
 def test_unknown_family_raises():
     with pytest.raises(ValueError, match="family"):
-        state_dict_from_jax({}, "bigvgan")
+        state_dict_from_jax({}, "nsf")
 
 
 def _imported_roots(path: Path):

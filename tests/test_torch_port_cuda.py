@@ -14,6 +14,15 @@ plain backward as max|kernel - plain| / max|plain|: fp32 1e-4 (summation
 order over up to 768 rows or keys, same fp32 arithmetic); bf16 1e-2 (both
 sides compute in fp32 from the same bf16 inputs and round each gradient to
 bf16 once: half an ulp is 2^-9 of a value).
+
+K4 (fused alias-free Snake) against its plain version: fp32 2e-5 x max(1,
+max|plain|) (the JAX test's bar: FIRs and sinf in another order); bf16 1e-2
+x max|plain| (both sides compute in fp32 from the same bf16 input and round
+the output to bf16 once). K5 (fused WaveNet layer): x' and skip' each within
+1e-5 x their largest plain value in fp32 (JAX's bar: sums over 3R + A and G
+terms in another order); in bf16, x' within 1e-2 x (rounded to bf16 once)
+and skip' 1e-5 x (fp32 on both sides from the same widened inputs). The
+plain versions' convolutions run with TF32 off.
 """
 
 import math
@@ -23,18 +32,24 @@ import pytest
 import torch
 
 from versband_tpu_torch.ops import flash_attention as fa
+from versband_tpu_torch.ops import fused_act1d as fa1
+from versband_tpu_torch.ops import fused_wavenet as fw
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+K4_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+K5_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-5)}  # (x', skip')
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -229,3 +244,114 @@ def test_dit_training_step_goes_through_k1_k2_k3(cuda):
     for layer in gpu.layers:
         for w in (layer.attention.wq, layer.attention.wk, layer.attention.wv):
             assert w.weight.grad.abs().max() > 0
+
+
+def _k4_check(x, alpha, beta, logscale):
+    n = fa1.LAUNCHES
+    out = fa1.fused_alias_free_snake(x, alpha, beta, logscale)
+    torch.cuda.synchronize()
+    assert fa1.LAUNCHES == n + 1 and out.dtype == x.dtype and out.shape == x.shape
+    ref = fa1.alias_free_snake_reference(x, alpha, beta, logscale)
+    big = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = max(1.0, big) if x.dtype == torch.float32 else big
+    assert torch.isfinite(out).all() and err <= K4_TOL[x.dtype] * scale, (err, big)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,T", [(1, 32, 5000), (2, 16, 1), (2, 16, 5), (1, 8, 37),
+                                   (2, 4, 2049)])
+def test_k4_against_plain(cuda, dtype, B, C, T):
+    g = torch.Generator(cuda).manual_seed(T)
+    x = torch.randn(B, C, T, generator=g, device=cuda).to(dtype)
+    alpha, beta = (torch.randn(C, generator=g, device=cuda) * 0.3 for _ in range(2))
+    _k4_check(x, alpha, beta, True)
+
+
+@pytest.mark.parametrize("variant", ["snake", "snakebeta"])
+@pytest.mark.parametrize("logscale", [True, False])
+def test_k4_variants_and_strided_input(cuda, variant, logscale):
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(2, 1500, 6, generator=g, device=cuda).transpose(1, 2)  # [B, C, T] view
+    alpha = torch.rand(6, generator=g, device=cuda) + 0.2
+    beta = torch.rand(6, generator=g, device=cuda) + 0.2 if variant == "snakebeta" else None
+    _k4_check(x, alpha, beta, logscale)
+
+
+def _k5_layer(cuda, R, G2, S, A, d, seed):
+    from versband_tpu_torch.vocoder.pwg import ResidualBlock
+
+    torch.manual_seed(seed)
+    blk = ResidualBlock(3, R, G2, S, A, d).to(cuda)
+    return (blk.conv.weight, blk.conv.bias, blk.conv1x1_aux.weight, blk.conv1x1_skip.weight,
+            blk.conv1x1_skip.bias, blk.conv1x1_out.weight, blk.conv1x1_out.bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(64, 128, 64, 80), (8, 16, 6, 5)])
+@pytest.mark.parametrize("B,T,d", [(2, 1000, 1), (2, 333, 7), (1, 50, 64), (1, 2048, 512)])
+def test_k5_against_plain(cuda, dtype, widths, B, T, d):
+    R, G2, S, A = widths
+    w = _k5_layer(cuda, R, G2, S, A, d, T + d)
+    g = torch.Generator(cuda).manual_seed(d)
+    x = torch.randn(B, R, T, generator=g, device=cuda).to(dtype)
+    c = torch.randn(B, A, T, generator=g, device=cuda).to(dtype)
+    skip = torch.randn(B, S, T, generator=g, device=cuda)
+    n = fw.LAUNCHES
+    with torch.no_grad():
+        xo, so = fw.fused_wavenet_layer(x, c, skip, *w, d)
+        torch.cuda.synchronize()
+        assert fw.LAUNCHES == n + 1 and xo.dtype == dtype and so.dtype == torch.float32
+        rx, rs = fw.wavenet_layer_reference(x, c, skip, *w, d)
+    for got, ref, tol in zip((xo, so), (rx, rs), K5_TOL[dtype]):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_wrappers_raise_and_do_not_fall_back(cuda):
+    """float16 is taken by neither kernel: a TypeError, no plain-version answer."""
+    x = torch.zeros(1, 4, 16, device=cuda, dtype=torch.float16)
+    n = fa1.LAUNCHES
+    with pytest.raises(TypeError):
+        fa1.fused_alias_free_snake(x, torch.zeros(4, device=cuda))
+    assert fa1.LAUNCHES == n
+    w = _k5_layer(cuda, 4, 8, 4, 3, 1, 0)
+    c = torch.zeros(1, 3, 16, device=cuda, dtype=torch.float16)
+    skip = torch.zeros(1, 4, 16, device=cuda)
+    n = fw.LAUNCHES
+    with pytest.raises(TypeError):
+        fw.fused_wavenet_layer(x, c, skip, *w, 1)
+    with pytest.raises(ValueError, match="G, S, R"):
+        fw.fused_wavenet_layer(torch.zeros(1, 4, 16, device=cuda),
+                               torch.zeros(1, 3, 16, device=cuda), skip,
+                               *_k5_layer(cuda, 4, 160, 4, 3, 1, 0), 1)
+    assert fw.LAUNCHES == n
+
+
+def test_vocoder_forwards_launch_k4_and_k5(cuda):
+    """One BigVGAN forward (2 stages x 2 AMP blocks x 3 dilations x 2
+    activations + activation_post = 25 K4) and one PWG forward (6 layers = 6
+    K5) at small widths, against the same modules on the CPU."""
+    import copy
+
+    from versband_tpu_torch.vocoder.bigvgan import BigVGANGenerator
+    from versband_tpu_torch.vocoder.pwg import ParallelWaveGANGenerator
+
+    torch.manual_seed(0)
+    big = BigVGANGenerator(num_mels=80, upsample_initial_channel=32, upsample_rates=(4, 4),
+                           upsample_kernel_sizes=(8, 8), resblock_kernel_sizes=(3, 7),
+                           resblock_dilation_sizes=((1, 3, 5),) * 2).eval()
+    pwg = ParallelWaveGANGenerator(layers=6, stacks=3, residual_channels=16, gate_channels=32,
+                                   skip_channels=16, aux_channels=80, upsample_scales=(4, 4),
+                                   fused_inference=True).eval()
+    rng = np.random.RandomState(0)
+    mel = torch.from_numpy(rng.randn(1, 80, 24).astype(np.float32))
+    noise = torch.from_numpy(rng.randn(1, 1, 20 * 16).astype(np.float32))
+    with torch.no_grad():
+        for model, args, counter, want in ((big, (mel,), fa1, 25), (pwg, (noise, mel), fw, 6)):
+            n = counter.LAUNCHES
+            out = copy.deepcopy(model).to(cuda)(*(a.to(cuda) for a in args))
+            torch.cuda.synchronize()
+            assert counter.LAUNCHES - n == want
+            ref = model(*args)
+            assert (out.cpu() - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())

@@ -23,6 +23,21 @@ VAE_TINY = dict(embed_dim=4, ddconfig=dict(
 VOC_TINY = dict(upsample_initial_channel=32, upsample_rates=(4, 4),
                 upsample_kernel_sizes=(8, 8), resblock_kernel_sizes=(3, 7),
                 resblock_dilation_sizes=((1, 3, 5),) * 2)
+BIGVGAN_TINY = dict(num_mels=80, **VOC_TINY)
+PWG_TINY = dict(layers=6, stacks=3, residual_channels=16, gate_channels=32, skip_channels=16,
+                aux_channels=20, aux_context_window=2, upsample_scales=(2, 2))
+
+
+def randomize_(module: torch.nn.Module, seed: int, std: float = 0.2,
+               names=("alpha", "beta")) -> torch.nn.Module:
+    """Add N(0, std) to the parameters whose last name is in ``names`` (Snake
+    parameters start at a constant; the comparison should not rest on it)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.rsplit(".", 1)[-1] in names:
+                p.add_(torch.randn(p.shape, generator=g) * std)
+    return module
 
 
 def to_jax(module: torch.nn.Module, family: str, **kw):

@@ -1,10 +1,13 @@
 """PyTorch/CUDA port of ``versband_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package ``versband_tpu`` is the reference; this package holds its own
-copies of everything it needs and never imports it. The slice ported so far is
-the 20 s accompaniment serving path: Band-MoE DiT inside the CFG Euler
-sampler, VAE decode and HiFi-GAN, with the flash-attention forward as a CUDA
-kernel written for ``sm_90a`` (``ops/csrc/flash_attn_fwd.cu``).
+copies of everything it needs and never imports it. Ported so far: the 20 s
+accompaniment serving path (Band-MoE DiT inside the CFG Euler sampler, VAE
+decode, then HiFi-GAN, BigVGAN or ParallelWaveGAN through
+``cli.generate.build_vocoder``) and the CFM training step with its trainer.
+Every Pallas kernel of the JAX package is a CUDA kernel written for
+``sm_90a`` here (``ops/csrc/``): the flash-attention forward and backward,
+BigVGAN's fused alias-free Snake and PWG's fused WaveNet layer.
 
 Entry points build their models on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.

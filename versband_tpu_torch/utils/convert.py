@@ -2,9 +2,9 @@
 
 ``state_dict_from_jax(params, family)`` takes a flax param tree of
 ``versband_tpu`` (nested dicts of arrays, optionally under ``"params"``) for
-``family`` in ``{"dit", "vae", "hifigan"}`` and returns a state_dict that
-loads into the matching port module. It inverts the JAX package's torch ->
-flax converter without importing it:
+``family`` in ``{"dit", "vae", "hifigan", "bigvgan", "pwg"}`` and returns a
+state_dict that loads into the matching port module. It inverts the JAX
+package's torch -> flax converter without importing it:
 
 * Dense kernels ``[in, out]`` -> ``[out, in]``; Conv ``[k, in, out]`` ->
   ``[out, in, k]``; ConvTranspose ``[k, in, out]`` -> ``[in, out, k]``;
@@ -12,6 +12,14 @@ flax converter without importing it:
 * stacked experts ``[E, d, h]`` -> ``{grp}_experts.{e}.w{n}.weight``;
 * caption cross-attention ``wq/wk/wv`` -> packed ``in_proj_weight/bias``;
 * ``resblocks_{i}_{j}`` -> ``resblocks.{i*K+j}``;
+* BigVGAN: ``ups_{i}`` -> ``ups.{i}.0`` (transposed conv), ``acts1_{n}`` /
+  ``acts2_{n}`` -> ``activations.{2n}`` / ``{2n+1}.act`` (AMPBlock1),
+  ``acts_{n}`` -> ``activations.{n}.act`` (AMPBlock2), ``activation_post`` ->
+  ``activation_post.act``;
+* PWG: ``conv_layers_{i}`` -> ``conv_layers.{i}``, ``last_conv_{0,1}`` ->
+  ``last_conv_layers.{1,3}``, the upsampler's ``conv_{j}`` ``(2s+1, fk, 1,
+  1)`` -> ``upsample_net.upsample.up_layers.{2j+1}.weight`` ``[1, 1, fk,
+  2s+1]``;
 * ``kernel_v``/``kernel_g`` folded with the JAX convention (per output channel).
 """
 
@@ -60,6 +68,34 @@ def _hifigan_rules(num_kernels: int) -> List[Tuple[str, Repl]]:
          lambda m: f"resblocks.{int(m[1]) * num_kernels + int(m[2])}."),
         (r"(convs[12]?)_(\d+)/", r"\1.\2."),
     ]
+
+
+def _bigvgan_rules(num_kernels: int) -> List[Tuple[str, Repl]]:
+    return [
+        (r"^ups_(\d+)/", r"ups.\1.0."),
+        *_hifigan_rules(num_kernels)[1:],
+        (r"\bacts1_(\d+)/", lambda m: f"activations.{2 * int(m[1])}.act."),
+        (r"\bacts2_(\d+)/", lambda m: f"activations.{2 * int(m[1]) + 1}.act."),
+        (r"\bacts_(\d+)/", r"activations.\1.act."),
+        (r"^activation_post/", "activation_post.act/"),
+    ]
+
+
+_PWG_RULES: List[Tuple[str, Repl]] = [
+    (r"^conv_layers_(\d+)/", r"conv_layers.\1."),
+    (r"^last_conv_0/", "last_conv_layers.1."),
+    (r"^last_conv_1/", "last_conv_layers.3."),
+]
+
+
+def _pwg_special(flat: Dict[str, np.ndarray], sd: Dict[str, np.ndarray]) -> None:
+    """The upsampler's ``(2s+1, fk, 1, 1)`` stencils -> the reference's
+    ``Conv2d`` weights ``[1, 1, fk, 2s+1]`` after each ``Stretch2d``
+    (popped from ``flat``)."""
+    for key in [k for k in flat if re.match(r"^upsample_net/upsample/conv_\d+$", k)]:
+        j = int(key.rsplit("_", 1)[1])
+        sd[f"upsample_net.upsample.up_layers.{2 * j + 1}.weight"] = \
+            flat.pop(key).transpose(2, 3, 1, 0)
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -119,8 +155,9 @@ def _dit_special(flat: Dict[str, np.ndarray], sd: Dict[str, np.ndarray]) -> None
 
 def state_dict_from_jax(params: Dict[str, Any], family: str) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a ``versband_tpu`` param tree of ``family``."""
-    if family not in ("dit", "vae", "hifigan"):
-        raise ValueError(f"unknown family {family!r}; expected dit, vae or hifigan")
+    if family not in ("dit", "vae", "hifigan", "bigvgan", "pwg"):
+        raise ValueError(f"unknown family {family!r}; expected dit, vae, hifigan, bigvgan "
+                         f"or pwg")
     tree = params.get("params", params)
     flat = _fold(_flatten(tree))
     sd: Dict[str, np.ndarray] = {}
@@ -129,11 +166,15 @@ def state_dict_from_jax(params: Dict[str, Any], family: str) -> Dict[str, torch.
         rules = _DIT_RULES
     elif family == "vae":
         rules = _VAE_RULES
+    elif family == "pwg":
+        _pwg_special(flat, sd)
+        rules = _PWG_RULES
     else:
         ks = [int(m[1]) for k in flat if (m := re.match(r"^resblocks_\d+_(\d+)/", k))]
-        rules = _hifigan_rules(1 + max(ks) if ks else 1)
+        num_kernels = 1 + max(ks) if ks else 1
+        rules = (_hifigan_rules if family == "hifigan" else _bigvgan_rules)(num_kernels)
     for path, w in flat.items():
-        transposed = family == "hifigan" and path.startswith("ups_")
+        transposed = family in ("hifigan", "bigvgan") and path.startswith("ups_")
         key, w = _leaf(_rename(path, rules), w, transposed)
         sd[key] = w
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}

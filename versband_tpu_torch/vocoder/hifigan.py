@@ -105,9 +105,10 @@ _CONFIG_KEYS = [("audio_num_mel_bins", "in_channels"),
 
 def load_generator_state_dict(path: str) -> dict:
     """A generator state_dict from a reference checkpoint (``state_dict`` ->
-    ``model_gen``, weight norm folded) or from the port's own ``torch.save``."""
+    ``model_gen``; ``generator``; ``model`` -> ``generator``; weight norm
+    folded) or from the port's own ``torch.save``."""
     obj = torch.load(path, map_location="cpu", weights_only=False)
-    for key in ("state_dict", "model_gen", "generator"):
+    for key in ("state_dict", "model", "model_gen", "generator"):
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):
             obj = obj[key]
     return fold_torch_weight_norm(obj)
@@ -150,14 +151,18 @@ class HifiGAN:
         return found[-1] if found else None
 
     @torch.no_grad()
+    def waveform(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel ``[B, in_channels, T]`` on the wrapper's device -> ``[B, T*hop]``
+        there, queued without waiting."""
+        return self.model(mel)
+
     def spec2wav(self, mel) -> np.ndarray:
         mel = torch.as_tensor(np.asarray(mel) if not torch.is_tensor(mel) else mel)
         if mel.ndim == 2:
             mel = mel[None]
         if mel.shape[1] != self.model.in_channels:
             mel = mel.transpose(1, 2)
-        wav = self.model(mel.to(self.device))
-        return wav.float().cpu().numpy().reshape(-1)
+        return self.waveform(mel.to(self.device)).float().cpu().numpy().reshape(-1)
 
     def vocode(self, mel) -> np.ndarray:
         if np.ndim(mel) != 2:

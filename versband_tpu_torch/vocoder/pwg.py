@@ -1,0 +1,242 @@
+"""ParallelWaveGAN vocoder (port of the generator half of ``versband_tpu/vocoder/pwg.py``).
+
+``ParallelWaveGANGenerator`` maps (noise ``[B, 1, T]``, mel ``[B, 80, T']``)
+to a waveform ``[B, 1, T]`` through 30 gated WaveNet residual layers over the
+noise, conditioned on the upsampled mel
+(``parallel_wavegan/models/parallel_wavegan.py:21-205``). With
+``fused_inference`` each layer is one call of ``fused_wavenet_layer`` (K5 on
+the card, its plain version on the CPU), an fp32 skip accumulator threaded
+through the layers; otherwise the dense layers run as the reference's.
+
+Parameter names are the reference's: ``first_conv``;
+``upsample_net.conv_in``; ``upsample_net.upsample.up_layers.{2j+1}`` (the
+``Conv2d [1, 1, fk, 2s+1]`` after each nearest ``Stretch2d``);
+``conv_layers.{i}.{conv,conv1x1_aux,conv1x1_skip,conv1x1_out}``;
+``last_conv_layers.{1,3}``. The mel upsampler is the reference's
+nearest-stretch + ``(fk, 2s+1)`` conv, which computes the same function as
+the JAX package's 3-tap phase form. Not ported (no caller on the serving
+path): ``use_pitch_embed``, the discriminators, ``ResidualStack``, MelGAN
+and PQMF.
+"""
+
+from __future__ import annotations
+
+import glob
+import math
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from versband_tpu_torch.device import DeviceLike, resolve_device
+from versband_tpu_torch.ops.fused_wavenet import fused_wavenet_layer
+from versband_tpu_torch.vocoder.hifigan import load_generator_state_dict
+
+
+class ResidualBlock(nn.Module):
+    """Gated WaveNet residual block (``layers/residual_block.py:39-130``):
+    dilated conv -> split -> (+ aux 1x1) -> tanh * sigmoid -> skip and
+    residual 1x1s."""
+
+    def __init__(self, kernel_size: int = 3, residual_channels: int = 64,
+                 gate_channels: int = 128, skip_channels: int = 64, aux_channels: int = 80,
+                 dilation: int = 1, use_bias: bool = True):
+        super().__init__()
+        self.kernel_size, self.dilation = kernel_size, dilation
+        self.conv = nn.Conv1d(residual_channels, gate_channels, kernel_size,
+                              padding=(kernel_size - 1) // 2 * dilation, dilation=dilation,
+                              bias=use_bias)
+        self.conv1x1_aux = nn.Conv1d(aux_channels, gate_channels, 1, bias=False)
+        self.conv1x1_out = nn.Conv1d(gate_channels // 2, residual_channels, 1, bias=use_bias)
+        self.conv1x1_skip = nn.Conv1d(gate_channels // 2, skip_channels, 1, bias=use_bias)
+
+    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor],
+                skip: Optional[torch.Tensor] = None):
+        """Returns ``(x', s)``. When ``skip`` (the fp32 ``[B, S, T]``
+        accumulator) and ``c`` are given and the kernel is 3 taps, the layer
+        is one ``fused_wavenet_layer`` call and ``s`` is ``skip + new skip``;
+        otherwise the dense path runs and ``s`` is this layer's skip alone
+        (or ``skip + s`` in skip's type when ``skip`` is given)."""
+        if skip is not None and c is not None and self.kernel_size == 3:
+            return fused_wavenet_layer(
+                x, c, skip, self.conv.weight, self.conv.bias, self.conv1x1_aux.weight,
+                self.conv1x1_skip.weight, self.conv1x1_skip.bias, self.conv1x1_out.weight,
+                self.conv1x1_out.bias, self.dilation)
+        h = self.conv(x)
+        xa, xb = h.chunk(2, dim=1)
+        if c is not None:
+            ca, cb = self.conv1x1_aux(c).chunk(2, dim=1)
+            xa, xb = xa + ca, xb + cb
+        z = torch.tanh(xa) * torch.sigmoid(xb)
+        s = self.conv1x1_skip(z)
+        out = (self.conv1x1_out(z) + x) * math.sqrt(0.5)
+        return (out, skip + s.to(skip.dtype)) if skip is not None else (out, s)
+
+
+class Stretch2d(nn.Module):
+    """Nearest-neighbour stretch of the last axis by ``scale``."""
+
+    def __init__(self, scale: int):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, c: torch.Tensor) -> torch.Tensor:
+        return torch.repeat_interleave(c, self.scale, dim=-1)
+
+
+class UpsampleNetwork(nn.Module):
+    """Nearest stretch + ``(fk, 2s+1)`` smoothing conv per scale
+    (``layers/upsample.py:61-123``). ``[B, C, T] -> [B, C, T * prod(scales)]``."""
+
+    def __init__(self, upsample_scales: Sequence[int], freq_axis_kernel_size: int = 1):
+        super().__init__()
+        self.up_layers = nn.ModuleList()
+        fk = freq_axis_kernel_size
+        for scale in upsample_scales:
+            conv = nn.Conv2d(1, 1, (fk, 2 * scale + 1), padding=((fk - 1) // 2, scale),
+                             bias=False)
+            nn.init.constant_(conv.weight, 1.0 / (fk * (2 * scale + 1)))  # upsample.py:47-58
+            self.up_layers.extend([Stretch2d(scale), conv])
+
+    def forward(self, c: torch.Tensor) -> torch.Tensor:
+        c = c.unsqueeze(1)
+        for f in self.up_layers:
+            c = f(c)
+        return c.squeeze(1)
+
+
+class ConvInUpsampleNetwork(nn.Module):
+    """Context conv (kernel 2w+1, no padding, no bias) + ``UpsampleNetwork``
+    (``layers/upsample.py:125-175``). ``[B, C, T' + 2w] -> [B, C, T' * hop]``."""
+
+    def __init__(self, upsample_scales: Sequence[int], aux_channels: int = 80,
+                 aux_context_window: int = 2, freq_axis_kernel_size: int = 1):
+        super().__init__()
+        self.conv_in = nn.Conv1d(aux_channels, aux_channels, 2 * aux_context_window + 1,
+                                 bias=False)
+        self.upsample = UpsampleNetwork(upsample_scales, freq_axis_kernel_size)
+
+    def forward(self, c: torch.Tensor) -> torch.Tensor:
+        return self.upsample(self.conv_in(c))
+
+
+class ParallelWaveGANGenerator(nn.Module):
+    """(noise ``[B, 1, T]``, mel ``[B, aux, T' + 2w]``) -> wav ``[B, 1, T]``."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1, kernel_size: int = 3,
+                 layers: int = 30, stacks: int = 3, residual_channels: int = 64,
+                 gate_channels: int = 128, skip_channels: int = 64, aux_channels: int = 80,
+                 aux_context_window: int = 2, upsample_scales: Sequence[int] = (4, 4, 4, 5),
+                 use_upsample: bool = True, fused_inference: bool = False):
+        super().__init__()
+        self.kernel_size, self.layers = kernel_size, layers
+        self.skip_channels, self.aux_channels = skip_channels, aux_channels
+        self.aux_context_window = aux_context_window
+        self.upsample_scales = tuple(upsample_scales)
+        self.fused_inference = fused_inference
+        self.first_conv = nn.Conv1d(in_channels, residual_channels, 1)
+        self.upsample_net = ConvInUpsampleNetwork(upsample_scales, aux_channels,
+                                                  aux_context_window) if use_upsample else None
+        per_stack = layers // stacks
+        self.conv_layers = nn.ModuleList([
+            ResidualBlock(kernel_size, residual_channels, gate_channels, skip_channels,
+                          aux_channels, 2 ** (i % per_stack)) for i in range(layers)])
+        self.last_conv_layers = nn.ModuleList([
+            nn.ReLU(), nn.Conv1d(skip_channels, skip_channels, 1), nn.ReLU(),
+            nn.Conv1d(skip_channels, out_channels, 1)])
+
+    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype = self.first_conv.weight.dtype
+        x = x.to(dtype)
+        if c is not None:
+            c = c.to(dtype)
+            if self.upsample_net is not None:
+                c = self.upsample_net(c)
+            if c.shape[-1] != x.shape[-1]:
+                raise ValueError(f"aux length {c.shape[-1]} != noise length {x.shape[-1]}")
+        h = self.first_conv(x)
+        fused = self.fused_inference and c is not None and self.kernel_size == 3
+        if fused:  # fp32 skip accumulator threaded through K5
+            skips = torch.zeros(h.shape[0], self.skip_channels, h.shape[-1],
+                                dtype=torch.float32, device=h.device)
+            c = c.contiguous()
+            for layer in self.conv_layers:
+                h, skips = layer(h, c, skip=skips)
+            skips = skips.to(dtype)
+        else:
+            skips = 0.0
+            for layer in self.conv_layers:
+                h, s = layer(h, c)
+                skips = skips + s
+        z = skips * math.sqrt(1.0 / self.layers)
+        for f in self.last_conv_layers:
+            z = f(z)
+        return z
+
+
+class ParallelWaveGAN:
+    """Runtime wrapper serving ``vocode(mel)`` like ``HifiGAN`` and
+    ``VocoderBigVGAN``. The mel is edge-padded by ``aux_context_window``
+    frames per side (consumed by the unpadded ``conv_in``), so the waveform
+    covers all T' frames (T' x hop samples); the WaveNet input is standard
+    normal noise drawn from a ``torch.Generator`` on the wrapper's device,
+    seeded from ``seed`` (torch draws, not the JAX package's). Weights: a
+    directory with a generator checkpoint in the reference's names
+    (``model_gen.pt``, ``generator.pt`` or the parallel_wavegan library's
+    ``checkpoint-*steps.pkl``, whose ``model -> generator`` is read; torch
+    weight norm folded), or none (random init from ``seed``). K5 serves by
+    default (``fused_inference=True``).
+    """
+
+    def __init__(self, vocoder_ckpt: Optional[str] = None, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32, fused_inference: bool = True,
+                 seed: int = 0, **overrides):
+        self.device = resolve_device(device)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.model = ParallelWaveGANGenerator(fused_inference=fused_inference, **overrides)
+        self.hop = int(np.prod(self.model.upsample_scales))
+        path = self._find_ckpt(vocoder_ckpt) if vocoder_ckpt else None
+        if path is not None:
+            self.model.load_state_dict(load_generator_state_dict(path))
+        self.model.to(device=self.device, dtype=dtype).eval()
+        self.dtype = dtype
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    @staticmethod
+    def _find_ckpt(ckpt_dir: str) -> Optional[str]:
+        for name in ("model_gen.pt", "generator.pt"):
+            path = os.path.join(ckpt_dir, name)
+            if os.path.exists(path):
+                return path
+        found = sorted(glob.glob(os.path.join(ckpt_dir, "checkpoint-*steps.pkl")))
+        return found[-1] if found else None
+
+    @torch.no_grad()
+    def waveform(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel ``[B, aux, T']`` on the wrapper's device -> ``[B, T' * hop]``
+        there, queued without waiting; draws the noise."""
+        w = self.model.aux_context_window
+        mel = F.pad(mel.to(self.dtype), (w, w), mode="replicate")
+        noise = torch.randn((mel.shape[0], 1, (mel.shape[-1] - 2 * w) * self.hop),
+                            generator=self.generator, device=self.device, dtype=self.dtype)
+        return self.model(noise, mel)[:, 0]
+
+    def spec2wav(self, mel) -> np.ndarray:
+        mel = torch.as_tensor(np.asarray(mel) if not torch.is_tensor(mel) else mel)
+        if mel.ndim == 2:
+            mel = mel[None]
+        if mel.shape[1] != self.model.aux_channels:
+            mel = mel.transpose(1, 2)
+        return self.waveform(mel.to(self.device)).float().cpu().numpy().reshape(-1)
+
+    def vocode(self, mel) -> np.ndarray:
+        if np.ndim(mel) != 2:
+            raise ValueError("vocode takes one mel [n_mels, T]")
+        return self.spec2wav(mel)
+
+    def __call__(self, mel) -> np.ndarray:
+        return self.spec2wav(mel)
