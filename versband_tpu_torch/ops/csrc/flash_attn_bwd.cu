@@ -13,38 +13,73 @@
 // sum: the result is deterministic run to run.
 //
 // What bounds them on the card: at the training shape (q/k/v/dO
-// [8, 768, 8, 96] fp32) K2 is 6*B*H*Tq*Tk*D = 21.7 GFLOP against 95 MB moved
-// (q, k, v, dO, lse, delta read, dq written) and K3 8*B*H*Tq*Tk*D = 29.0
-// GFLOP against 114 MB, 230-255 FLOP per byte, far above the fp32 ridge of
-// ~20: the fp32 FMA rate bounds them (0.32 ms and 0.43 ms at 67 TFLOP/s).
+// [8, 768, 8, 96]) K2 is 6*B*H*Tq*Tk*D = 21.7 GFLOP against 95 MB moved in
+// fp32 (q, k, v, dO, lse, delta read, dq written) and K3 8*B*H*Tq*Tk*D = 29.0
+// GFLOP against 114 MB, 230-255 FLOP per byte: operations bound them in
+// either type. For bf16 that is the bf16 tensor-core rate; for fp32 inputs,
+// which must keep fp32 accuracy, the faster of fp32 FMA and three TF32
+// tensor-core passes per product.
 //
-// What the design does about that: everything runs as fp32 FMA from shared
-// memory, for both input types (bf16 inputs are widened on load, as the TPU
-// kernels cast to fp32), so the arithmetic is the plain version's. A block
-// of 256 threads owns one 64-row tile -- queries in K2, keys in K3 -- of one
-// (b, h) and streams the other side through shared memory in 64-row tiles;
-// its accumulators (dQ, or dK and dV) stay in registers across the stream.
-// Each thread owns a 4-row x 4-column (scores) or 4-row x D/16-column
-// (gradients) register tile of every product, so each pair of shared loads
-// feeds 2 FMAs and the 64x64 score tiles never reach device memory. Tiles
-// are stored row-major with an odd pitch (D + 1, 65), which makes both the
-// row reads and the transposed column reads of q k^T, dO v^T, P^T dO and
-// dS^T q free of bank conflicts. K3 reads P and dS transposed by computing
-// the score tile transposed (keys as rows: S^T = K Q^T) in the first place.
+// What the design does about that: all five products run on the tensor cores
+// through mma.sync with fp32 accumulators.
+// * bf16 inputs: m16n8k16 bf16. Tiles sit in shared memory as bf16 and reach
+//   the registers through ldmatrix (.trans where the contraction runs over
+//   the rows of the stored tile).
+// * fp32 inputs: each operand is split in registers into a TF32 head
+//   (cvt.rna.tf32.f32 of a) and a tail (a - head, of which the tensor core
+//   reads the upper 10 mantissa bits), and each product is three m16n8k8
+//   TF32 mma, small terms first: tail.head + head.tail + head.head.
+//   Only tail.tail and the tail's own cut, ~2^-21 of a term, are dropped, so
+//   the result is fp32-accurate; a single TF32 pass would not be. The tensor
+//   core adds into its accumulator with truncation, which over a chain of
+//   hundreds of adds costs more than the split does; so the small terms of
+//   the score products are summed apart from the head.head chain, and each
+//   streamed tile's share of a gradient is summed from zero and added to the
+//   running gradient in fp32. exp (exp2f of the log2 e-scaled argument), the
+//   scale, lse, delta and those sums stay fp32.
+// * P and dS never leave registers. The accumulator fragment of the score
+//   product is re-packed, after exp and the (dP - delta) factor, as the A
+//   operand of the next product. For m16n8k16 two 8-column accumulator tiles
+//   make one 16-deep A fragment. For m16n8k8 a thread holds columns 2t, 2t+1
+//   of an accumulator tile but k-slots t, t+4 of an A fragment; the
+//   contraction does not care in which order the keys are summed, so slot t
+//   is read as key 2t and slot t+4 as key 2t+1, and the B operand is fetched
+//   with the same permutation (scalar loads of rows 2t and 2t+1).
+// * K3 computes the score tile transposed in the first place (keys as rows:
+//   S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T come out as row-major A
+//   fragments for dV += P^T dO and dK += dS^T Q.
+// * A block of 8 warps owns one 128-row tile (queries with dO in K2, keys
+//   with values in K3), 16 rows per warp, loaded once; its accumulators (dQ,
+//   or dK and dV) stay in registers. The other side streams through a
+//   two-stage ring of cp.async loads (16 bytes per thread, zero-filled past
+//   the last row), 64 rows per stage in bf16 and 32 in fp32: after the one
+//   barrier of a tile the next tile's loads are started and fly while this
+//   one is multiplied; K3's lse and delta ride in the ring with the query
+//   tile. Rows are padded by 16 bytes: the pitch is an odd number of 16-byte
+//   units, which keeps ldmatrix, and the scalar loads of the permuted fp32
+//   operand, free of bank conflicts.
+// * Shared memory at D = 96: 106,496 B (bf16) and 154,112 B (fp32), one block
+//   of 8 warps per SM (the kernels hold 180-255 registers a thread, so 8
+//   warps is what an SM takes either way). Two 64-row blocks per SM,
+//   measured against one 128-row block on an H100, were no faster in bf16
+//   and slower in fp32: every block streams the whole other side from L2,
+//   and half as many blocks stream half as much.
 // Ragged Tq/Tk edges and kv_len are masked in the kernel; P is set to 0
-// before any use on masked entries, so the finite lse of a fully masked row
-// never reaches exp. A tensor-core (mma.sync / wgmma) version is later work.
+// before exp on masked entries, so the finite lse of a fully masked row never
+// reaches exp. Every row the loads touch must start on a 16-byte boundary;
+// the wrapper copies an input whose rows do not.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BLOCK = 64;          // rows of the owned tile and of each streamed tile
-constexpr int NUM_THREADS = 256;   // 16 x 16 threads
-constexpr int RPT = 4;             // rows of a 64-row tile per thread (16 * 4 = 64)
-constexpr int LDP = BLOCK + 1;     // pitch of the 64x64 score tiles in shared memory
+constexpr int BM = 128;               // rows of the owned tile: 8 warps x 16
+constexpr int NUM_THREADS = 2 * BM;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -65,145 +100,395 @@ struct Params {
   float scale;
 };
 
+// Sizes of the shared-memory tiles of one (type, head dim).
+template <typename T, int D>
+struct Tile {
+  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
+  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int BN = BF16 ? 64 : 32;               // rows of a streamed tile
+  static constexpr int VEC = 16 / (int)sizeof(T);         // elements per 16 bytes
+  static constexpr int LD = D + VEC;                      // row pitch in elements
+  static constexpr int PITCH = LD * (int)sizeof(T);       // row pitch in bytes
+  static constexpr int KSTEPS = D * (int)sizeof(T) / 32;  // mma k-steps over D (32 bytes each)
+  static constexpr int NT = BN / 8;                       // 8-column tiles of a score tile
+  static constexpr int DT = D / 8;                        // 8-column tiles of a gradient
+  // k-steps of the score products unrolled together: all of them in bf16; two
+  // in fp32, where a full unroll makes ptxas hoist loads until it spills
+  static constexpr int K_UNROLL = BF16 ? KSTEPS : 2;
+  static constexpr int OWNED_BYTES = BM * PITCH;
+  static constexpr int STAGE_BYTES = BN * PITCH;
+  static constexpr int STATS_BYTES = 2 * BN * (int)sizeof(float);  // lse, delta of a stage
+  // two owned tiles, two stages of two streamed tiles, two stages of stats
+  static constexpr int SMEM_BYTES = 2 * OWNED_BYTES + 4 * STAGE_BYTES + 2 * STATS_BYTES;
+  static_assert((PITCH / 16) % 2 == 1, "pitch must be an odd number of 16-byte units");
+};
+
 __device__ __forceinline__ int valid_keys(const Params& p, int b) {
   int n = p.kv_len ? p.kv_len[b] : p.Tk;
   return max(0, min(n, p.Tk));
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------- PTX
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-// Rows [row0, row0 + 64) of one (b, h) slice into shared memory as fp32,
-// pitch D + 1; rows at or past `nrows` are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long row_stride,
+// 16 bytes from device to shared memory, asynchronously; `bytes` of them (16
+// or 0) are read, the rest is filled with zeros.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// x = head + tail: the head is x rounded to TF32 (cvt.rna, 10-bit mantissa),
+// the tail the exact fp32 rest, of which the tensor core reads the upper 10
+// mantissa bits (a TF32 operand's low 13 bits are not read on sm_90), so
+// head + tail-as-read is x to 2^-21. Rounding the tail with a second cvt.rna
+// costs a second half-rate conversion per element for nothing measurable.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& head, uint32_t& tail) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(head) : "f"(x));
+  tail = __float_as_uint(x - __uint_as_float(head));
+}
+
+// An A operand of one k-step: for bf16 the packed fragment in `head`; for
+// fp32 the TF32 heads and tails of its four values.
+struct AFrag {
+  uint32_t head[4];
+  uint32_t tail[4];
+};
+
+// From the four registers ldmatrix delivers (bf16 pairs, or fp32 values).
+template <bool BF16>
+__device__ __forceinline__ void a_from_raw(AFrag& a, const uint32_t (&raw)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (BF16) {
+      a.head[i] = raw[i];
+    } else {
+      split_tf32(__uint_as_float(raw[i]), a.head[i], a.tail[i]);
+    }
+  }
+}
+
+// One k-step. bf16: c += a b in one m16n8k16. fp32 (b0, b1 hold fp32 values):
+// three m16n8k8 TF32 passes, the two small terms (tail.head, head.tail) into
+// `small`, head.head into `c`; the caller adds the two once its chain ends,
+// or passes the same accumulator twice (small terms first).
+template <bool BF16>
+__device__ __forceinline__ void mma_step(float (&c)[4], float (&small)[4], const AFrag& a,
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (BF16) {
+    mma_bf16(c, a.head, b0, b1);
+  } else {
+    uint32_t h0, t0, h1, t1;
+    split_tf32(__uint_as_float(b0), h0, t0);
+    split_tf32(__uint_as_float(b1), h1, t1);
+    mma_tf32(small, a.tail, h0, h1);
+    mma_tf32(small, a.head, t0, t1);
+    mma_tf32(c, a.head, h0, h1);
+  }
+}
+
+// ---------------------------------------------------------------- loads
+
+// Rows [row0, row0 + ROWS) of one (b, h) slice into a shared-memory tile of
+// pitch Tile::PITCH by cp.async; rows at or past `nrows` are zero-filled. A
+// power-of-two group of threads takes a row, so each thread keeps its column
+// and steps its pointers by whole rows (no division in the loop; with D = 96
+// a quarter of the threads idle here, which costs less than the index math).
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const T* src, long long row_stride,
                                           int row0, int nrows) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < BLOCK * D; i += NUM_THREADS) {
-    const int r = i / D, c = i % D;
-    const int row = row0 + r;
-    dst[r * LD + c] = row < nrows ? to_f32(src[(long long)row * row_stride + c]) : 0.f;
+  using C = Tile<T, D>;
+  constexpr int CHUNKS = D / C::VEC;  // 16-byte chunks per row
+  constexpr int GROUP = CHUNKS <= 4 ? 4 : CHUNKS <= 8 ? 8 : CHUNKS <= 16 ? 16 : 32;
+  constexpr int PASS = NUM_THREADS / GROUP;  // rows per pass over the tile
+  const int c = threadIdx.x % GROUP, r0 = threadIdx.x / GROUP;
+  if (c >= CHUNKS) return;
+  const T* from = src + (long long)(row0 + r0) * row_stride + c * C::VEC;
+  uint32_t to = dst + r0 * C::PITCH + c * 16;
+#pragma unroll
+  for (int r = r0; r < ROWS; r += PASS) {
+    const bool ok = row0 + r < nrows;
+    cp_async_16(to, ok ? from : src, ok ? 16 : 0);
+    from += PASS * row_stride;
+    to += PASS * C::PITCH;
   }
 }
 
-// The 64 row statistics (lse, delta) of query rows [row0, row0 + 64); 0 past Tq.
-__device__ __forceinline__ void load_stats(float* lse_s, float* delta_s, const Params& p,
-                                           int b, int h, int row0) {
-  if (threadIdx.x < BLOCK) {
-    const int row = row0 + threadIdx.x;
-    const long long idx = ((long long)b * p.H + h) * p.Tq + row;
-    lse_s[threadIdx.x] = row < p.Tq ? p.lse[idx] : 0.f;
-    delta_s[threadIdx.x] = row < p.Tq ? p.delta[idx] : 0.f;
+// lse and delta of query rows [row0, row0 + BN) into dst: [BN] lse, [BN] delta; 0 past Tq.
+template <int BN>
+__device__ __forceinline__ void load_stats(uint32_t dst, const float* lse, const float* delta,
+                                           int row0, int Tq) {
+  for (int i = threadIdx.x; i < 2 * BN; i += NUM_THREADS) {
+    const int r = i % BN;
+    const bool ok = row0 + r < Tq;
+    const float* from = (i < BN ? lse : delta) + (ok ? row0 + r : 0);
+    cp_async_4(dst + i * 4, from, ok ? 4 : 0);
   }
 }
 
-// acc[i][j] += sum_kk A[r0 + i][kk] * B[kk][tx + 16 j] for this thread's
-// 4 rows and NJ columns, with A and B read through compile-time strides.
-template <int K, int NJ, int A_RS, int A_CS, int B_RS, int B_CS>
-__device__ __forceinline__ void tile_product(float (&acc)[RPT][NJ], const float* A,
-                                             const float* B, int r0, int tx) {
-#pragma unroll 4
-  for (int kk = 0; kk < K; ++kk) {
-    float a[RPT], bv[NJ];
+// ---------------------------------------------------------------- products
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) a[i] = A[(r0 + i) * A_RS + kk * A_CS];
+  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
+}
+
+// The two score-shaped products of a tile in one loop, so that their mma
+// chains interleave: acc1 += A1 B1^T and acc2 += A2 B2^T for this warp's 16
+// rows of A and the BN rows of B, all stored with the contraction (head) dim
+// contiguous. The addresses are this lane's ldmatrix row addresses at k-step
+// 0 (see lane_offsets). The tensor core adds into its accumulator with
+// truncation, so in fp32 the small terms are summed apart from the
+// head.head chain and added once at the end: fewer and smaller truncations.
+template <typename T, int D>
+__device__ __forceinline__ void score_products(float (&acc1)[Tile<T, D>::NT][4],
+                                               float (&acc2)[Tile<T, D>::NT][4], uint32_t a1,
+                                               uint32_t b1, uint32_t a2, uint32_t b2) {
+  using C = Tile<T, D>;
+  float small1[C::NT][4], small2[C::NT][4];  // unused, and dropped, in bf16
+  zero(small1);
+  zero(small2);
+#pragma unroll C::K_UNROLL
+  for (int kk = 0; kk < C::KSTEPS; ++kk) {
+    uint32_t raw1[4], raw2[4];
+    ldmatrix_x4(raw1, a1 + kk * 32);
+    ldmatrix_x4(raw2, a2 + kk * 32);
+    AFrag f1, f2;
+    a_from_raw<C::BF16>(f1, raw1);
+    a_from_raw<C::BF16>(f2, raw2);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) bv[j] = B[kk * B_RS + (tx + 16 * j) * B_CS];
+    for (int np = 0; np < C::NT / 2; ++np) {  // two 8-row tiles of B per ldmatrix
+      uint32_t x[4], y[4];
+      ldmatrix_x4(x, b1 + np * 16 * C::PITCH + kk * 32);
+      ldmatrix_x4(y, b2 + np * 16 * C::PITCH + kk * 32);
+      mma_step<C::BF16>(acc1[2 * np], small1[2 * np], f1, x[0], x[1]);
+      mma_step<C::BF16>(acc2[2 * np], small2[2 * np], f2, y[0], y[1]);
+      mma_step<C::BF16>(acc1[2 * np + 1], small1[2 * np + 1], f1, x[2], x[3]);
+      mma_step<C::BF16>(acc2[2 * np + 1], small2[2 * np + 1], f2, y[2], y[3]);
+    }
+  }
+  if constexpr (!C::BF16) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int nt = 0; nt < C::NT; ++nt)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+      for (int r = 0; r < 4; ++r) {
+        acc1[nt][r] += small1[nt][r];
+        acc2[nt][r] += small2[nt][r];
+      }
   }
 }
 
-template <int D>
-constexpr int smem_floats_dq() {
-  return 4 * BLOCK * (D + 1) + BLOCK * LDP + 2 * BLOCK;
+// acc[dt] += F tile, where F (16 x BN) is the score-shaped fragment `f` held
+// in registers and `tile` holds BN rows of D (the contraction runs over the
+// tile's rows).
+template <typename T, int D>
+__device__ __forceinline__ void product_frag(float (&acc)[Tile<T, D>::DT][4],
+                                             const float (&f)[Tile<T, D>::NT][4],
+                                             const unsigned char* tile, int lane) {
+  using C = Tile<T, D>;
+  if constexpr (C::BF16) {
+    // ldmatrix.trans: matrices (rows 0-7 | 8-15 of the k-step) x (cols 0-7 | 8-15)
+    const uint32_t bt =
+        smem_u32(tile) + ((((lane >> 3) & 1) << 3) + (lane & 7)) * C::PITCH + (lane >> 4) * 16;
+#pragma unroll
+    for (int j = 0; j < C::BN / 16; ++j) {
+      AFrag a;
+      a.head[0] = pack_bf16(f[2 * j][0], f[2 * j][1]);
+      a.head[1] = pack_bf16(f[2 * j][2], f[2 * j][3]);
+      a.head[2] = pack_bf16(f[2 * j + 1][0], f[2 * j + 1][1]);
+      a.head[3] = pack_bf16(f[2 * j + 1][2], f[2 * j + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, bt + j * 16 * C::PITCH + dp * 32);
+        mma_step<true>(acc[2 * dp], acc[2 * dp], a, bb[0], bb[1]);
+        mma_step<true>(acc[2 * dp + 1], acc[2 * dp + 1], a, bb[2], bb[3]);
+      }
+    }
+  } else {
+    // k-slot t4 is row 2 t4 of the k-step's 8 rows, slot t4 + 4 is row 2 t4 + 1
+    const int g = lane >> 2, t4 = lane & 3;
+    const float* bt = reinterpret_cast<const float*>(tile) + 2 * t4 * C::LD + g;
+    AFrag a[C::NT];
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt) {
+      split_tf32(f[nt][0], a[nt].head[0], a[nt].tail[0]);  // (g,     2 t4)     -> slot t4
+      split_tf32(f[nt][2], a[nt].head[1], a[nt].tail[1]);  // (g + 8, 2 t4)
+      split_tf32(f[nt][1], a[nt].head[2], a[nt].tail[2]);  // (g,     2 t4 + 1) -> slot t4 + 4
+      split_tf32(f[nt][3], a[nt].head[3], a[nt].tail[3]);  // (g + 8, 2 t4 + 1)
+    }
+    // This tile's share is summed from zero and then added to the running
+    // gradient in fp32 round-to-nearest: the tensor core's truncating adds
+    // see only the BN-long chain, not the whole sequence.
+#pragma unroll
+    for (int dt = 0; dt < C::DT; ++dt) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) {
+        const float b0 = bt[nt * 8 * C::LD + dt * 8];
+        const float b1 = bt[nt * 8 * C::LD + C::LD + dt * 8];
+        mma_step<false>(t, t, a[nt], __float_as_uint(b0), __float_as_uint(b1));
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[dt][r] += t[r];
+    }
+  }
 }
 
-template <int D>
-constexpr int smem_floats_dkv() {
-  return 4 * BLOCK * (D + 1) + 2 * BLOCK * LDP + 2 * BLOCK;
+// This lane's byte offsets into a tile for ldmatrix.x4: `a` for an A operand
+// (rows lane % 16 of the warp's 16, second 16 bytes of the k-step for lanes
+// 16-31), `b` for a B operand stored row-major over the contraction dim
+// (matrices: rows 0-7 k lo, rows 0-7 k hi, rows 8-15 k lo, rows 8-15 k hi).
+template <typename C>
+__device__ __forceinline__ void lane_offsets(int warp, int lane, uint32_t& a, uint32_t& b) {
+  a = (warp * 16 + (lane & 15)) * C::PITCH + (lane >> 4) * 16;
+  b = (((lane >> 4) << 3) + (lane & 7)) * C::PITCH + ((lane >> 3) & 1) * 16;
+}
+
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
 }
 
 // ---------------------------------------------------------------- K2: dQ
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dq(Params p) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int LD = D + 1, NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // [64][LD] this block's query rows
-  float* dOs = Qs + BLOCK * LD;       // [64][LD]
-  float* Ks = dOs + BLOCK * LD;       // [64][LD] streamed keys
-  float* Vs = Ks + BLOCK * LD;        // [64][LD]
-  float* dSs = Vs + BLOCK * LD;       // [64][LDP] dS of the current key tile
-  float* lse_s = dSs + BLOCK * LDP;   // [64]
-  float* delta_s = lse_s + BLOCK;     // [64]
+  using C = Tile<T, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Q [BM], dO [BM] owned; ring stage s: K [BN], V [BN]
+  unsigned char* ring = smem + 2 * C::OWNED_BYTES;
+  const uint32_t q_s = smem_u32(smem), do_s = q_s + C::OWNED_BYTES;
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BLOCK;
-  const int tx = threadIdx.x % 16, r0 = (threadIdx.x / 16) * RPT;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
   const int kv_len = valid_keys(p, b);
+  const int n_tiles = (kv_len + C::BN - 1) / C::BN;  // stop at the last tile with a valid key
 
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* og = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
 
-  load_tile<T, D>(Qs, qg, p.q_st, q0, p.Tq);
-  load_tile<T, D>(dOs, og, p.o_st, q0, p.Tq);
-  load_stats(lse_s, delta_s, p, b, h, q0);
+  float acc[C::DT][4];
+  zero(acc);
 
-  float acc[RPT][NJ];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  if (n_tiles > 0) {
+    load_rows<T, D, BM>(q_s, qg, p.q_st, q0, p.Tq);
+    load_rows<T, D, BM>(do_s, og, p.o_st, q0, p.Tq);
+    load_rows<T, D, C::BN>(smem_u32(ring), kg, p.k_st, 0, p.Tk);
+    load_rows<T, D, C::BN>(smem_u32(ring) + C::STAGE_BYTES, vg, p.v_st, 0, p.Tk);
+    cp_async_commit();
 
-  for (int n0 = 0; n0 < kv_len; n0 += BLOCK) {
-    __syncthreads();  // the previous K/V/dS tile is consumed (and Q/dO/stats are in)
-    load_tile<T, D>(Ks, kg, p.k_st, n0, p.Tk);
-    load_tile<T, D>(Vs, vg, p.v_st, n0, p.Tk);
-    __syncthreads();
-
-    float s[RPT][4], dp[RPT][4];
+    // Each thread holds rows g (index 0) and g + 8 (index 1) of its warp's 16.
+    float lse[2], delta[2];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_product<D, 4, LD, 1, 1, LD>(s, Qs, Ks, r0, tx);    // S  = Q K^T
-    tile_product<D, 4, LD, 1, 1, LD>(dp, dOs, Vs, r0, tx);  // dP = dO V^T
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = r0 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float pij = n0 + c < kv_len ? expf(s[i][j] * p.scale - lse_s[r]) : 0.f;
-        dSs[r * LDP + c] = pij * (dp[i][j] - delta_s[r]);
-      }
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + warp * 16 + g + 8 * i;
+      const long long idx = ((long long)b * p.H + h) * p.Tq + row;
+      lse[i] = row < p.Tq ? p.lse[idx] * LOG2E : 0.f;  // exp(x) = exp2(x log2 e)
+      delta[i] = row < p.Tq ? p.delta[idx] : 0.f;
     }
-    __syncthreads();
-    tile_product<BLOCK, NJ, LDP, 1, LD, 1>(acc, dSs, Ks, r0, tx);  // dQ += dS K
+    uint32_t a_off, b_off;
+    lane_offsets<C>(warp, lane, a_off, b_off);
+    const float scale_log2 = p.scale * LOG2E;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      unsigned char* k_t = ring + (it & 1) * 2 * C::STAGE_BYTES;
+      unsigned char* v_t = k_t + C::STAGE_BYTES;
+      cp_async_wait<0>();  // this thread's part of tile `it` has landed
+      __syncthreads();     // ... and everyone's; every warp is done with tile `it - 1`
+      if (it + 1 < n_tiles) {  // the next tile flies while this one is multiplied
+        const uint32_t nxt = smem_u32(ring) + ((it + 1) & 1) * 2 * C::STAGE_BYTES;
+        load_rows<T, D, C::BN>(nxt, kg, p.k_st, (it + 1) * C::BN, p.Tk);
+        load_rows<T, D, C::BN>(nxt + C::STAGE_BYTES, vg, p.v_st, (it + 1) * C::BN, p.Tk);
+        cp_async_commit();
+      }
+
+      float s[C::NT][4], dp[C::NT][4];
+      zero(s);
+      zero(dp);
+      score_products<T, D>(s, dp, q_s + a_off, smem_u32(k_t) + b_off, do_s + a_off,
+                           smem_u32(v_t) + b_off);  // S = Q K^T, dP = dO V^T
+      const int n0 = it * C::BN;
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int col = n0 + nt * 8 + t4 * 2 + (r & 1);
+          const float pij = col < kv_len ? exp2f(s[nt][r] * scale_log2 - lse[r >> 1]) : 0.f;
+          dp[nt][r] = pij * (dp[nt][r] - delta[r >> 1]);  // dS
+        }
+      }
+      product_frag<T, D>(acc, dp, k_t, lane);  // dQ += dS K
+    }
   }
 
   T* dqg = static_cast<T*>(p.dq);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + r0 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
     if (row >= p.Tq) continue;
-    T* dst = dqg + (((long long)b * p.Tq + row) * p.H + h) * D;
+    T* dst = dqg + (((long long)b * p.Tq + row) * p.H + h) * D + t4 * 2;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dst[tx + 16 * j] = from_f32<T>(acc[i][j] * p.scale);
+    for (int dt = 0; dt < C::DT; ++dt)
+      store2(dst + dt * 8, acc[dt][2 * i] * p.scale, acc[dt][2 * i + 1] * p.scale);
   }
 }
 
@@ -211,80 +496,96 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dq(Params p) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dkv(Params p) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int LD = D + 1, NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;                   // [64][LD] this block's keys
-  float* Vs = Ks + BLOCK * LD;        // [64][LD]
-  float* Qs = Vs + BLOCK * LD;        // [64][LD] streamed query rows
-  float* dOs = Qs + BLOCK * LD;       // [64][LD]
-  float* PTs = dOs + BLOCK * LD;      // [64 keys][LDP] P^T of the current query tile
-  float* dSTs = PTs + BLOCK * LDP;    // [64 keys][LDP] dS^T
-  float* lse_s = dSTs + BLOCK * LDP;  // [64]
-  float* delta_s = lse_s + BLOCK;     // [64]
+  using C = Tile<T, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // K [BM], V [BM] owned; ring stage s: Q [BN], dO [BN]; then stats stage s: lse [BN], delta [BN]
+  unsigned char* ring = smem + 2 * C::OWNED_BYTES;
+  unsigned char* stats = ring + 4 * C::STAGE_BYTES;
+  const uint32_t k_s = smem_u32(smem), v_s = k_s + C::OWNED_BYTES;
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BLOCK;
-  const int tx = threadIdx.x % 16, r0 = (threadIdx.x / 16) * RPT;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int kv_len = valid_keys(p, b);
 
-  float dk[RPT][NJ], dv[RPT][NJ];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+  float dk[C::DT][4], dv[C::DT][4];
+  zero(dk);
+  zero(dv);
 
   if (k0 < kv_len) {  // key tiles wholly past kv_len have zero gradients
     const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
     const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
     const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
     const T* og = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    load_tile<T, D>(Ks, kg, p.k_st, k0, p.Tk);
-    load_tile<T, D>(Vs, vg, p.v_st, k0, p.Tk);
+    const float* lse_g = p.lse + ((long long)b * p.H + h) * p.Tq;
+    const float* delta_g = p.delta + ((long long)b * p.H + h) * p.Tq;
+    const int n_tiles = (p.Tq + C::BN - 1) / C::BN;
 
-    for (int m0 = 0; m0 < p.Tq; m0 += BLOCK) {
-      __syncthreads();  // the previous Q/dO/P/dS tiles are consumed
-      load_tile<T, D>(Qs, qg, p.q_st, m0, p.Tq);
-      load_tile<T, D>(dOs, og, p.o_st, m0, p.Tq);
-      load_stats(lse_s, delta_s, p, b, h, m0);
+    load_rows<T, D, BM>(k_s, kg, p.k_st, k0, p.Tk);
+    load_rows<T, D, BM>(v_s, vg, p.v_st, k0, p.Tk);
+    load_rows<T, D, C::BN>(smem_u32(ring), qg, p.q_st, 0, p.Tq);
+    load_rows<T, D, C::BN>(smem_u32(ring) + C::STAGE_BYTES, og, p.o_st, 0, p.Tq);
+    load_stats<C::BN>(smem_u32(stats), lse_g, delta_g, 0, p.Tq);
+    cp_async_commit();
+
+    uint32_t a_off, b_off;
+    lane_offsets<C>(warp, lane, a_off, b_off);
+    // This thread's two key rows, g (index 0) and g + 8 (index 1) of its warp's 16.
+    const bool key_ok[2] = {k0 + warp * 16 + g < kv_len, k0 + warp * 16 + g + 8 < kv_len};
+
+    for (int it = 0; it < n_tiles; ++it) {
+      unsigned char* q_t = ring + (it & 1) * 2 * C::STAGE_BYTES;
+      unsigned char* do_t = q_t + C::STAGE_BYTES;
+      const float* lse_s = reinterpret_cast<const float*>(stats + (it & 1) * C::STATS_BYTES);
+      const float* delta_s = lse_s + C::BN;
+      cp_async_wait<0>();
       __syncthreads();
+      if (it + 1 < n_tiles) {
+        const int m1 = (it + 1) * C::BN;
+        const uint32_t nxt = smem_u32(ring) + ((it + 1) & 1) * 2 * C::STAGE_BYTES;
+        load_rows<T, D, C::BN>(nxt, qg, p.q_st, m1, p.Tq);
+        load_rows<T, D, C::BN>(nxt + C::STAGE_BYTES, og, p.o_st, m1, p.Tq);
+        load_stats<C::BN>(smem_u32(stats) + ((it + 1) & 1) * C::STATS_BYTES, lse_g, delta_g, m1,
+                          p.Tq);
+        cp_async_commit();
+      }
 
-      float st[RPT][4], dpt[RPT][4];
+      float st[C::NT][4], dpt[C::NT][4];
+      zero(st);
+      zero(dpt);
+      score_products<T, D>(st, dpt, k_s + a_off, smem_u32(q_t) + b_off, v_s + a_off,
+                           smem_u32(do_t) + b_off);  // S^T = K Q^T, dP^T = V dO^T
+      const int m0 = it * C::BN;
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+      for (int nt = 0; nt < C::NT; ++nt) {
+        const int c = nt * 8 + t4 * 2;  // this thread's two query columns: c, c + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_s + c);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-      tile_product<D, 4, LD, 1, 1, LD>(st, Ks, Qs, r0, tx);    // S^T  = K Q^T
-      tile_product<D, 4, LD, 1, 1, LD>(dpt, Vs, dOs, r0, tx);  // dP^T = V dO^T
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = r0 + i;
-        const bool key_ok = k0 + r < kv_len;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          const float pij =
-              key_ok && m0 + c < p.Tq ? expf(st[i][j] * p.scale - lse_s[c]) : 0.f;
-          PTs[r * LDP + c] = pij;
-          dSTs[r * LDP + c] = pij * (dpt[i][j] - delta_s[c]);
+        for (int r = 0; r < 4; ++r) {
+          const bool ok = key_ok[r >> 1] && m0 + c + (r & 1) < p.Tq;
+          const float lse = (r & 1) ? l2.y : l2.x, delta = (r & 1) ? d2.y : d2.x;
+          const float pij = ok ? exp2f((st[nt][r] * p.scale - lse) * LOG2E) : 0.f;
+          st[nt][r] = pij;                          // P^T
+          dpt[nt][r] = pij * (dpt[nt][r] - delta);  // dS^T
         }
       }
-      __syncthreads();
-      tile_product<BLOCK, NJ, LDP, 1, LD, 1>(dv, PTs, dOs, r0, tx);  // dV += P^T dO
-      tile_product<BLOCK, NJ, LDP, 1, LD, 1>(dk, dSTs, Qs, r0, tx);  // dK += dS^T Q
+      product_frag<T, D>(dv, st, do_t, lane);  // dV += P^T dO
+      product_frag<T, D>(dk, dpt, q_t, lane);  // dK += dS^T Q
     }
   }
 
   T* dkg = static_cast<T*>(p.dk);
   T* dvg = static_cast<T*>(p.dv);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = k0 + r0 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + warp * 16 + g + 8 * i;
     if (row >= p.Tk) continue;
-    const long long off = (((long long)b * p.Tk + row) * p.H + h) * D;
+    const long long off = (((long long)b * p.Tk + row) * p.H + h) * D + t4 * 2;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dkg[off + tx + 16 * j] = from_f32<T>(dk[i][j] * p.scale);
-      dvg[off + tx + 16 * j] = from_f32<T>(dv[i][j]);
+    for (int dt = 0; dt < C::DT; ++dt) {
+      store2(dkg + off + dt * 8, dk[dt][2 * i] * p.scale, dk[dt][2 * i + 1] * p.scale);
+      store2(dvg + off + dt * 8, dv[dt][2 * i], dv[dt][2 * i + 1]);
     }
   }
 }
@@ -292,29 +593,29 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dkv(Params p) {
 // ---------------------------------------------------------------- launch
 
 template <typename KernelT>
-cudaError_t launch(KernelT kernel, int smem_floats, int rows, const Params& p,
-                   cudaStream_t stream) {
-  const int smem = smem_floats * (int)sizeof(float);
+cudaError_t launch(KernelT kernel, int smem, int rows, const Params& p, cudaStream_t stream) {
   // Above 48 KB a kernel needs the cap raised (per kernel, cheap to repeat).
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((rows + BLOCK - 1) / BLOCK, p.H, p.B);
+  const dim3 grid((rows + BM - 1) / BM, p.H, p.B);
   kernel<<<grid, NUM_THREADS, smem, stream>>>(p);
   return cudaGetLastError();  // a refused launch (resources) shows here, not at a sync
 }
 
 template <int D>
 cudaError_t dispatch_dq(const Params& p, int is_bf16, cudaStream_t s) {
-  if (is_bf16) return launch(flash_bwd_dq<__nv_bfloat16, D>, smem_floats_dq<D>(), p.Tq, p, s);
-  return launch(flash_bwd_dq<float, D>, smem_floats_dq<D>(), p.Tq, p, s);
+  if (is_bf16)
+    return launch(flash_bwd_dq<__nv_bfloat16, D>, Tile<__nv_bfloat16, D>::SMEM_BYTES, p.Tq, p, s);
+  return launch(flash_bwd_dq<float, D>, Tile<float, D>::SMEM_BYTES, p.Tq, p, s);
 }
 
 template <int D>
 cudaError_t dispatch_dkv(const Params& p, int is_bf16, cudaStream_t s) {
   if (is_bf16)
-    return launch(flash_bwd_dkv<__nv_bfloat16, D>, smem_floats_dkv<D>(), p.Tk, p, s);
-  return launch(flash_bwd_dkv<float, D>, smem_floats_dkv<D>(), p.Tk, p, s);
+    return launch(flash_bwd_dkv<__nv_bfloat16, D>, Tile<__nv_bfloat16, D>::SMEM_BYTES, p.Tk, p,
+                  s);
+  return launch(flash_bwd_dkv<float, D>, Tile<float, D>::SMEM_BYTES, p.Tk, p, s);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout,
@@ -337,8 +638,9 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 // Both entry points return 0 on success, else the CUDA error of the launch.
 // The wrapper (versband_tpu_torch/ops/flash_attention.py) checks shapes,
-// types and strides before calling. `strides` holds the 12 element strides
-// (b, t, h) of q, k, v and dO in that order; D must be 32, 64, 96 or 128.
+// types, strides and the 16-byte alignment of every row before calling.
+// `strides` holds the 12 element strides (b, t, h) of q, k, v and dO in that
+// order; D must be 32, 64, 96 or 128.
 extern "C" int vbt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                      const void* dout, const int* kv_len, const float* lse,
                                      const float* delta, void* dq, int B, int Tq, int Tk,

@@ -12,11 +12,16 @@ has the design.
 K2 (dQ) and K3 (dK, dV) (``csrc/flash_attn_bwd.cu``) replace ``_dq_kernel``
 and ``_dkv_kernel``: P is recomputed from the forward's log-sum-exp, the row
 term ``delta = rowsum(dO * O)`` is computed here in fp32 PyTorch, as the JAX
-package leaves it to XLA, and both kernels run in fp32 FMA for either input
-type. When gradients are needed, :func:`flash_attention` goes through a
-``torch.autograd.Function`` (the counterpart of the JAX ``_flash`` custom
-VJP) whose forward is K1 and whose backward is K2 + K3, so gradients flow
-through the kernels; sampling calls K1 directly.
+package leaves it to XLA. Both kernels run all their products on the tensor
+cores (``mma.sync``, fp32 accumulators): bf16 inputs as bf16, with P and dS
+rounded to bf16 for the second products as K1 rounds P; fp32 inputs as three
+TF32 passes per product over operands split into a TF32 head and tail, which
+keeps fp32 accuracy. Their loads are 16-byte ``cp.async`` copies, so every
+row of q, k, v and dO must start on a 16-byte boundary; the wrappers copy an
+input whose rows do not. When gradients are needed, :func:`flash_attention`
+goes through a ``torch.autograd.Function`` (the counterpart of the JAX
+``_flash`` custom VJP) whose forward is K1 and whose backward is K2 + K3, so
+gradients flow through the kernels; sampling calls K1 directly.
 
 On a CUDA tensor the wrappers launch the kernels or raise; on a CPU tensor
 they run the plain versions (:func:`flash_attention_reference`, the port of
@@ -233,9 +238,20 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
             *flash_attention_bwd_dkv_reference(q, k, v, kv_len, lse, delta, dout, scale))
 
 
+def _rows_on_16_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if 16-byte loads can read its rows (unit-stride head dim, every
+    row starting on a 16-byte boundary), else a contiguous copy of it."""
+    vec = 16 // t.element_size()
+    if t.stride(3) == 1 and not any(s % vec for s in t.stride()[:3]) \
+            and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _bwd_kernel_args(q, k, v, kv_len, lse, delta, dout, scale):
-    """Check what K2 and K3 take; return their common arguments after the
-    pointers, and dout in q's type with a unit-stride head dim."""
+    """Check what K2 and K3 take; return q, k, v and dout (in q's type) as
+    the kernels can load them, kv_len's pointer, and the common arguments
+    after the pointers."""
     _check_kernel_inputs(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
@@ -252,14 +268,12 @@ def _bwd_kernel_args(q, k, v, kv_len, lse, delta, dout, scale):
         raise ValueError(f"dout {tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
     if kv_len is not None and tuple(kv_len.shape) != (B,):
         raise ValueError(f"kv_len must be [B]={B}, got {tuple(kv_len.shape)}")
-    dout = dout.to(q.dtype)
-    if dout.stride(3) != 1:
-        dout = dout.contiguous()
+    q, k, v, dout = (_rows_on_16_bytes(t) for t in (q, k, v, dout.to(q.dtype)))
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *dout.stride()[:3])
     kv_ptr = None if kv_len is None else kv_len.data_ptr()
-    return dout, kv_ptr, (B, Tq, k.shape[1], H, D, strides, scale,
-                          int(q.dtype == torch.bfloat16))
+    return (q, k, v, dout), kv_ptr, (B, Tq, k.shape[1], H, D, strides, scale,
+                                     int(q.dtype == torch.bfloat16))
 
 
 def _kv_len_i32(kv_len: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
@@ -274,14 +288,14 @@ def flash_attention_bwd_dq(q, k, v, kv_len, lse, delta, dout, scale: float) -> t
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     kv_len = _kv_len_i32(kv_len, q.device)
-    dout, kv_ptr, args = _bwd_kernel_args(q, k, v, kv_len, lse, delta, dout, scale)
+    tensors, kv_ptr, args = _bwd_kernel_args(q, k, v, kv_len, lse, delta, dout, scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel() == 0:
         return dq
     with torch.cuda.device(q.device):
-        err = _bwd_kernel_fns()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                                   kv_ptr, lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                                   *args, torch.cuda.current_stream(q.device).cuda_stream)
+        err = _bwd_kernel_fns()[0](*(t.data_ptr() for t in tensors), kv_ptr, lse.data_ptr(),
+                                   delta.data_ptr(), dq.data_ptr(), *args,
+                                   torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd dq launch failed with CUDA error {err}")
     LAUNCHES_DQ += 1
@@ -297,7 +311,7 @@ def flash_attention_bwd_dkv(q, k, v, kv_len, lse, delta, dout, scale: float
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     kv_len = _kv_len_i32(kv_len, q.device)
-    dout, kv_ptr, args = _bwd_kernel_args(q, k, v, kv_len, lse, delta, dout, scale)
+    tensors, kv_ptr, args = _bwd_kernel_args(q, k, v, kv_len, lse, delta, dout, scale)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     if k.numel() == 0:
@@ -305,9 +319,8 @@ def flash_attention_bwd_dkv(q, k, v, kv_len, lse, delta, dout, scale: float
     if q.numel() == 0:
         return dk.zero_(), dv.zero_()
     with torch.cuda.device(q.device):
-        err = _bwd_kernel_fns()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                                   kv_ptr, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                                   dv.data_ptr(), *args,
+        err = _bwd_kernel_fns()[1](*(t.data_ptr() for t in tensors), kv_ptr, lse.data_ptr(),
+                                   delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args,
                                    torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd dkv launch failed with CUDA error {err}")
