@@ -8,8 +8,10 @@ it adds to a clip. At the serving shape (q/k/v ``[2, 752, 8, 96]`` bf16, no
 calls with no synchronize among them (the card's queue takes the kernels;
 the host never waits), then synchronizes. Samples alternate A, B, B, A, so a
 drift in the host's speed falls on both. The other file is loaded as a
-module of its own beside this package and launches the same K1 library.
-Prints microseconds per call for every sample and the median of each side.
+module of its own beside this package and launches the K1 library built from
+its own tree's ``csrc/flash_attn_fwd.cu`` (into ``build/attn_host_cost/``), so
+both the Python wrapper and the C entry point are the other tree's. Prints
+microseconds per call for every sample and the median of each side.
 
 Run from the repository root on a machine with a GPU:
     python3 attn_host_cost.py [--other DIR/versband_tpu_torch/ops/flash_attention.py]
@@ -18,20 +20,40 @@ Run from the repository root on a machine with a GPU:
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 
+from versband_tpu_torch.ops import _build
 from versband_tpu_torch.ops import flash_attention as fa
+
+
+class _OtherLibs:
+    """Stands in for the other module's ``_build``: K1 built from the other
+    tree's source."""
+
+    def __init__(self, src: Path):
+        out = Path("build") / "attn_host_cost" / "libflash_attn_fwd.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+                       check=True, capture_output=True, text=True)
+        self.lib = ctypes.CDLL(str(out.resolve()))
+
+    def load(self, name: str) -> ctypes.CDLL:
+        assert name == "flash_attn_fwd", name
+        return self.lib
 
 
 def load_other(path: str):
     spec = importlib.util.spec_from_file_location("other_flash_attention", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    mod._build = _OtherLibs(Path(path).resolve().parent / "csrc" / "flash_attn_fwd.cu")
     return mod
 
 

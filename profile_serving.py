@@ -6,8 +6,8 @@ weights from its seed), serves one warm-up clip, then runs each stage of one
 20 s clip (sampler, VAE decode, HiFi-GAN) twice: once plain, timed on the
 host clock up to a synchronize, and once under ``torch.profiler``. Prints,
 per stage: wall ms, device-busy ms (union of kernel intervals), the idle
-share of the card, the kernel count, and the kernels that take the most
-device time.
+share of the card, the kernel count, K1's time and launches, and the kernels
+that take the most device time.
 
 Run from the repository root:  python3 profile_serving.py
 """
@@ -54,8 +54,10 @@ def run_stage(name: str, fn) -> object:
         by_name[k.name][0] += 1
         by_name[k.name][1] += (k.time_range.end - k.time_range.start) / 1e3
     k1 = sum(t for n, (_, t) in by_name.items() if "flash_fwd" in n)
+    k1_n = sum(c for n, (c, _) in by_name.items() if "flash_fwd" in n)
     print(f"[{name}] wall {wall:.2f} ms, device busy {busy:.2f} ms, idle {1 - busy / wall:.1%}, "
-          f"{len(kernels)} kernels, K1 {k1:.2f} ms")
+          f"{len(kernels)} kernels, K1 {k1:.3f} ms in {k1_n} launches "
+          f"({k1 / busy:.1%} of busy)")
     for n, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]:
         print(f"[{name}]   {t:8.3f} ms {c:6d}x  {n[:110]}")
     return out

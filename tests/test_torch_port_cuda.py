@@ -6,10 +6,11 @@ it runs on a machine with only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Tolerances against the plain version: K1 fp32 1e-4 (summation order over up
-to 768 keys); bf16 2e-2 (the probabilities and the output are rounded to
-bf16; outputs are O(1)); K1's log-sum-exp 1e-4 absolute on rows with a key
-(fp32 on both sides from the same widened inputs). K2/K3 are held to their
+Tolerances against the plain version: K1 fp32 1e-4 (both products as three
+TF32 passes over split operands, 2^-21 of a term dropped, summed in another
+order over up to 768 keys); bf16 2e-2 (the probabilities and the output are
+rounded to bf16; outputs are O(1)); K1's log-sum-exp 1e-4 absolute on rows
+with a key (fp32 on both sides from the same widened inputs). K2/K3 are held to their
 plain backward as max|kernel - plain| / max|plain|: fp32 1e-4 (products as
 three TF32 passes over split operands, 2^-21 of a term dropped, summed in
 another order over up to 768 rows or keys); bf16 1e-2 (the kernels round P
@@ -86,7 +87,7 @@ def test_training_shape(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
 def test_ragged_varlen_scale(cuda, dtype, D):
     q, k, v = _qkv(cuda, dtype, 3, 100, 203, 2, D)
     kv_len = torch.tensor([203, 0, 77], dtype=torch.int32, device=cuda)
@@ -103,6 +104,63 @@ def test_strided_views_and_lse(cuda, dtype):
     _, lse = _check(q, k, v)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / D ** 0.5
     torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Tq,Tk", [(1, 1), (1, 129), (63, 65), (65, 63), (129, 1), (129, 257)])
+def test_lengths_off_the_tile_grid(cuda, dtype, Tq, Tk):
+    """Tq and Tk of 1, just under and just over a 32- or 64-key tile, and
+    just over the 128-row query tile: the zero-filled rows of the last tiles
+    add nothing, and rows past Tq are not written."""
+    _check(*_qkv(cuda, dtype, 2, Tq, Tk, 2, 96, seed=Tq + Tk))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kv_len_cuts_inside_a_tile(cuda, dtype):
+    q, k, v = _qkv(cuda, dtype, 6, 70, 200, 2, 64)
+    lens = [1, 31, 33, 100, 129, 200]  # inside the first 32-key tile, and later ones
+    out, _ = _check(q, k, v, torch.tensor(lens, dtype=torch.int32, device=cuda))
+    for b, n in enumerate(lens):  # each row sees exactly its first n keys
+        ref = fa.flash_attention_reference(q[b:b + 1, :, :, :], k[b:b + 1, :n], v[b:b + 1, :n])
+        assert (out[b:b + 1].float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fwd_is_bit_equal_over_two_runs(cuda, dtype):
+    q, k, v = _qkv(cuda, dtype, 8, 768, 768, 8, 96)
+    kv_len = torch.tensor([768, 700, 1, 333, 768, 0, 65, 767], dtype=torch.int32, device=cuda)
+    first = _check(q, k, v, kv_len)
+    second = _check(q, k, v, kv_len)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert (first[0][5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fwd_rows_off_16_byte_boundaries_are_copied(cuda, dtype):
+    """q/k/v whose rows start one element off a 16-byte boundary, or whose
+    row stride is not a multiple of 16 bytes, give bit for bit what their
+    aligned copies give: the wrapper copies them for the kernel's 16-byte
+    loads, as the JAX kernel takes any layout."""
+    B, T, H, D = 2, 70, 2, 64
+    aligned = _qkv(cuda, dtype, B, T, T, H, D)
+    shifted, padded = [], []
+    for t in aligned:
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:] = t.flatten()
+        shifted.append(buf[1:].view(B, T, H, D))
+        assert shifted[-1].data_ptr() % 16 != 0
+        buf = torch.zeros(B, T, H, D + 1, dtype=dtype, device=cuda)
+        buf[..., :D] = t
+        padded.append(buf[..., :D])
+    want = fa.flash_attention_fwd(*aligned)
+    for q, k, v in (shifted, padded):
+        n = fa.LAUNCHES
+        got = fa.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == n + 1  # the kernel, not a plain fallback
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 def test_rejects_unsupported_inputs(cuda):

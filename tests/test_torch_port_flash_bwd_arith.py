@@ -40,6 +40,8 @@ import torch
 from versband_tpu.ops.flash_attention import flash_attention as jax_flash
 from versband_tpu_torch.ops import flash_attention as fa
 
+from torch_port_helpers import split_tf32, tf32_round
+
 K23_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # x max|plain|, as on the card
 STREAM_ROWS = {torch.float32: 32, torch.bfloat16: 64}
 LOG2E = 1.4426950408889634
@@ -53,22 +55,6 @@ CASES = {
     "scale d128": ((2, 33, 100, 2, 128), None, 0.3),
     "d32 cut in tile": ((2, 130, 70, 2, 32), [70, 5], None),
 }
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """fp32 -> TF32, to nearest with ties away from zero (``cvt.rna.tf32.f32``)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32_read(x: torch.Tensor) -> torch.Tensor:
-    """What the tensor core reads of an fp32 register: the low 13 bits cut."""
-    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def split_tf32(x: torch.Tensor):
-    head = tf32_round(x)
-    return head, tf32_read(x - head)
 
 
 def product(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:

@@ -92,6 +92,24 @@ def jax_context(midi, beats, caption):
             "c_crossattn": jnp.asarray(caption)}
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32, to nearest with ties away from zero (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor core reads of an fp32 register: the low 13 bits cut."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """x as the flash kernels split an fp32 operand: (TF32 head, tail as the
+    tensor core reads it)."""
+    head = tf32_round(x)
+    return head, tf32_read(x - head)
+
+
 class Draws:
     """Stands in for a ``jax.random`` sampler: returns the given arrays (in
     their own dtypes) in call order."""

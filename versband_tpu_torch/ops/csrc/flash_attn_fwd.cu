@@ -10,35 +10,64 @@
 //
 // What bounds it on the card: at the serving shape (q/k/v [2, 752, 8, 96]
 // bf16, unmasked) one launch is 4*B*H*T^2*D = 3.47 GFLOP against 2.3 MB of
-// q/k/v/out, about 1,500 FLOP per byte, far above the H100's ~295 FLOP/B
-// ridge: the tensor cores bound it (3.5 us at 989 TFLOP/s bf16), not memory.
+// q/k/v/out, about 1,500 FLOP per byte: the tensor cores bound it (3.5 us at
+// 989 TFLOP/s bf16, 5.4 us at the 644 TFLOP/s that mma.sync reaches on an
+// H100), not memory. The fp32 training shape [8, 768, 8, 96] is 14.5 GFLOP,
+// 88 us as three TF32 passes at 495 / 3 TFLOP/s.
 //
-// What the design does about that: the bf16 path runs both products (q k^T
-// and p v) on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-// accumulate). The scores never leave registers: the S accumulator fragment
-// is re-packed in place as the A operand of the P.V product (the FA2 layout
-// trick), so the T x T matrix never touches shared or device memory. A block
-// owns one 64-row query tile of one (b, h): 4 warps x 16 rows, 2*8*12 = 192
-// blocks at the serving shape for 132 SMs. K and V stream through shared
-// memory in 64-key tiles; the loop stops at the last tile holding a valid
-// key. q/k/v are read in their [B, T, H, D] layout through strides (no
-// transpose or pad copies); ragged Tq/Tk edges are masked in the kernel.
-// The probabilities are rounded to bf16 for the P.V product (the reference
-// keeps them in fp32); that costs ~2^-9 relative error per term, well inside
-// the bf16 output rounding. The fp32 path is a plain FMA kernel (two threads
-// per query row) that keeps every product in fp32. A wgmma/TMA pipeline is
-// later work.
+// What the design does about that: both products (S = q k^T and O += P v)
+// run on the tensor cores through mma.sync with fp32 accumulators.
+// * bf16 inputs: m16n8k16 bf16. q's A fragments come by ldmatrix.x4 at every
+//   key tile (held in registers they would cost 48 at D = 96 with two
+//   m-tiles, and spill), K's B fragments by ldmatrix.x4, V's by
+//   ldmatrix.x4.trans. P is rounded to bf16
+//   for P v, as before.
+// * fp32 inputs: three m16n8k8 TF32 passes per product over operands split
+//   into a TF32 head (cvt.rna) and a tail (the exact rest): tail.head +
+//   head.tail + head.head, 2^-21 of a term dropped, fp32-accurate (the scheme
+//   of flash_attn_bwd.cu). q is split once per block into a head tile and a
+//   tail tile in shared memory and read back by ldmatrix. The tensor core adds
+//   into its accumulator with truncation, so the score's small terms are
+//   summed apart from the head.head chain, and each key tile's P v is summed
+//   from zero and added in fp32 to the rescaled running O (o = o alpha + pv).
+//   P is split in registers and re-packed as the A operand with the slot
+//   permutation of K2 (k-slot t is key 2t, slot t + 4 key 2t + 1), and V's B
+//   operand is fetched with the same permutation.
+// * The scores never leave registers: the accumulator fragment of S becomes
+//   the A operand of P v after exp. The softmax runs in log2 units (logits
+//   times scale * log2 e, ex2.approx); lse is converted back at the end.
+// * K and V stream through a ring of 16-byte cp.async copies (zero-filled
+//   past the last row), one barrier per tile: the next tile's copies fly
+//   while this one is multiplied. Rows are padded by 16 bytes, so the pitch is an
+//   odd number of 16-byte units and ldmatrix and the permuted scalar loads
+//   are free of bank conflicts.
+// * Block shape (Cfg): 128 query rows, WARPS warps of MT 16-row m-tiles
+//   each; a warp's m-tiles share every K and V fragment it loads. Every
+//   block reads all of K and V of its (b, h) from L2, so 128-row blocks move
+//   half the traffic of 64-row ones.
+//   - bf16: 4 warps x 2 m-tiles, 64-key tiles, 2 stages; 79,872 B of
+//     shared memory at D = 96, one block per SM.
+//   - fp32: 8 warps x 1 m-tile, 32-key tiles, 2 stages; 153,600 B (q's head
+//     and tail, then the ring) at D = 96, one block per SM.
+// q/k/v are read in their [B, T, H, D] layout through strides; ragged Tq/Tk
+// edges are masked in the kernel; every row must start on a 16-byte boundary
+// (the wrapper copies an input whose rows do not). No atomics: reruns are
+// bit-equal.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int BLOCK_M = 64;     // query rows per block
-constexpr int BLOCK_N = 64;     // keys per shared-memory tile
-constexpr int NUM_THREADS = 128;
 constexpr float NEG_BIG = -3.4028234663852886e38f;  // float32 min, as the reference
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -54,320 +83,403 @@ struct Params {
   float scale;
 };
 
+// Block shape and shared-memory layout of one (type, head dim).
+template <typename T, int D>
+struct Cfg {
+  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
+  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int MT = BF16 ? 2 : 1;    // 16-row m-tiles a warp
+  static constexpr int WARPS = BF16 ? 4 : 8;
+  static constexpr int BN = BF16 ? 64 : 32;  // keys per streamed tile
+  // stages of the K/V ring: a third spills the bf16 kernel at D = 96
+  static constexpr int STAGES = 2;
+  static constexpr int BM = 16 * MT * WARPS;  // query rows per block
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int VEC = 16 / (int)sizeof(T);         // elements per 16 bytes
+  static constexpr int LD = D + VEC;                      // row pitch in elements
+  static constexpr int PITCH = LD * (int)sizeof(T);       // row pitch in bytes
+  static constexpr int KSTEPS = D * (int)sizeof(T) / 32;  // mma k-steps over D (32 bytes each)
+  static constexpr int NT = BN / 8;                       // 8-key column tiles of S
+  static constexpr int DT = D / 8;                        // 8-wide column tiles of O
+  // k-steps of the fp32 score product unrolled together (a full unroll makes
+  // ptxas hoist loads until it spills, as in K2/K3)
+  static constexpr int K_UNROLL = BF16 ? KSTEPS : 2;
+  static constexpr int Q_BYTES = (BF16 ? 1 : 2) * BM * PITCH;  // q, or its TF32 head and tail
+  static constexpr int STAGE_BYTES = BN * PITCH;  // one K or V tile
+  static constexpr int SMEM_BYTES = Q_BYTES + 2 * STAGES * STAGE_BYTES;  // q, the K/V ring
+  static_assert(BN % 16 == 0, "a key tile is whole k-steps of P v");
+  static_assert((PITCH / 16) % 2 == 1, "pitch must be an odd number of 16-byte units");
+};
+
 __device__ __forceinline__ int valid_keys(const Params& p, int b) {
   int n = p.kv_len ? p.kv_len[b] : p.Tk;
   return max(0, min(n, p.Tk));
 }
 
-// ---------------------------------------------------------------- bf16 path
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 t;
-  t.x = lo;
-  t.y = hi;
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// Copy rows [row0, row0 + ROWS) of one (b, h) slice into shared memory with
-// 16-byte loads; rows at or past `nrows` are zero-filled.
-template <int D, int ROWS, int LD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               long long row_stride, int row0, int nrows) {
-  constexpr int CHUNKS = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NUM_THREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
+// Rows [row0, row0 + ROWS) of one (b, h) slice into a shared-memory tile of
+// pitch Cfg::PITCH by cp.async, by the whole block; rows at or past `nrows`
+// are zero-filled. A power-of-two group of threads takes a row, so each
+// thread keeps its column and steps its pointers by whole rows.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const T* src, long long row_stride,
+                                          int row0, int nrows) {
+  using C = Cfg<T, D>;
+  constexpr int CHUNKS = D / C::VEC;  // 16-byte chunks per row
+  constexpr int GROUP = CHUNKS <= 4 ? 4 : CHUNKS <= 8 ? 8 : CHUNKS <= 16 ? 16 : 32;
+  static_assert(C::THREADS % GROUP == 0, "whole rows per pass");
+  constexpr int PASS = C::THREADS / GROUP;  // rows per pass over the tile
+  const int c = threadIdx.x % GROUP, r0 = threadIdx.x / GROUP;
+  if (c >= CHUNKS) return;
+  const T* from = src + (long long)(row0 + r0) * row_stride + c * C::VEC;
+  uint32_t to = dst + r0 * C::PITCH + c * 16;
+#pragma unroll
+  for (int r = r0; r < ROWS; r += PASS) {
+    const bool ok = row0 + r < nrows;
+    cp_async_16(to, ok ? from : src, ok ? 16 : 0);
+    from += PASS * row_stride;
+    to += PASS * C::PITCH;
   }
 }
 
-template <int D>
-constexpr int smem_bytes_bf16() {
-  return 3 * BLOCK_M * (D + 8) * (int)sizeof(__nv_bfloat16);
+// 2^x by the special-function unit, results below 2^-126 flushed to 0 (a
+// probability that small is nothing beside the row's largest, which is 1);
+// exp2f adds a rescaling around the same instruction for subnormal results.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS) flash_fwd_bf16(Params p) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  static_assert(BLOCK_M == BLOCK_N, "shared layout assumes square tiles");
-  constexpr int LD = D + 8;  // row pitch in elements: 16-B aligned, staggers banks
-  constexpr int KD = D / 16;       // k-steps of q k^T
-  constexpr int NT = BLOCK_N / 8;  // 8-key column tiles of S
-  constexpr int DT = D / 8;        // 8-wide column tiles of O
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BLOCK_M * LD;
-  __nv_bfloat16* Vs = Ks + BLOCK_N * LD;
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+}
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BLOCK_M;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// One block per SM is all the launch bounds promise: without the minimum,
+// ptxas caps the fp32 kernels at 128 registers, and they run slower.
+template <typename T, int D>
+__global__ void __launch_bounds__(Cfg<T, D>::THREADS, 1) flash_fwd(Params p) {
+  using C = Cfg<T, D>;
+  constexpr int MT = C::MT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // q (fp32: its TF32 head, then its tail); then a ring of STAGES stages of
+  // K [BN] and V [BN]
+  unsigned char* ring = smem + C::Q_BYTES;
+  const uint32_t q_s = smem_u32(smem);
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * C::BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
   const int kv_len = valid_keys(p, b);
+  const int n_tiles = (kv_len + C::BN - 1) / C::BN;  // key tiles up to the last valid key
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  load_tile_bf16<D, BLOCK_M, LD>(Qs, qg, p.q_st, q0, p.Tq);
+  load_rows<T, D, C::BM>(q_s, qg, p.q_st, q0, p.Tq);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {  // one commit group per stage, empty or not
+    if (s < n_tiles) {
+      const uint32_t st = smem_u32(ring) + s * 2 * C::STAGE_BYTES;
+      load_rows<T, D, C::BN>(st, kg, p.k_st, s * C::BN, p.Tk);
+      load_rows<T, D, C::BN>(st + C::STAGE_BYTES, vg, p.v_st, s * C::BN, p.Tk);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<C::STAGES - 1>();  // q has landed (the first K/V tiles may still fly)
   __syncthreads();
 
-  // This warp's 16 query rows as A fragments, kept in registers throughout.
-  uint32_t qf[KD][4];
-  {
-    const __nv_bfloat16* qw = Qs + (warp * 16) * LD;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      const __nv_bfloat16* base = qw + kk * 16 + t4 * 2;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(base + g * LD);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + (g + 8) * LD);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + g * LD + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + (g + 8) * LD + 8);
+  // A warp owns MT tiles of 16 query rows, rows (warp MT + mt) 16 + [0, 16).
+  // This lane's ldmatrix row addresses: `a_off` into q for m-tile 0 (rows
+  // lane % 16, second 16 bytes of a k-step for lanes 16-31; m-tile mt is
+  // 16 mt rows further); `b_off` into a K tile (matrices: keys 0-7 k lo,
+  // keys 0-7 k hi, keys 8-15 k lo, keys 8-15 k hi).
+  const uint32_t a_off = (warp * MT * 16 + (lane & 15)) * C::PITCH + (lane >> 4) * 16;
+  const uint32_t b_off = (((lane >> 4) << 3) + (lane & 7)) * C::PITCH + ((lane >> 3) & 1) * 16;
+
+  if constexpr (!C::BF16) {  // q split once into its TF32 head (in place) and tail
+    float* qh = reinterpret_cast<float*>(smem);
+    float* qt = qh + C::BM * C::LD;
+    for (int i = threadIdx.x; i < C::BM * D; i += C::THREADS) {
+      const int at = (i / D) * C::LD + i % D;
+      uint32_t hd, tl;
+      split_tf32(qh[at], hd, tl);
+      qh[at] = __uint_as_float(hd);
+      qt[at] = __uint_as_float(tl);
     }
-  }
-
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  // Each thread holds rows g (index 0) and g + 8 (index 1) of its warp's 16.
-  float m_run[2] = {NEG_BIG, NEG_BIG};
-  float l_run[2] = {0.f, 0.f};  // this thread's partial row sums
-
-  for (int n0 = 0; n0 < kv_len; n0 += BLOCK_N) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D, BLOCK_N, LD>(Ks, kg, p.k_st, n0, p.Tk);
-    load_tile_bf16<D, BLOCK_N, LD>(Vs, vg, p.v_st, n0, p.Tk);
     __syncthreads();
-
-    // S = q k^T for 16 rows x 64 keys, fp32 accumulators.
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kb = Ks + (nt * 8 + g) * LD + t4 * 2;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kb + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kb + kk * 16 + 8);
-        mma_16816(s[nt], qf[kk], b0, b1);
-      }
-    }
-
-    float mx[2] = {NEG_BIG, NEG_BIG};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int col = n0 + nt * 8 + t4 * 2 + (r & 1);
-        const float val = col < kv_len ? s[nt][r] * p.scale : NEG_BIG;
-        s[nt][r] = val;
-        mx[r >> 1] = fmaxf(mx[r >> 1], val);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // a row's 64 scores live in the 4 lanes of a quad
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      alpha[i] = expf(m_run[i] - m_new);
-      m_run[i] = m_new;
-      l_run[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float e = expf(s[nt][r] - m_run[r >> 1]);
-        s[nt][r] = e;
-        l_run[r >> 1] += e;
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-
-    // O += P V. The S fragments of key tiles 2j and 2j+1 form the A operand
-    // of k-step j; B is V[key][d] read column-wise from shared memory.
-#pragma unroll
-    for (int j = 0; j < BLOCK_N / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const __nv_bfloat16* vb = Vs + (j * 16 + t4 * 2) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* col = vb + dt * 8;
-        const uint32_t b0 = pack_bf16(col[0], col[LD]);
-        const uint32_t b1 = pack_bf16(col[8 * LD], col[9 * LD]);
-        mma_16816(o[dt], a, b0, b1);
-      }
-    }
   }
 
-  float inv[2];
+  float o[MT][C::DT][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-    const float l = fmaxf(l_run[i], 1e-30f);
-    inv[i] = 1.f / l;
-    const int row = q0 + warp * 16 + g + 8 * i;
-    if (t4 == 0 && row < p.Tq)
-      p.lse[((long long)b * p.H + h) * p.Tq + row] = m_run[i] + logf(l);
-  }
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out);
+  for (int mt = 0; mt < MT; ++mt) zero(o[mt]);
+  // Each thread holds rows g (index 0) and g + 8 (index 1) of each m-tile.
+  float m2[MT][2], l[MT][2];  // running max of the log2-scaled logits; partial row sums
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * 16 + g + 8 * i;
-    if (row >= p.Tq) continue;
-    __nv_bfloat16* orow = og + (((long long)b * p.Tq + row) * p.H + h) * D + t4 * 2;
+  for (int mt = 0; mt < MT; ++mt) m2[mt][0] = m2[mt][1] = NEG_BIG, l[mt][0] = l[mt][1] = 0.f;
+  const float scale_log2 = p.scale * LOG2E;
+
+  // S = q k^T of key tile `tile`: MT x 16 rows x BN keys; each K fragment
+  // serves every m-tile
+  auto scores = [&](float (&s)[MT][C::NT][4], int tile) {
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_bf16(o[dt][2 * i] * inv[i], o[dt][2 * i + 1] * inv[i]);
-  }
-}
-
-// ---------------------------------------------------------------- fp32 path
-
-template <int D>
-constexpr int smem_bytes_f32() {
-  return 2 * BLOCK_N * D * (int)sizeof(float);
-}
-
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long row_stride,
-                                              int row0, int nrows) {
-  constexpr int CHUNKS = D / 4;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NUM_THREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * row_stride + c * 4);
-    *reinterpret_cast<float4*>(dst + r * D + c * 4) = val;
-  }
-}
-
-// Two threads per query row, each owning half of the head dim; the two
-// halves of a dot product meet through one shuffle.
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS) flash_fwd_f32(Params p) {
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  static_assert(NUM_THREADS == 2 * BLOCK_M, "two threads per query row");
-  constexpr int HD = D / 2;
-  constexpr int CHUNK = 16;  // scores held in registers at a time
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + BLOCK_N * D;
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BLOCK_M;
-  const int row = q0 + threadIdx.x / 2, half = threadIdx.x & 1;
-  const int kv_len = valid_keys(p, b);
-
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-
-  float q[HD], acc[HD];
+    for (int mt = 0; mt < MT; ++mt) zero(s[mt]);
+    const uint32_t kb = smem_u32(ring) + (tile % C::STAGES) * 2 * C::STAGE_BYTES + b_off;
+    if constexpr (C::BF16) {
 #pragma unroll
-  for (int i = 0; i < HD; ++i) {
-    q[i] = row < p.Tq ? qg[(long long)row * p.q_st + half * HD + i] * p.scale : 0.f;
-    acc[i] = 0.f;
-  }
-  float m_run = NEG_BIG, l_run = 0.f;
-
-  for (int n0 = 0; n0 < kv_len; n0 += BLOCK_N) {
-    __syncthreads();
-    load_tile_f32<D, BLOCK_N>(Ks, kg, p.k_st, n0, p.Tk);
-    load_tile_f32<D, BLOCK_N>(Vs, vg, p.v_st, n0, p.Tk);
-    __syncthreads();
-    for (int c0 = 0; c0 < BLOCK_N && n0 + c0 < kv_len; c0 += CHUNK) {
-      float s[CHUNK];
-      float mx = NEG_BIG;
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {
+        uint32_t qk[MT][4];  // q's A fragments, read again for every key tile
 #pragma unroll
-      for (int j = 0; j < CHUNK; ++j) {
-        const float* kr = Ks + (c0 + j) * D + half * HD;
-        float part = 0.f;
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_x4(qk[mt], q_s + a_off + mt * 16 * C::PITCH + kk * 32);
 #pragma unroll
-        for (int i = 0; i < HD; ++i) part = fmaf(q[i], kr[i], part);
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        s[j] = n0 + c0 + j < kv_len ? part : NEG_BIG;
-        mx = fmaxf(mx, s[j]);
+        for (int np = 0; np < C::NT / 2; ++np) {  // two 8-key tiles per ldmatrix
+          uint32_t x[4];
+          ldmatrix_x4(x, kb + np * 16 * C::PITCH + kk * 32);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][2 * np], qk[mt], x[0], x[1]);
+            mma_bf16(s[mt][2 * np + 1], qk[mt], x[2], x[3]);
+          }
+        }
       }
-      const float m_new = fmaxf(m_run, mx);
-      const float alpha = expf(m_run - m_new);
-      m_run = m_new;
-      l_run *= alpha;
+    } else {
+      float small[MT][C::NT][4];  // tail.head + head.tail, summed apart from head.head
 #pragma unroll
-      for (int i = 0; i < HD; ++i) acc[i] *= alpha;
+      for (int mt = 0; mt < MT; ++mt) zero(small[mt]);
+#pragma unroll C::K_UNROLL
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {
+        AFrag a[MT];
 #pragma unroll
-      for (int j = 0; j < CHUNK; ++j) {
-        const float e = expf(s[j] - m_new);
-        l_run += e;
-        const float* vr = Vs + (c0 + j) * D + half * HD;
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t at = q_s + a_off + mt * 16 * C::PITCH + kk * 32;
+          ldmatrix_x4(a[mt].head, at);
+          ldmatrix_x4(a[mt].tail, at + C::BM * C::PITCH);
+        }
 #pragma unroll
-        for (int i = 0; i < HD; ++i) acc[i] = fmaf(e, vr[i], acc[i]);
+        for (int np = 0; np < C::NT / 2; ++np) {
+          uint32_t x[4];
+          ldmatrix_x4(x, kb + np * 16 * C::PITCH + kk * 32);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_step<false>(s[mt][2 * np], small[mt][2 * np], a[mt], x[0], x[1]);
+            mma_step<false>(s[mt][2 * np + 1], small[mt][2 * np + 1], a[mt], x[2], x[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) s[mt][nt][r] += small[mt][nt][r];
+    }
+  };
+  // the online softmax of key tile `tile` in log2 units: S becomes P, alpha
+  // the factor of the old row sums; keys at or past kv_len only in the last tile
+  auto softmax = [&](float (&s)[MT][C::NT][4], int tile, float (&alpha)[MT][2]) {
+    const int n0 = tile * C::BN;
+    const bool ragged = n0 + C::BN > kv_len;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[mt][nt][r] *= scale_log2;
+      if (ragged) {
+#pragma unroll
+        for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (n0 + nt * 8 + t4 * 2 + (r & 1) >= kv_len) s[mt][nt][r] = NEG_BIG;
+      }
+      float mx[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) mx[r >> 1] = fmaxf(mx[r >> 1], s[mt][nt][r]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // a row's BN scores live in the 4 lanes of a quad
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m2[mt][i], mx[i]);
+        alpha[mt][i] = exp2_ftz(m2[mt][i] - m_new);
+        m2[mt][i] = m_new;
+        l[mt][i] *= alpha[mt][i];
+      }
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float e = exp2_ftz(s[mt][nt][r] - m2[mt][r >> 1]);
+          s[mt][nt][r] = e;
+          l[mt][r >> 1] += e;
+        }
       }
     }
+  };
+  // O = O alpha + P V for key tile `tile`; each V fragment serves every m-tile
+  auto pv = [&](const float (&s)[MT][C::NT][4], int tile, const float (&alpha)[MT][2]) {
+    const unsigned char* v_t = ring + (tile % C::STAGES) * 2 * C::STAGE_BYTES + C::STAGE_BYTES;
+    if constexpr (C::BF16) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int dt = 0; dt < C::DT; ++dt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) o[mt][dt][r] *= alpha[mt][r >> 1];
+      // ldmatrix.trans: matrices (keys 0-7 | 8-15 of the k-step) x (dims 0-7 | 8-15)
+      const uint32_t vb = smem_u32(v_t) +
+                          ((((lane >> 3) & 1) << 3) + (lane & 7)) * C::PITCH + (lane >> 4) * 16;
+#pragma unroll
+      for (int j = 0; j < C::BN / 16; ++j) {  // 8-key tiles 2j, 2j+1 make k-step j's A
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          a[mt][0] = pack_bf16(s[mt][2 * j][0], s[mt][2 * j][1]);
+          a[mt][1] = pack_bf16(s[mt][2 * j][2], s[mt][2 * j][3]);
+          a[mt][2] = pack_bf16(s[mt][2 * j + 1][0], s[mt][2 * j + 1][1]);
+          a[mt][3] = pack_bf16(s[mt][2 * j + 1][2], s[mt][2 * j + 1][3]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t x[4];
+          ldmatrix_x4_trans(x, vb + j * 16 * C::PITCH + dp * 32);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(o[mt][2 * dp], a[mt], x[0], x[1]);
+            mma_bf16(o[mt][2 * dp + 1], a[mt], x[2], x[3]);
+          }
+        }
+      }
+    } else {
+      // k-slot t4 is key 2 t4 of the 8-key tile, slot t4 + 4 is key 2 t4 + 1
+      const float* vb = reinterpret_cast<const float*>(v_t) + 2 * t4 * C::LD + g;
+      AFrag a[MT][C::NT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < C::NT; ++nt) {
+          const float(&f)[4] = s[mt][nt];
+          split_tf32(f[0], a[mt][nt].head[0], a[mt][nt].tail[0]);  // (g,     2 t4) -> slot t4
+          split_tf32(f[2], a[mt][nt].head[1], a[mt][nt].tail[1]);  // (g + 8, 2 t4)
+          split_tf32(f[1], a[mt][nt].head[2], a[mt][nt].tail[2]);  // (g, 2 t4 + 1) -> slot t4 + 4
+          split_tf32(f[3], a[mt][nt].head[3], a[mt][nt].tail[3]);  // (g + 8, 2 t4 + 1)
+        }
+      // this tile's share is summed from zero and added in fp32: the tensor
+      // core's truncating adds see only the BN-long chain
+#pragma unroll
+      for (int dt = 0; dt < C::DT; ++dt) {
+        float t[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) t[mt][0] = t[mt][1] = t[mt][2] = t[mt][3] = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < C::NT; ++nt) {
+          const uint32_t b0 = __float_as_uint(vb[nt * 8 * C::LD + dt * 8]);
+          const uint32_t b1 = __float_as_uint(vb[nt * 8 * C::LD + C::LD + dt * 8]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_step<false>(t[mt], t[mt], a[mt][nt], b0, b1);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            o[mt][dt][r] = fmaf(o[mt][dt][r], alpha[mt][r >> 1], t[mt][r]);
+      }
+    }
+  };
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<C::STAGES - 2>();  // this thread's part of tile `it` has landed,
+    __syncthreads();                 // everyone's too; all are done with `it - 1`
+    {  // a later tile flies while this one is multiplied, into the stage of `it - 1`
+      const int nx = it + C::STAGES - 1;
+      if (nx < n_tiles) {
+        const uint32_t st = smem_u32(ring) + (nx % C::STAGES) * 2 * C::STAGE_BYTES;
+        load_rows<T, D, C::BN>(st, kg, p.k_st, nx * C::BN, p.Tk);
+        load_rows<T, D, C::BN>(st + C::STAGE_BYTES, vg, p.v_st, nx * C::BN, p.Tk);
+      }
+      cp_async_commit();
+    }
+    float s[MT][C::NT][4], alpha[MT][2];
+    scores(s, it);
+    softmax(s, it, alpha);
+    pv(s, it, alpha);
   }
 
-  if (row >= p.Tq) return;
-  const float l = fmaxf(l_run, 1e-30f);
-  float* orow = static_cast<float*>(p.out) + (((long long)b * p.Tq + row) * p.H + h) * D + half * HD;
 #pragma unroll
-  for (int i = 0; i < HD; ++i) orow[i] = acc[i] / l;
-  if (half == 0) p.lse[((long long)b * p.H + h) * p.Tq + row] = m_run + logf(l);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[mt][i] += __shfl_xor_sync(0xffffffffu, l[mt][i], 1);
+      l[mt][i] += __shfl_xor_sync(0xffffffffu, l[mt][i], 2);
+    }
+
+  T* og = static_cast<T*>(p.out);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + (warp * MT + mt) * 16 + g + 8 * i;
+      if (row >= p.Tq) continue;
+      const float lc = fmaxf(l[mt][i], 1e-30f);
+      const float inv = 1.f / lc;
+      // a row with no valid key keeps m = NEG_BIG, as the reference does
+      if (t4 == 0)
+        p.lse[((long long)b * p.H + h) * p.Tq + row] =
+            (m2[mt][i] == NEG_BIG ? NEG_BIG : m2[mt][i] * LN2) + logf(lc);
+      T* dst = og + (((long long)b * p.Tq + row) * p.H + h) * D + t4 * 2;
+#pragma unroll
+      for (int dt = 0; dt < C::DT; ++dt)
+        store2(dst + dt * 8, o[mt][dt][2 * i] * inv, o[mt][dt][2 * i + 1] * inv);
+    }
 }
 
 // ---------------------------------------------------------------- launch
 
-template <typename KernelT>
-cudaError_t launch(KernelT kernel, int smem, const Params& p, cudaStream_t stream) {
-  // Raising the dynamic shared-memory cap is per kernel and per device; it is
-  // cheap, so it is set on every launch rather than cached.
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <typename T, int D>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  using C = Cfg<T, D>;
+  // The cap on dynamic shared memory is per kernel and per device: raised on
+  // the first launch on each device, not on every launch (host time).
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + BLOCK_M - 1) / BLOCK_M, p.H, p.B);
-  kernel<<<grid, NUM_THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(raised.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    raised.fetch_or(bit, std::memory_order_relaxed);
+  }
+  const dim3 grid((p.Tq + C::BM - 1) / C::BM, p.H, p.B);
+  flash_fwd<T, D><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(p);
+  return cudaGetLastError();  // a refused launch (resources) shows here, not at a sync
 }
 
 template <int D>
 cudaError_t dispatch(const Params& p, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) return launch(flash_fwd_bf16<D>, smem_bytes_bf16<D>(), p, stream);
-  return launch(flash_fwd_f32<D>, smem_bytes_f32<D>(), p, stream);
+  if (is_bf16) return launch<__nv_bfloat16, D>(p, stream);
+  return launch<float, D>(p, stream);
 }
 
 }  // namespace
 
 // Returns 0 on success, else the CUDA error of the launch. The wrapper
 // (versband_tpu_torch/ops/flash_attention.py) checks shapes, types, strides
-// and alignment before calling; D must be 32, 64, 96 or 128.
+// and the 16-byte alignment of every row before calling; D must be 32, 64,
+// 96 or 128.
 extern "C" int vbt_flash_attn_fwd(const void* q, const void* k, const void* v, const int* kv_len,
                                   void* out, float* lse, int B, int Tq, int Tk, int H, int D,
                                   long long q_sb, long long q_st, long long q_sh, long long k_sb,

@@ -5,9 +5,11 @@ K1 (``csrc/flash_attn_fwd.cu``) replaces
 ``versband_tpu/ops/flash_attention.py::_attn_kernel``, the Pallas TPU kernel.
 It is bound by tensor-core throughput at the serving shape (q/k/v
 ``[2, 752, 8, 96]`` bf16: ~1,500 FLOP per byte moved, far above the H100's
-ridge), so both products run on the tensor cores (``mma.sync`` bf16, fp32
-accumulate) and the score matrix never leaves registers; the source's header
-has the design.
+ridge), so both products run on the tensor cores (``mma.sync`` with fp32
+accumulators: bf16 inputs as bf16, fp32 inputs as three TF32 passes over
+operands split into a TF32 head and tail), K and V stream through a
+``cp.async`` ring and the score matrix never leaves registers; the source's
+header has the design.
 
 K2 (dQ) and K3 (dK, dV) (``csrc/flash_attn_bwd.cu``) replace ``_dq_kernel``
 and ``_dkv_kernel``: P is recomputed from the forward's log-sum-exp, the row
@@ -16,10 +18,10 @@ package leaves it to XLA. Both kernels run all their products on the tensor
 cores (``mma.sync``, fp32 accumulators): bf16 inputs as bf16, with P and dS
 rounded to bf16 for the second products as K1 rounds P; fp32 inputs as three
 TF32 passes per product over operands split into a TF32 head and tail, which
-keeps fp32 accuracy. Their loads are 16-byte ``cp.async`` copies, so every
-row of q, k, v and dO must start on a 16-byte boundary; the wrappers copy an
-input whose rows do not. When gradients are needed, :func:`flash_attention`
-goes through a ``torch.autograd.Function`` (the counterpart of the JAX
+keeps fp32 accuracy. All three kernels load by 16-byte ``cp.async`` copies,
+so every row of q, k, v and dO must start on a 16-byte boundary; the
+wrappers copy an input whose rows do not. When gradients are needed,
+:func:`flash_attention` goes through a ``torch.autograd.Function`` (the counterpart of the JAX
 ``_flash`` custom VJP) whose forward is K1 and whose backward is K2 + K3, so
 gradients flow through the kernels; sampling calls K1 directly.
 
@@ -50,15 +52,20 @@ _FN = None
 _BWD_FNS = None
 
 
+def bind_fwd(lib: ctypes.CDLL):
+    """K1's C entry point ``vbt_flash_attn_fwd`` of a loaded library, typed."""
+    fn = lib.vbt_flash_attn_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _kernel_fn():
     global _FN
     if _FN is None:
-        fn = _build.load("flash_attn_fwd").vbt_flash_attn_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN = fn
+        _FN = bind_fwd(_build.load("flash_attn_fwd"))
     return _FN
 
 
@@ -137,14 +144,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     _check_kernel_inputs(q, k, v)
-    vec = 16 // q.element_size()  # elements per 16-byte load
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"{name} must have a unit-stride head dim and "
-                             f"16-byte aligned rows; got strides {t.stride()}")
-    if kv_len is not None:
-        kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    q, k, v = (_rows_on_16_bytes(t) for t in (q, k, v))  # cp.async reads 16-byte rows
+    kv_len = _kv_len_i32(kv_len, q.device)
     out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
