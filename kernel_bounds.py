@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Least-time bounds on an H100 and launches per vocoder forward of the two
-TPU kernels not ported yet, at the default shapes of their generators.
+"""Least-time bounds on an H100 and launches per vocoder forward of K4 and
+K5, at the default shapes of their generators.
 
 K4 (``versband_tpu/ops/fused_act1d.py::_act_kernel``): BigVGAN's
 ``Activation1d`` (2x kaiser-sinc up, Snake/SnakeBeta, 2x down) over
@@ -21,8 +21,10 @@ R 64, G 64 (gate 128), S 64, A 80; the fused path runs when
 
 Both at one 20 s clip at 24 kHz (B = 1, T_mel 1504, hop 320: 481,280
 samples), the serving length of ``chip_smoke.py``, whose ``bound_ms`` (H100
-SXM data-sheet peaks: fp32 FMA 67 TFLOP/s, HBM3 3.35 TB/s) turns FLOPs and
-bytes into a bound. Arithmetic only: nothing here runs on a card.
+SXM data-sheet peaks: fp32 FMA 67 TFLOP/s, TF32 495, HBM3 3.35 TB/s) turns
+FLOPs and bytes into a bound. K5's products may run as three TF32 passes
+(165 TFLOP/s), which bounds it; its bound by fp32 FMA alone is printed
+beside. Arithmetic only: nothing here runs on a card.
 
 Run:  python3 kernel_bounds.py
 """
@@ -59,7 +61,8 @@ def k5():
     macs = 2 * G * (3 * R + A) + (S + R) * G  # gate conv + aux, then skip + out 1x1s
     flops = (2 * macs + 2 * G) * B * T  # + tanh and sigmoid per gate unit
     nbytes = 4 * B * T * (R + A + 2 * S + R)  # x, c, skip read; x', skip' written
-    return layers, bound_ms(flops, nbytes), bound_ms(layers * flops, layers * nbytes)
+    return (layers, bound_ms(flops, nbytes, products=True),
+            bound_ms(layers * flops, layers * nbytes, products=True), bound_ms(flops, nbytes))
 
 
 def main() -> None:
@@ -67,10 +70,10 @@ def main() -> None:
     print(f"K4 _act_kernel: {n} launches per BigVGAN forward (fp32, defaults); largest call "
           f"[1, {T_MEL * HOP}, 32] bound {l_ms:.4f} ms ({l_by}); all {n} calls {t_ms:.4f} ms "
           f"({t_by})")
-    n, (l_ms, l_by), (t_ms, t_by) = k5()
+    n, (l_ms, l_by), (t_ms, t_by), (fma_ms, _) = k5()
     print(f"K5 _layer_kernel: {n} launches per PWG forward with fused_inference=True "
-          f"(0 by default); per layer at T {T_MEL * HOP} bound {l_ms:.4f} ms ({l_by}); all {n} "
-          f"layers {t_ms:.4f} ms ({t_by})")
+          f"(0 by default); per layer at T {T_MEL * HOP} bound {l_ms:.4f} ms ({l_by}; three "
+          f"TF32 passes) [fp32 FMA alone {fma_ms:.4f}]; all {n} layers {t_ms:.4f} ms ({t_by})")
 
 
 if __name__ == "__main__":

@@ -57,7 +57,7 @@ def _port(blk, x, c, skip, dilation):
     with torch.no_grad():
         sk = torch.from_numpy(skip)
         xo, so = fw.fused_wavenet_layer(torch.from_numpy(x), torch.from_numpy(c), sk,
-                                        *_weights(blk), dilation)
+                                        *_weights(blk), dilation, fw.PackCache())
     assert fw.LAUNCHES == n and torch.equal(sk, torch.from_numpy(skip))  # skip not updated
     assert so.dtype == torch.float32
     return xo.numpy(), so.numpy()
@@ -132,7 +132,7 @@ def test_plain_keeps_bf16_and_fp32_skip():
     with torch.no_grad():
         xo, so = fw.fused_wavenet_layer(torch.from_numpy(x).bfloat16(),
                                         torch.from_numpy(c).bfloat16(), torch.from_numpy(skip),
-                                        *_weights(blk), 3)
+                                        *_weights(blk), 3, fw.PackCache())
     assert xo.dtype == torch.bfloat16 and so.dtype == torch.float32
     # bf16 inputs (2^-9 relative) through a 3R + A = 29-term sum, and x' rounded
     assert np.abs(xo.float().numpy() - xo32).max() <= 2e-2 * np.abs(xo32).max()
@@ -143,29 +143,77 @@ def test_rejects_bad_inputs():
     blk = _layer(50, 1)
     x, c, skip = (torch.from_numpy(a) for a in _data(50, 1, 16))
     with pytest.raises(TypeError, match="fp32 accumulator"):
-        fw.fused_wavenet_layer(x, c, skip.double(), *_weights(blk), 1)
+        fw.fused_wavenet_layer(x, c, skip.double(), *_weights(blk), 1, fw.PackCache())
     with pytest.raises(ValueError, match="dilation"):
-        fw.fused_wavenet_layer(x, c, skip, *_weights(blk), 0)
+        fw.fused_wavenet_layer(x, c, skip, *_weights(blk), 0, fw.PackCache())
     with pytest.raises(ValueError, match="mismatch"):
-        fw.fused_wavenet_layer(x, c[..., :8], skip, *_weights(blk), 1)
+        fw.fused_wavenet_layer(x, c[..., :8], skip, *_weights(blk), 1, fw.PackCache())
     meta = [t.to("meta") for t in (x, c, skip)]
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fw.fused_wavenet_layer(*meta, *_weights(blk), 1)
+        fw.fused_wavenet_layer(*meta, *_weights(blk), 1, fw.PackCache())
 
 
 def test_pack_weights_layout():
-    """K5's operand rows: tap-major gate taps then aux; tanh half in columns
-    [0, G), sigmoid half in [64, 64 + G); skip in [0, S), out in [64, 64 + R)."""
+    """K5's operands: the gate matrix ``[128, K8]`` with m-tile m's rows r < 8
+    the tanh rows of units 8m + r and rows r + 8 their sigmoid rows, columns
+    tap-major gate taps then aux, zero-padded to a multiple of 8; the
+    skip/out matrix ``[128, 64]`` with skip in rows [0, S), out in [64, 64 +
+    R), the unit as column; both in mma fragment order (lane 4g + t: rows g,
+    g + 8 at column t, then at t + 4)."""
     blk = _layer(60, 1)
-    wk, bg, wso, bso = fw.pack_weights(*_weights(blk))
-    G = G2 // 2
-    assert wk.shape == (3 * R + A, 128) and wso.shape == (64, 128)
+    wg, bg, wso, bso = fw.pack_matrices(*_weights(blk))
+    G = G2 // 2  # 8: units 0..7 fill m-tile 0; m-tiles 1..7 are zero
+    K = 3 * R + A
+    assert wg.shape == (128, 32) and wso.shape == (128, 64)
     w = blk.conv.weight.detach()
-    assert torch.equal(wk[2 * R + 1, :G], w[:G, 1, 2])
-    assert torch.equal(wk[R, 64:64 + G], w[G:, 0, 1])
-    assert torch.equal(wk[3 * R + 2, 64 + 3], blk.conv1x1_aux.weight.detach()[G + 3, 2, 0])
-    assert wk[:, G:64].abs().sum() == 0 and wk[:, 64 + G:].abs().sum() == 0
-    assert torch.equal(bg[64:64 + G], blk.conv.bias.detach()[G:])
-    assert torch.equal(wso[3, 64 + 5], blk.conv1x1_out.weight.detach()[5, 3, 0])
+    assert torch.equal(wg[3, 2 * R + 1], w[3, 1, 2])        # tanh row of unit 3, tap t+d
+    assert torch.equal(wg[8 + 3, R + 5], w[G + 3, 5, 1])    # its sigmoid row, tap t
+    assert torch.equal(wg[8 + 2, 3 * R + 2], blk.conv1x1_aux.weight.detach()[G + 2, 2, 0])
+    assert wg[16:].abs().sum() == 0 and wg[:, K:].abs().sum() == 0
+    assert torch.equal(bg[8:16], blk.conv.bias.detach()[G:]) and bg[16:].abs().sum() == 0
+    assert torch.equal(wso[64 + 5, 3], blk.conv1x1_out.weight.detach()[5, 3, 0])
+    assert wso[:, G:].abs().sum() == 0 and wso[S:64].abs().sum() == 0
     assert torch.equal(bso[:S], blk.conv1x1_skip.bias.detach()) and bso[S:64].abs().sum() == 0
     assert math.isclose(bso[64].item(), blk.conv1x1_out.bias[0].item())
+    fwg, fbg, fwso, fbso = fw.pack_weights(*_weights(blk))
+    assert fwg.shape == (8, 4, 32, 4) and fwso.shape == (8, 8, 32, 4)
+    assert torch.equal(fbg, bg) and torch.equal(fbso, bso)
+    for frag, mat in ((fwg, wg), (fwso, wso)):
+        for lane in (0, 5, 31):
+            g, t = lane >> 2, lane & 3
+            assert frag[0, 1, lane].tolist() == [mat[g, 8 + t], mat[g + 8, 8 + t],
+                                                 mat[g, 12 + t], mat[g + 8, 12 + t]]
+
+
+def test_pack_cache_repacks_only_when_a_weight_changes():
+    blk = _layer(61, 1)
+    cache = fw.PackCache()
+    first = cache.get(*_weights(blk))
+    assert cache.get(*_weights(blk)) is first  # nothing changed: no repack
+    with torch.no_grad():
+        blk.conv1x1_out.weight.mul_(3.0)  # in place: a new version
+    second = cache.get(*_weights(blk))
+    assert second is not first and not torch.equal(second[2], first[2])
+    assert torch.equal(second[2], fw.pack_weights(*_weights(blk))[2])
+    other = _layer(62, 1)
+    blk.load_state_dict(other.state_dict())
+    assert torch.equal(cache.get(*_weights(blk))[0], fw.pack_weights(*_weights(other))[0])
+    blk.conv.weight = torch.nn.Parameter(blk.conv.weight.detach() * 2)  # new storage
+    assert torch.equal(cache.get(*_weights(blk))[0], fw.pack_weights(*_weights(blk))[0])
+
+
+def test_pack_cache_takes_weights_made_in_inference_mode():
+    """Inference tensors have no version counter: a layer built under
+    ``torch.inference_mode`` is keyed on its weights' storage alone, and a
+    weight given new storage is packed again."""
+    with torch.inference_mode():
+        blk = _layer(63, 1)
+        assert blk.conv.weight.is_inference()
+        cache = fw.PackCache()
+        first = cache.get(*_weights(blk))
+        assert cache.get(*_weights(blk)) is first
+        blk.conv.weight = torch.nn.Parameter(blk.conv.weight * -2.0, requires_grad=False)
+        second = cache.get(*_weights(blk))
+        assert torch.equal(second[0], fw.pack_weights(*_weights(blk))[0])
+        assert not torch.equal(second[0], first[0])
+    assert cache.get(*_weights(blk)) is second  # and outside inference mode

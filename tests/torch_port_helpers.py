@@ -110,6 +110,13 @@ def split_tf32(x: torch.Tensor):
     return head, tf32_read(x - head)
 
 
+def split_tf32_trunc(x: torch.Tensor):
+    """x as K5 splits an fp32 operand: (the TF32 head with the low 13 bits
+    cut, the exact rest as the tensor core reads it)."""
+    head = tf32_read(x)
+    return head, tf32_read(x - head)
+
+
 class Draws:
     """Stands in for a ``jax.random`` sampler: returns the given arrays (in
     their own dtypes) in call order."""

@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "versband_tpu_torch"
@@ -46,38 +46,51 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all() -> Dict[str, Path]:
-    """Compile every source that has no library yet; return name -> library.
-
-    Each library's compiler output (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside it as ``lib<name>.log``.
-    """
-    out_dir = build_dir()
-    srcs = sorted(CSRC.glob("*.cu"))
-    libs = {s.stem: out_dir / f"lib{s.stem}.so" for s in srcs}
-    todo = [s for s in srcs if not libs[s.stem].exists()]
-    if not todo:
-        return libs
+def start(sources: Dict[str, Path], out_dir: Path, include: Path = CSRC) -> list:
+    """Start one ``nvcc`` per source (name -> ``.cu``), all together, each
+    into ``out_dir/lib<name>.so`` with ``include`` on the header path; hand
+    the returned jobs to :func:`finish`."""
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for src in todo:
-        tmp = out_dir / f"lib{src.stem}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    for name, src in sources.items():
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(include), "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs.append((src, tmp, proc))
-    failed = []
-    for src, tmp, proc in jobs:
+        jobs.append((name, src, out_dir, tmp, proc))
+    return jobs
+
+
+def finish(jobs: list) -> Dict[str, Tuple[Path, str]]:
+    """Wait for the jobs of :func:`start`; return name -> (library, compiler
+    output). Each output (``-Xptxas -v``: registers, shared memory, spills)
+    is also kept beside its library as ``lib<name>.log``. Raises, naming
+    every source that failed, if any did."""
+    built, failed = {}, []
+    for name, src, out_dir, tmp, proc in jobs:
         log, _ = proc.communicate()
-        (out_dir / f"lib{src.stem}.log").write_text(log)
+        (out_dir / f"lib{name}.log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{src.name} (exit {proc.returncode}):\n{log}")
+            failed.append(f"{src} (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, libs[src.stem])  # atomic: concurrent builders agree
+            lib = out_dir / f"lib{name}.so"
+            os.replace(tmp, lib)  # atomic: concurrent builders agree
+            built[name] = (lib, log)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return built
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source that has no library yet; return name -> library."""
+    out_dir = build_dir()
+    srcs = {s.stem: s for s in sorted(CSRC.glob("*.cu"))}
+    libs = {name: out_dir / f"lib{name}.so" for name in srcs}
+    todo = {name: src for name, src in srcs.items() if not libs[name].exists()}
+    if todo:
+        finish(start(todo, out_dir))
     return libs
 
 

@@ -7,52 +7,102 @@
 //   z    = tanh(gate[:G]) * sigmoid(gate[G:])                          [G]
 //   skip' = skip + Ws z + b_s                                          [S]
 //   x'    = (Wo z + b_o + x[t]) * sqrt(1/2)                            [R]
-// x is 0 outside [0, T) (the conv's zero padding); any T >= 1 and d >= 1.
+// x is 0 outside [0, T) (the conv's zero padding); any T >= 1 and d >= 1;
+// G, S, R <= 64 and 3R + A <= 288.
 //
 // What bounds it on the card: 2 * (3R + A) * 2G + 2 * G * (S + R) = 86,016
 // FLOP per sample at the shipped widths (R 64, G 64, S 64, A 80) against
-// 4 * (R + A + S + S + R) = 1,392 bytes moved in fp32: 62 FLOP per byte, above
-// the fp32 FMA ridge (~20), so the fp32 FMA rate bounds it (0.62 ms per
-// layer at T = 481,280 and 67 TFLOP/s).
+// 1,344 bytes moved in fp32: 64 FLOP per byte. As fp32-accurate products on
+// the tensor cores (three TF32 passes, 165 TFLOP/s of the data sheet's 495)
+// that is 0.251 ms per layer at T = 481,280; the bytes take 0.193 ms. So the
+// tensor cores bound it, and `mma.sync`'s measured TF32 rate (322.6 TFLOP/s,
+// card_ceilings.py) puts three passes at no less than 0.385 ms.
 //
-// What the design does about that: both products run as fp32 FMA from
-// shared memory with register tiles, for fp32 and bf16 inputs alike (bf16 is
-// widened on load; the arithmetic is the plain version's). A block of 256
-// threads owns 128 samples of one batch row:
-//   1. gate [128 rows x 128 samples] = Wk [K x 128]^T . X [K x 128], with
-//      K = 3R + A the rows of X = (x[t-d]; x[t]; x[t+d]; c[t]), streamed
-//      through shared memory in 16-row chunks of Wk and of X (X's rows are
-//      gathered from global memory at t - d, t, t + d, zero outside [0, T),
-//      so no dilation needs a halo block and none is limited);
-//   2. each thread owns rows {4ty..4ty+3} and {64+4ty..64+4ty+3} of gate --
-//      the tanh half and the sigmoid half of the same 4 gate units -- so z
-//      is formed in registers and written to shared memory [64 x 128];
-//   3. [skip | out] [128 x 128] = Wso [64 x 128]^T . z, Wso streamed in
-//      16-row chunks, then the epilogue adds the biases, the skip input and
-//      the residual and writes skip' and x'.
-// Each thread holds an 8 x 8 register tile, fed by two 16-byte shared loads
-// per operand per k-step (4 FMAs per shared load). The weights are read from
-// L2 through the chunks (43,008 floats, 168 KiB in all, packed by the
-// wrapper: gate rows padded to 64 + 64, skip/out rows to 64 + 64, so any
-// G, S, R <= 64 fits), never held whole. Shared memory: 8 KiB (weight chunk)
-// + 8 KiB (X chunk) + 32 KiB (z) = 48 KiB, the static limit, so no
-// cudaFuncSetAttribute is needed; registers, not shared memory, limit the
-// blocks per SM (2 at the 128-register cap of __launch_bounds__(256, 2)).
+// What the design does about that:
+// * Both products are mma.sync m16n8k8 TF32 with the weights as A (output
+//   rows) and the activations as B (samples), fp32-accurate as in K1-K3
+//   (mma_sm90.cuh): each operand splits into a TF32 head and a tail, a
+//   product is tail.head + head.tail + head.head, the two small terms summed
+//   in their own accumulator, head.head summed per chunk of 4 k-steps from
+//   zero and added to a running fp32 sum outside the tensor core (whose
+//   accumulator truncates). The head is cut, not rounded (split_tf32_trunc:
+//   2^-20 of a value instead of 2^-21, 0.18-0.3 ms a layer cheaper). bf16 x
+//   and c are exact in TF32: their tail pass is skipped. z is fp32: the
+//   skip/out product keeps three passes.
+// * The weights are read once per block, not once per tile: blocks are
+//   persistent (one per SM) and walk the sample tiles of all batch rows. The
+//   fp32 weights of both products (up to 144 KiB + 32 KiB) stay in shared
+//   memory for the whole kernel, packed by the wrapper in mma fragment order
+//   (one 16-byte load per lane per 16 x 8 fragment), and are split into head
+//   and tail as a fragment is loaded. Pre-split weights would be twice that,
+//   more than a block's 227 KiB; streaming them per tile would read 168 KiB
+//   from L2 for every 64 samples.
+// * The gate rows are packed so that rows r and r + 8 of an m-tile are the
+//   tanh and the sigmoid row of one gate unit: the accumulator gives a lane
+//   both, so z forms in registers, then goes to shared memory (fp32) as the
+//   B operand of the skip/out product.
+// * The X rows of a tile (x at t - d, t, t + d, then c) stream in chunks of
+//   32 rows through a 3-stage cp.async ring that runs on across tiles, so the
+//   next tile's first chunks load during this tile's z and skip/out work.
+//   Where rows start on 16 bytes (T * element size a multiple of 16) a row
+//   is copied as 16-byte pieces from the aligned sample at or before its
+//   first one, and read at that offset; otherwise sample by sample (fp32:
+//   4-byte cp.async; bf16: plain loads). Samples outside [0, T) are filled
+//   with zeros by the copy (src-size 0), which is the conv's zero padding at
+//   any dilation: no halo and no dilation limit. Which chunk comes next is
+//   kept by adds (Producer), not by 64-bit divisions (0.1 ms a layer).
+// * Each lane loads its skip (or x) values of a tile when the tile starts,
+//   so the loads land during the products, not in the epilogue.
+// A block is 16 warps, a tile 64 samples: warp w owns m-tiles 2 (w / 4) and
+// 2 (w / 4) + 1 and samples 16 (w % 4) .. + 15 of both products, 48
+// accumulator registers a thread (running sum, chunk partial, small terms);
+// 126 registers and no spills (16 warps and no more than 128 registers: the
+// skip/out loop is kept rolled). Taking one part out at a time
+// (kernel_variants.py) shows the parts run one after another, not
+// overlapped: the two small-term passes, the X copies, tanh and sigmoid and
+// the barrier each cost about their own time.
 // The TPU kernel's fixed block grid and D_HALO = 512 dilation limit have no
 // counterpart here.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <atomic>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
-constexpr int TT = 128;         // samples per block
-constexpr int NO = 128;         // rows of both products: 64 + 64
-constexpr int HALF = 64;        // max G, S and R
-constexpr int KC = 16;          // rows per streamed chunk
-constexpr int NUM_THREADS = 256;
-constexpr int SMEM_BYTES = (KC * NO + KC * TT + HALF * TT) * 4;
+constexpr int NT = 64;               // samples per tile
+constexpr int WARPS = 16;
+constexpr int THREADS = 32 * WARPS;
+constexpr int NG = WARPS / 4;        // warps sharing an m-tile pair, each its own samples
+constexpr int WN = NT / 8 / NG;      // n-tiles (8 samples) of a warp
+constexpr int HALF = 64;             // max G, S and R
+constexpr int MT = 2 * HALF / 16;    // m-tiles of either product: 8
+constexpr int KC = 32;               // X rows per ring stage (4 k-steps)
+constexpr int STAGES = 3;
+constexpr int MAX_K = 288;           // 3R + A: what fits in shared memory beside the rest
+constexpr int SO_KSTEPS = HALF / 8;  // k-steps of the skip/out product
+constexpr int FRAG_BYTES = 32 * 16;  // one m16 x k8 A fragment: 16 bytes a lane
+constexpr int ZLD = NT + 8;          // z row pitch in floats (72: 8 words mod 32, no conflicts)
+
+template <typename T>
+struct XCfg {
+  static constexpr int VEC = 16 / (int)sizeof(T);            // samples per 16-byte copy
+  // row pitch in samples: >= NT + VEC, and 8 words mod 32 (conflict-free B reads)
+  static constexpr int LD = sizeof(T) == 4 ? 72 : 80;
+  static constexpr int ROW_BYTES = LD * (int)sizeof(T);
+  static constexpr int STAGE_BYTES = KC * ROW_BYTES;
+  static constexpr int CPR = NT / VEC + 1;                    // 16-byte copies a row
+};
+
+constexpr int WSO_BYTES = MT * SO_KSTEPS * FRAG_BYTES;
+constexpr int BIAS_BYTES = 2 * 2 * HALF * 4;  // bg [128], bso [128]
+constexpr int ZS_BYTES = HALF * ZLD * 4;
+
+template <typename T>
+constexpr int smem_bytes(int ksteps) {
+  return ksteps * MT * FRAG_BYTES + WSO_BYTES + BIAS_BYTES + ZS_BYTES +
+         STAGES * XCfg<T>::STAGE_BYTES;
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -63,158 +113,416 @@ struct Params {
   const void* x;       // [B, R, T]
   const void* c;       // [B, A, T], x's type
   const float* skip;   // [B, S, T]
-  const float* wk;     // [3R + A, 128]: rows tap-major (t-d, t, t+d) then aux
-  const float* bg;     // [128]
-  const float* wso;    // [64, 128]: column j < 64 skip channel j, 64 + r out channel r
+  const float* wg;     // [8][ksteps][32][4]: gate A fragments (m-tile, k-step, lane)
+  const float* bg;     // [128], packed gate row order
+  const float* wso;    // [8][8][32][4]: skip/out A fragments; rows 0-63 skip, 64-127 out
   const float* bso;    // [128]
   void* x_out;         // [B, R, T], x's type
   float* skip_out;     // [B, S, T]
-  int R, A, S, len, d;
+  int tiles;           // B * tiles_per_row
+  int tiles_per_row, R, A, S, len, d, ksteps, vec;
 };
 
-// Stage Wk/Wso rows [k0, k0 + KC) of `w` (rows of NO floats, `rows` in all)
-__device__ __forceinline__ void stage_weights(float* ws, const float* __restrict__ w, int k0,
-                                              int rows) {
-  for (int e = threadIdx.x; e < KC * NO / 4; e += NUM_THREADS) {
-    const int kk = e / (NO / 4), o4 = e % (NO / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + kk < rows) v = reinterpret_cast<const float4*>(w + (long long)(k0 + kk) * NO)[o4];
-    reinterpret_cast<float4*>(ws)[e] = v;
+// The X row k of a tile (k < 3R: tap k / R of x channel k % R; then c rows):
+// its source row and its shift in samples; rows past 3R + A are zero.
+template <typename T>
+__device__ __forceinline__ const T* x_row(const Params& p, int b, int k, int& shift) {
+  const int R = p.R;
+  shift = 0;
+  if (k < 3 * R) {
+    const int tap = k < R ? 0 : (k < 2 * R ? 1 : 2);
+    shift = (tap - 1) * p.d;
+    return static_cast<const T*>(p.x) + ((long long)b * R + (k - tap * R)) * p.len;
+  }
+  if (k < 3 * R + p.A) return static_cast<const T*>(p.c) + ((long long)b * p.A + k - 3 * R) * p.len;
+  return nullptr;
+}
+
+// Where sample 0 of a row shifted by `shift` sits in its ring row: 16-byte
+// copies start at the aligned sample at or before the row's first (t0 is a
+// multiple of VEC); sample-by-sample copies at the first.
+template <typename T>
+__device__ __forceinline__ int read_offset(const Params& p, int shift) {
+  constexpr int VEC = XCfg<T>::VEC;
+  return p.vec ? ((shift % VEC) + VEC) % VEC : 0;
+}
+
+// Issue the copies of chunk `ch` (X rows [KC ch, KC ch + KC)) of the tile at
+// (b, t0) into ring stage `dst`. Samples outside [0, len) become zeros.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(const Params& p, int b, int t0, int ch,
+                                            unsigned char* dst) {
+  using X = XCfg<T>;
+  const int k0 = ch * KC;
+  if (p.vec) {
+    for (int e = threadIdx.x; e < KC * X::CPR; e += THREADS) {
+      const int r = e / X::CPR, j = e % X::CPR;
+      int shift;
+      const T* src = x_row<T>(p, b, k0 + r, shift);
+      const long long s = (long long)t0 + shift - read_offset<T>(p, shift) + (long long)j * X::VEC;
+      const bool in = src != nullptr && s >= 0 && s + X::VEC <= p.len;
+      const void* from = in ? (const void*)(src + s) : (const void*)p.wg;
+      cp_async_16(smem_u32(dst + r * X::ROW_BYTES + j * 16), from, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < KC * NT; e += THREADS) {
+      const int r = e / NT, n = e % NT;
+      int shift;
+      const T* src = x_row<T>(p, b, k0 + r, shift);
+      const long long s = (long long)t0 + shift + n;
+      const bool in = src != nullptr && s >= 0 && s < p.len;
+      T* to = reinterpret_cast<T*>(dst + r * X::ROW_BYTES) + n;
+      if constexpr (sizeof(T) == 4) {
+        const void* from = in ? (const void*)(src + s) : (const void*)p.wg;
+        cp_async_4(smem_u32(to), from, in ? 4 : 0);
+      } else {
+        *to = in ? src[s] : __float2bfloat16(0.f);
+      }
+    }
   }
 }
 
-// acc[i][j] += sum over the chunk's KC rows of a[k][row(i)] * b[k][col(j)],
-// row(i) = 4ty + i (i < 4) or 64 + 4ty + i - 4; col(j) likewise with tx.
-__device__ __forceinline__ void mma_chunk(float (&acc)[8][8], const float* as, const float* bs,
-                                          int tx, int ty) {
+// The next chunk a block copies: chunk `ch` of tile `tile` (batch row b,
+// first sample t0), into ring stage `stage`. Advanced by adds, not divisions.
+struct Producer {
+  int tile, b, t0, ch, stage;
+};
+
+template <typename T>
+__device__ __forceinline__ void issue_next(const Params& p, Producer& pr, int nch,
+                                           unsigned char* ring) {
+  if (pr.tile < p.tiles) {
+    stage_chunk<T>(p, pr.b, pr.t0, pr.ch, ring + pr.stage * XCfg<T>::STAGE_BYTES);
+    pr.stage = pr.stage + 1 == STAGES ? 0 : pr.stage + 1;
+    if (++pr.ch == nch) {
+      pr.ch = 0;
+      pr.tile += gridDim.x;
+      pr.t0 += gridDim.x * NT;
+      while (pr.t0 >= p.tiles_per_row * NT) {  // into the next batch row(s)
+        pr.t0 -= p.tiles_per_row * NT;
+        ++pr.b;
+      }
+    }
+  }
+  cp_async_commit();  // one group per chunk, empty or not
+}
+
+__device__ __forceinline__ void load_a(AFrag& a, const unsigned char* frag, int lane) {
+  const float4 v = *reinterpret_cast<const float4*>(frag + lane * 16);
+  split_tf32_trunc(v.x, a.head[0], a.tail[0]);
+  split_tf32_trunc(v.y, a.head[1], a.tail[1]);
+  split_tf32_trunc(v.z, a.head[2], a.tail[2]);
+  split_tf32_trunc(v.w, a.head[3], a.tail[3]);
+}
+
+// One k-step of a warp's 2 x WN tiles from its two A fragments and the B
+// values of its WN n-tiles (rows t and t + 4, column g). The passes go in
+// three waves over the tiles (tail.head, head.tail into `small`; head.head
+// into `part`), so no mma waits on the one just before it. EXACT_B (bf16
+// input): B's tail is 0 and its wave is skipped.
+template <bool EXACT_B>
+__device__ __forceinline__ void kstep(float (&part)[2][WN][4], float (&small)[2][WN][4],
+                                      const AFrag (&a)[2], const float (&b)[WN][2]) {
+  uint32_t bh[WN][2], bt[WN][2];
 #pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    const float4 a0 = reinterpret_cast<const float4*>(as + kk * NO)[ty];
-    const float4 a1 = reinterpret_cast<const float4*>(as + kk * NO)[16 + ty];
-    const float4 b0 = reinterpret_cast<const float4*>(bs + kk * TT)[tx];
-    const float4 b1 = reinterpret_cast<const float4*>(bs + kk * TT)[16 + tx];
-    const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int j = 0; j < WN; ++j)
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int r = 0; r < 2; ++r) {
+      if constexpr (EXACT_B) bh[j][r] = __float_as_uint(b[j][r]);
+      else split_tf32_trunc(b[j][r], bh[j][r], bt[j][r]);
+    }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+  for (int j = 0; j < WN; ++j)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) mma_tf32(small[m][j], a[m].tail, bh[j][0], bh[j][1]);
+  if constexpr (!EXACT_B) {
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) mma_tf32(small[m][j], a[m].head, bt[j][0], bt[j][1]);
+  }
+#pragma unroll
+  for (int j = 0; j < WN; ++j)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) mma_tf32(part[m][j], a[m].head, bh[j][0], bh[j][1]);
+}
+
+// read_offset of X row k: rows of the taps at t - d and t + d are read from
+// an offset, the others from 0.
+struct RowOffset {
+  int R, lo, hi;  // rows [0, R): tap t - d at offset lo; rows [2R, 3R): t + d at hi
+  __device__ __forceinline__ int operator()(int k) const {
+    return k < R ? lo : (k >= 2 * R && k < 3 * R ? hi : 0);
+  }
+};
+
+// Gate k-steps k0 .. k0 + NKS - 1 (rows 8 ks .. of ring stage xs), straight-line
+template <typename T, int NKS>
+__device__ __forceinline__ void gate_steps(float (&part)[2][WN][4], float (&small)[2][WN][4],
+                                           const T* xs, const unsigned char* wg_s,
+                                           RowOffset roff, int ksteps, int k0, int mp,
+                                           int n_base, int lane) {
+  using X = XCfg<T>;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < NKS; ++ks) {
+    const int k = k0 + ks;
+    AFrag a[2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      load_a(a[m], wg_s + ((2 * mp + m) * ksteps + k) * FRAG_BYTES, lane);
+    const T* x0 = xs + (ks * 8 + t4) * X::LD + roff(k * 8 + t4) + n_base + g;
+    const T* x1 = xs + (ks * 8 + t4 + 4) * X::LD + roff(k * 8 + t4 + 4) + n_base + g;
+    float bv[WN][2];
+#pragma unroll
+    for (int j = 0; j < WN; ++j) {
+      bv[j][0] = to_float(x0[8 * j]);
+      bv[j][1] = to_float(x1[8 * j]);
+    }
+    kstep<sizeof(T) == 2>(part, small, a, bv);
   }
 }
 
-__device__ __forceinline__ int tile_index(int i, int t4) {
-  return i < 4 ? 4 * t4 + i : HALF + 4 * t4 + i - 4;
+// sigmoid(v) = (1 + tanh(v / 2)) / 2: one accurate tanhf, no expf and division
+__device__ __forceinline__ float sigmoid(float v) { return fmaf(0.5f, tanhf(0.5f * v), 0.5f); }
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[2][N][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[m][j][v] = 0.f;
+}
+
+template <int N>
+__device__ __forceinline__ void add(float (&run)[2][N][4], const float (&part)[2][N][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) run[m][j][v] += part[m][j][v];
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NUM_THREADS, 2) wavenet_layer_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [KC][NO]
-  float* xs = ws + KC * NO;                     // [KC][TT]
-  float* zs = xs + KC * TT;                     // [HALF][TT]
+__global__ void __launch_bounds__(THREADS, 1) wavenet_layer_kernel(const Params p) {
+  using X = XCfg<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ksteps = p.ksteps;
+  unsigned char* wg_s = smem;                                      // [8][ksteps] fragments
+  unsigned char* wso_s = wg_s + ksteps * MT * FRAG_BYTES;          // [8][8] fragments
+  float* bias_s = reinterpret_cast<float*>(wso_s + WSO_BYTES);     // bg [128], bso [128]
+  float* zs = bias_s + 4 * HALF;                                   // z [64][ZLD]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(zs + HALF * ZLD);
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int b = blockIdx.y, len = p.len, R = p.R;
-  const long long t0 = (long long)blockIdx.x * TT;
-  const T* xb = static_cast<const T*>(p.x) + (long long)b * R * len;
-  const T* cb = static_cast<const T*>(p.c) + (long long)b * p.A * len;
-  const int k_gate = 3 * R + p.A;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mp = warp / NG;                // m-tiles 2 mp, 2 mp + 1 (mp < 2: skip rows)
+  const int n_base = 8 * WN * (warp % NG);  // the warp's 8 WN samples of the tile
+  const int nch = (ksteps * 8 + KC - 1) / KC;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  // 1. gate = Wk^T X
-  for (int k0 = 0; k0 < k_gate; k0 += KC) {
-    stage_weights(ws, p.wk, k0, k_gate);
-    for (int e = threadIdx.x; e < KC * TT; e += NUM_THREADS) {
-      const int kk = e / TT, tt = e % TT, k = k0 + kk;
-      float v = 0.f;
-      if (k < k_gate) {
-        const T* src;
-        long long t = t0 + tt;
-        if (k < 3 * R) {
-          src = xb + (long long)(k % R) * len;
-          t += (long long)(k / R - 1) * p.d;
-        } else {
-          src = cb + (long long)(k - 3 * R) * len;
-        }
-        if (t >= 0 && t < len) v = to_float(src[t]);
-      }
-      xs[e] = v;
-    }
-    __syncthreads();
-    mma_chunk(acc, ws, xs, tx, ty);
-    __syncthreads();
+  // weights and biases, once per block: their own commit group
+  for (int e = threadIdx.x; e < ksteps * MT * 32; e += THREADS)
+    cp_async_16(smem_u32(wg_s + e * 16), p.wg + e * 4, 16);
+  for (int e = threadIdx.x; e < MT * SO_KSTEPS * 32; e += THREADS)
+    cp_async_16(smem_u32(wso_s + e * 16), p.wso + e * 4, 16);
+  for (int e = threadIdx.x; e < 2 * HALF / 4; e += THREADS) {
+    cp_async_16(smem_u32(bias_s + 4 * e), p.bg + 4 * e, 16);
+    cp_async_16(smem_u32(bias_s + 2 * HALF + 4 * e), p.bso + 4 * e, 16);
   }
+  const RowOffset roff{p.R, read_offset<T>(p, -p.d), read_offset<T>(p, p.d)};
+  cp_async_commit();
+  Producer pr{(int)blockIdx.x, (int)blockIdx.x / p.tiles_per_row,
+              (int)blockIdx.x % p.tiles_per_row * NT, 0, 0};
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue_next<T>(p, pr, nch, ring);
 
-  // 2. z = tanh(gate a-half) * sigmoid(gate b-half), to shared memory
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = 4 * ty + i;
-    const float ba = p.bg[g], bb = p.bg[HALF + g];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float za = tanhf(acc[i][j] + ba);
-      const float zb = 1.0f / (1.0f + expf(-(acc[i + 4][j] + bb)));
-      zs[g * TT + tile_index(j, tx)] = za * zb;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  // 3. [skip | out] = Wso^T z
-  for (int k0 = 0; k0 < HALF; k0 += KC) {
-    stage_weights(ws, p.wso, k0, HALF);
-    __syncthreads();  // also orders the z writes above before the first read
-    mma_chunk(acc, ws, zs + k0 * TT, tx, ty);
-    __syncthreads();
-  }
-
+  // The epilogue's operands of a lane: skip (skip warps) or x (out warps) at
+  // rows 16 (2 mp + m) + g + 8 h, samples n_base + 8 j + 2 t4 + e.
+  const bool skip_warp = mp < 2;
+  const int n_ch = skip_warp ? p.S : p.R;
   const float rsqrt2 = 0.70710678118654752f;
+  float run[2][WN][4], small[2][WN][4], part[2][WN][4], ep[2][WN][4];
+  int stage = 0;  // the ring stage of the next chunk to compute
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const int b = tile / p.tiles_per_row;
+    const int t0 = (tile - b * p.tiles_per_row) * NT;
+    // 0. this tile's skip or x for the epilogue, loaded now, used after the products
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int ch = 4 * ty + (i & 3);  // skip channel (i < 4) or out channel (i >= 4)
-    if (i < 4 ? ch >= p.S : ch >= R) continue;
-    const float bias = p.bso[tile_index(i, ty)];
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long t = t0 + tile_index(j, tx);
-      if (t >= len) continue;
-      if (i < 4) {
-        const long long o = ((long long)b * p.S + ch) * len + t;
-        p.skip_out[o] = p.skip[o] + (acc[i][j] + bias);
-      } else {
-        const long long o = ((long long)b * R + ch) * len + t;
-        store(static_cast<T*>(p.x_out) + o,
-              (acc[i][j] + bias + to_float(xb[(long long)ch * len + t])) * rsqrt2);
+      for (int h = 0; h < 2; ++h) {
+        const int chn = 16 * (2 * mp + m) + g + 8 * h - (skip_warp ? 0 : HALF);
+        const long long base = ((long long)b * n_ch + chn) * p.len;
+#pragma unroll
+        for (int j = 0; j < WN; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t = t0 + n_base + 8 * j + 2 * t4 + e;
+            float v = 0.f;
+            if (chn < n_ch && t < p.len)
+              v = skip_warp ? p.skip[base + t] : to_float(static_cast<const T*>(p.x)[base + t]);
+            ep[m][j][2 * h + e] = v;
+          }
+      }
+    zero(run);
+    zero(small);
+
+    // 1. gate = Wg X, chunk by chunk through the ring
+    for (int ch = 0; ch < nch; ++ch) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // this chunk is in; every warp is done with the one before
+      issue_next<T>(p, pr, nch, ring);
+      const T* xs = reinterpret_cast<const T*>(ring + stage * X::STAGE_BYTES);
+      stage = stage + 1 == STAGES ? 0 : stage + 1;
+      zero(part);
+      const int k0 = ch * (KC / 8);
+      const int nks = min(KC / 8, ksteps - k0);
+      if (nks == KC / 8) {
+        gate_steps<T, KC / 8>(part, small, xs, wg_s, roff, ksteps, k0, mp, n_base, lane);
+      } else {  // the last chunk of a K that is not whole chunks
+        for (int ks = 0; ks < nks; ++ks)
+          gate_steps<T, 1>(part, small, xs + 8 * ks * X::LD, wg_s, roff, ksteps, k0 + ks, mp,
+                           n_base, lane);
+      }
+      add(run, part);
+    }
+
+    // 2. z = tanh(rows r) * sigmoid(rows r + 8) of each m-tile, into shared memory
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int row = 16 * (2 * mp + m) + g;  // the tanh row; row + 8 the sigmoid row
+      const float ba = bias_s[row], bb = bias_s[row + 8];
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        float2 z;
+        z.x = tanhf(run[m][j][0] + small[m][j][0] + ba) *
+              sigmoid(run[m][j][2] + small[m][j][2] + bb);
+        z.y = tanhf(run[m][j][1] + small[m][j][1] + ba) *
+              sigmoid(run[m][j][3] + small[m][j][3] + bb);
+        *reinterpret_cast<float2*>(zs + (8 * (2 * mp + m) + g) * ZLD + n_base + 8 * j +
+                                   2 * t4) = z;
+      }
+    }
+    zero(run);
+    zero(small);
+    __syncthreads();
+
+    // 3. [skip | out] = Wso z, two chunks of 4 k-steps over the 64 units
+#pragma unroll 1  // rolled: a smaller loop body, no spills
+    for (int kc = 0; kc < SO_KSTEPS / 4; ++kc) {
+      zero(part);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int k = 4 * kc + ks;
+        AFrag a[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          load_a(a[m], wso_s + ((2 * mp + m) * SO_KSTEPS + k) * FRAG_BYTES, lane);
+        const float* z0 = zs + (8 * k + t4) * ZLD + n_base + g;
+        float bv[WN][2];
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          bv[j][0] = z0[8 * j];
+          bv[j][1] = z0[4 * ZLD + 8 * j];
+        }
+        kstep<false>(part, small, a, bv);
+      }
+      add(run, part);
+    }
+
+    // 4. skip' = skip + s + b_s, x' = (o + b_o + x) sqrt(1/2)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * (2 * mp + m) + g + 8 * h;
+        const int chn = row - (skip_warp ? 0 : HALF);
+        if (chn >= n_ch) continue;
+        const float bias = bias_s[2 * HALF + row];
+        const long long base = ((long long)b * n_ch + chn) * p.len;
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int t = t0 + n_base + 8 * j + 2 * t4;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float s = run[m][j][2 * h + e] + small[m][j][2 * h + e] + bias;
+            v[e] = skip_warp ? ep[m][j][2 * h + e] + s : (s + ep[m][j][2 * h + e]) * rsqrt2;
+          }
+          if (skip_warp) {
+            float* o = p.skip_out + base + t;
+            if (p.vec && t + 1 < p.len) {
+              *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+            } else {
+              if (t < p.len) o[0] = v[0];
+              if (t + 1 < p.len) o[1] = v[1];
+            }
+          } else {
+            T* o = static_cast<T*>(p.x_out) + base + t;
+            if (t < p.len) store(o, v[0]);
+            if (t + 1 < p.len) store(o + 1, v[1]);
+          }
+        }
       }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+template <typename T>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  // The cap on dynamic shared memory is per kernel and per device, and the
+  // SM count per device: both read on the first launch on each device.
+  static std::atomic<unsigned long long> raised{0};
+  static std::atomic<int> sms[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  const unsigned long long bit = 1ull << dev;
+  if (!(raised.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(wavenet_layer_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes<T>(MAX_K / 8));
+    if (err != cudaSuccess) return err;
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    sms[dev].store(n, std::memory_order_relaxed);
+    raised.fetch_or(bit, std::memory_order_relaxed);
+  }
+  const int blocks = min(p.tiles, sms[dev].load(std::memory_order_relaxed));
+  wavenet_layer_kernel<T><<<(unsigned)blocks, THREADS, smem_bytes<T>(p.ksteps), stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// shapes the kernel does not take, without launching).
-extern "C" int vbt_fused_wavenet(const void* x, const void* c, const float* skip, const float* wk,
+// Weights as fused_wavenet.pack_weights lays them out. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes the
+// kernel does not take, without launching).
+extern "C" int vbt_fused_wavenet(const void* x, const void* c, const float* skip, const float* wg,
                                  const float* bg, const float* wso, const float* bso,
                                  void* x_out, float* skip_out, int B, int R, int A, int S, int T,
                                  int d, int is_bf16, void* stream) {
-  const long long tiles = ((long long)T + TT - 1) / TT;
-  if (B <= 0 || B > 65535 || T <= 0 || d < 1 || R < 1 || R > HALF || S < 1 || S > HALF ||
-      A < 0 || tiles > 0x7fffffffLL)
+  if (B <= 0 || T <= 0 || d < 1 || R < 1 || R > HALF || S < 1 || S > HALF || A < 0 ||
+      3 * R + A > MAX_K)
     return (int)cudaErrorInvalidValue;
-  const Params p{x, c, skip, wk, bg, wso, bso, x_out, skip_out, R, A, S, T, d};
-  const dim3 grid((unsigned)tiles, (unsigned)B);
+  const long long tpr = ((long long)T + NT - 1) / NT;
+  if (B * tpr > 0x3fffffffLL) return (int)cudaErrorInvalidValue;  // tile + grid: int
+  const int esize = is_bf16 ? 2 : 4;
+  const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)c % 16 == 0) &&
+                       ((long long)T * esize) % 16 == 0;
+  Params p{x, c, skip, wg, bg, wso, bso, x_out, skip_out, (int)(B * tpr), (int)tpr,
+           R, A, S, T, d, (3 * R + A + 7) / 8, aligned ? 1 : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    wavenet_layer_kernel<__nv_bfloat16><<<grid, NUM_THREADS, SMEM_BYTES, s>>>(p);
-  else
-    wavenet_layer_kernel<float><<<grid, NUM_THREADS, SMEM_BYTES, s>>>(p);
-  return (int)cudaGetLastError();
+  return (int)(is_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s));
+}
+
+// Shared memory of one block for these widths, in bytes.
+extern "C" int vbt_fused_wavenet_smem(int R, int A, int is_bf16) {
+  const int ksteps = (3 * R + A + 7) / 8;
+  return is_bf16 ? smem_bytes<__nv_bfloat16>(ksteps) : smem_bytes<float>(ksteps);
 }

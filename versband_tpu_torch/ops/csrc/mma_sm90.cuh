@@ -1,10 +1,10 @@
-// PTX helpers shared by the flash-attention kernels (flash_attn_fwd.cu: K1;
-// flash_attn_bwd.cu: K2, K3): asynchronous copies into shared memory,
-// ldmatrix, warp-level mma.sync in bf16 and TF32, the bf16 pack and TF32
-// head/tail split that feed it, and one k-step of a product in either type
-// (mma_step: one bf16 mma, or three TF32 passes). Each source includes this
-// header once; the helpers live in an anonymous namespace, so every library
-// has its own copy.
+// PTX helpers shared by the tensor-core kernels (flash_attn_fwd.cu: K1;
+// flash_attn_bwd.cu: K2, K3; fused_wavenet.cu: K5) and K4's copies:
+// asynchronous copies into shared memory, ldmatrix, warp-level mma.sync in
+// bf16 and TF32, the bf16 pack and TF32 head/tail splits that feed it, and
+// one k-step of a product in either type (mma_step: one bf16 mma, or three
+// TF32 passes). Each source includes this header once; the helpers live in an
+// anonymous namespace, so every library has its own copy.
 
 #pragma once
 
@@ -81,6 +81,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // costs a second half-rate conversion per element for nothing measurable.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& head, uint32_t& tail) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(head) : "f"(x));
+  tail = __float_as_uint(x - __uint_as_float(head));
+}
+
+// x = head + tail with the head x cut to TF32 (its low 13 bits cleared: one
+// AND instead of cvt.rna's conversion) and the tail the exact fp32 rest, of
+// which the tensor core reads the upper 10 mantissa bits: head + tail-as-read
+// is x to 2^-20, where split_tf32 gives 2^-21. K5 splits every operand as it
+// loads it, and there cvt.rna cost 0.2-0.3 ms a layer (kernel_variants.py).
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& head, uint32_t& tail) {
+  head = __float_as_uint(x) & 0xffffe000u;
   tail = __float_as_uint(x - __uint_as_float(head));
 }
 

@@ -39,8 +39,6 @@ from versband_tpu_torch.ops import _build
 
 LAUNCHES = 0
 KERNEL_SIZE = 12  # taps of the 2x resampler, the only size K4 is built for
-_TILE = 1024  # output samples per block (csrc/fused_act1d.cu)
-_MAX_TILES = 65535  # tiles of a row: grid.y
 _FN = None
 _FILTERS: Dict[Tuple[int, int, torch.device, torch.dtype], torch.Tensor] = {}
 
@@ -167,8 +165,6 @@ def _launch(x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor],
     out = torch.empty((B, C, T), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    if B * C > 2 ** 31 - 1 or -(-T // _TILE) > _MAX_TILES:
-        raise ValueError(f"x {tuple(x.shape)} exceeds K4's grid")
     with torch.cuda.device(x.device):
         err = _kernel_fn()(x.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), B, C, T,
                            *x.stride(), int(logscale), _taps_c(),

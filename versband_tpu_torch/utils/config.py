@@ -17,16 +17,84 @@ from typing import Any, Iterable, Mapping
 _JAX_PKG = "versband_tpu."
 _PORT_PKG = "versband_tpu_torch."
 
-# Reference dotted targets -> the JAX package's names; those are then mapped
-# onto this package by prefix.
+# Reference dotted targets -> the JAX package's names (a copy of
+# versband_tpu/utils/config.py's table); those are then mapped onto this
+# package by prefix.
 TARGET_ALIASES = {
     "ldm.models.autoencoder1d.AutoencoderKL": "versband_tpu.models.autoencoder.AutoencoderKL",
     "ldm.models.diffusion.cfm1_audio.CFM": "versband_tpu.models.cfm.CFM",
     "ldm.models.diffusion.ddpm_audio.LatentDiffusion_audio": "versband_tpu.models.cfm.LatentDiffusion",
+    "ldm.models.diffusion.ddpm_audio_order.LatentDiffusion_audio": "versband_tpu.models.ldm_variants.LatentDiffusionOrder",
     "ldm.models.diffusion.ddpm.LatentDiffusion": "versband_tpu.models.cfm.LatentDiffusion",
+    "ldm.models.diffusion.audioldm.LatentDiffusion": "versband_tpu.models.ldm_variants.AudioLDM",
+    "ldm.models.diffusion.ddpm_audio_inpaint.LatentDiffusion_audioinpaint": "versband_tpu.models.ldm_variants.LatentDiffusionInpaint",
+    "ldm.models.diffusion.classifier.NoisyLatentImageClassifier": "versband_tpu.models.ldm_variants.NoiseLevelClassifier",
     "ldm.modules.diffusionmodules.vocal2music_moe.TxtFlagLargeImprovedDiTV2": "versband_tpu.models.dit.BandMoeDiT",
     "ldm.modules.diffusionmodules.vocal2music_moe.TxtFlagLargeDiT": "versband_tpu.models.dit.BandMoeDiT",
+    "ldm.modules.diffusionmodules.flag_large_dit_moe.VideoFlagLargeDiT": "versband_tpu.models.dit_timefreq.TimeFreqMoeDiT",
+    "ldm.modules.diffusionmodules.concatDiT.ConcatDiT2MLP": "versband_tpu.models.concat_dit.ConcatDiT2MLP",
+    "ldm.modules.encoders.modules.FrozenTextVocalEmbedder": "versband_tpu.text.embedders.TextVocalEmbedder",
+    "ldm.modules.encoders.modules.FrozenTextVocalMusicalEmbedder": "versband_tpu.text.embedders.TextVocalMusicalEmbedder",
+    "ldm.modules.encoders.modules.FrozenFLANEmbedder": "versband_tpu.text.embedders.FlanT5Embedder",
+    "ldm.modules.encoders.modules.FrozenCLAPEmbedder": "versband_tpu.text.embedders.ClapTextEmbedder",
+    "ldm.modules.encoders.modules.FrozenCLAPFLANEmbedder": "versband_tpu.text.embedders.ClapFlanEmbedder",
+    "ldm.modules.losses_audio.contperceptual.LPAPSWithDiscriminator": "versband_tpu.train.gan_losses.VAEGANLoss",
+    "torch.nn.Identity": "versband_tpu.utils.config.Identity",
     "vocoder.hifigan.hifigan.HifiGAN": "versband_tpu.vocoder.hifigan.HifiGAN",
+    "vocoder.hifigan.hifigan_nsf.HifiGAN_NSF": "versband_tpu.vocoder.nsf.HifiGAN_NSF",
+    "vocoder.bigvgan.models.VocoderBigVGAN": "versband_tpu.vocoder.bigvgan.VocoderBigVGAN",
+    "ldm.models.autoencoder.AutoencoderKL": "versband_tpu.models.autoencoder2d.AutoencoderKL2D",
+    "ldm.models.autoencoder.VQModel": "versband_tpu.models.autoencoder2d.VQModel",
+    "ldm.models.autoencoder.VQModelInterface": "versband_tpu.models.autoencoder2d.VQModelInterface",
+    "ldm.models.autoencoder.IdentityFirstStage": "versband_tpu.models.autoencoder2d.IdentityFirstStage",
+    "ldm.modules.encoders.modules.ClassEmbedder": "versband_tpu.text.embedders.ClassEmbedder",
+    "ldm.modules.encoders.modules.SpatialRescaler": "versband_tpu.text.embedders.SpatialRescaler",
+    "ldm.modules.diffusionmodules.concatDiT.ConcatDiT": "versband_tpu.models.concat_dit.ConcatDiT",
+    "ldm.modules.diffusionmodules.concatDiT.HybridDiT2MLP": "versband_tpu.models.concat_dit.HybridDiT2MLP",
+    "ldm.modules.diffusionmodules.concatDiT.HybridDiT2MLP2": "versband_tpu.models.concat_dit.HybridDiT2MLP2",
+    "ldm.modules.diffusionmodules.concatDiT.ConcatOrderDiT": "versband_tpu.models.concat_dit.ConcatOrderDiT",
+    "ldm.modules.diffusionmodules.concatDiT.ConcatOrderDiT2": "versband_tpu.models.concat_dit.ConcatOrderDiT2",
+    "ldm.lr_scheduler.LambdaLinearScheduler": "versband_tpu.train.lr_schedules.LambdaLinearScheduler",
+    "ldm.lr_scheduler.LambdaWarmUpCosineScheduler": "versband_tpu.train.lr_schedules.LambdaWarmUpCosineScheduler",
+    "ldm.data.vocal2accomp_musical_dataset.JoinSpecsTrain": "versband_tpu.data.vocal2accomp.JoinSpecsTrain",
+    "ldm.data.vocal2accomp_musical_dataset.JoinSpecsValidation": "versband_tpu.data.vocal2accomp.JoinSpecsValidation",
+    "ldm.data.vocal2accomp_dataset.JoinSpecsTrain": "versband_tpu.data.vocal2accomp.JoinSpecsTrain",
+    "ldm.data.vocal2accomp_dataset.JoinSpecsValidation": "versband_tpu.data.vocal2accomp.JoinSpecsValidation",
+    "ldm.data.joinaudiodataset_624.JoinSpecsTrain": "versband_tpu.data.fixed_len.JoinSpecsTrain",
+    "ldm.data.joinaudiodataset_624.JoinSpecsValidation": "versband_tpu.data.fixed_len.JoinSpecsValidation",
+    "ldm.data.tsvdataset.TSVDataset": "versband_tpu.data.tsvdataset.TSVDataset",
+    "ldm.data.tsvdataset.TSVDatasetStruct": "versband_tpu.data.tsvdataset.TSVDatasetStruct",
+    "ldm.data.joinaudiodataset_struct_sample_anylen.JoinSpecsTrain": "versband_tpu.data.anylen.JoinSpecsTrain",
+    "ldm.data.joinaudiodataset_anylen.JoinSpecsTrain": "versband_tpu.data.anylen.JoinSpecsTrain",
+    "ldm.data.joinaudiodataset_anylen.JoinSpecsValidation": "versband_tpu.data.anylen.JoinSpecsValidation",
+    "vocoder.hifigan.modules.hifigan.CodeUpsampleHifiGanGenerator": "versband_tpu.vocoder.hifigan.CodeUpsampleHifiGanGenerator",
+    "main.AudioLogger": "versband_tpu.train.callbacks.AudioLogger",
+    "main.ImageLogger": "versband_tpu.train.callbacks.ImageLogger",
+    "main.SpectrogramDataModuleFromConfig": "versband_tpu.data.datamodule.SpectrogramDataModule",
+    "main.DataModuleFromConfig": "versband_tpu.data.datamodule.DataModule",
+}
+
+# JAX-package targets the port does not have yet -> the ROADMAP Queue 1 item
+# that ports them (a module, or one class of a module the port has in part).
+NOT_PORTED = {
+    "versband_tpu.models.ldm_variants": 13,
+    "versband_tpu.models.dit_timefreq": 13,
+    "versband_tpu.models.concat_dit": 13,
+    "versband_tpu.models.autoencoder2d": 13,
+    "versband_tpu.text.embedders.TextVocalEmbedder": 7,
+    "versband_tpu.text.embedders.TextVocalMusicalEmbedder": 7,
+    "versband_tpu.text.embedders.FlanT5Embedder": 7,
+    "versband_tpu.text.embedders": 13,
+    "versband_tpu.train.gan_losses": 10,
+    "versband_tpu.vocoder.nsf": 11,
+    "versband_tpu.vocoder.hifigan.CodeUpsampleHifiGanGenerator": 11,
+    "versband_tpu.data.fixed_len": 10,
+    "versband_tpu.data.vocal2accomp": 8,
+    "versband_tpu.data.tsvdataset": 8,
+    "versband_tpu.data.anylen": 8,
+    "versband_tpu.data.datamodule": 8,
+    "versband_tpu.train.callbacks.AudioLogger": 8,
+    "versband_tpu.train.callbacks.ImageLogger": 8,
 }
 
 
@@ -51,9 +119,25 @@ class Config(dict):
         return obj
 
 
+class Identity:
+    """Stand-in for ``torch.nn.Identity`` loss placeholders in configs (the
+    reference YAML's ``lossconfig``)."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __call__(self, x, *args, **kwargs):
+        return x
+
+
 def resolve_target(string: str) -> str:
-    """Map a reference or JAX-package target onto this package's dotted path."""
+    """Map a reference or JAX-package target onto this package's dotted path;
+    a target the port does not have yet raises ``NotImplementedError``."""
     string = TARGET_ALIASES.get(string, string)
+    module = string.rsplit(".", 1)[0]
+    item = NOT_PORTED.get(string, NOT_PORTED.get(module))
+    if item is not None:
+        raise NotImplementedError(f"{string} is not ported yet (ROADMAP Queue 1 item {item})")
     if string.startswith(_JAX_PKG):
         string = _PORT_PKG + string[len(_JAX_PKG):]
     return string

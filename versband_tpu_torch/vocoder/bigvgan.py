@@ -24,7 +24,6 @@ the same function as the unfused modules.
 
 from __future__ import annotations
 
-import glob
 import os
 from typing import Dict, Optional, Sequence
 
@@ -35,6 +34,7 @@ import torch.nn as nn
 from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.ops.fused_act1d import (downsample1d, fused_alias_free_snake,
                                                 kaiser_sinc_filter1d, snake, upsample1d)
+from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
 from versband_tpu_torch.vocoder.hifigan import _conv, load_generator_state_dict
 
 __all__ = ["kaiser_sinc_filter1d", "snake", "UpSample1d", "DownSample1d", "Activation1d",
@@ -198,7 +198,7 @@ class VocoderBigVGAN:
 
     ``ckpt_vocoder`` is a directory with an optional ``args.yml`` (generator
     geometry) and a generator checkpoint (``best_netG.pt``, ``generator.pt``
-    or the reference's ``g_*``, the last by name) with the reference's key
+    or the reference's ``g_*``, the largest step) with the reference's key
     names; torch weight norm is folded and the ``*.filter`` buffers dropped.
     Without one the generator keeps a random init made from ``seed``. The
     generator runs in ``dtype`` (fp32 by default, as in JAX) with K4.
@@ -228,8 +228,7 @@ class VocoderBigVGAN:
             path = os.path.join(ckpt_dir, name)
             if os.path.exists(path):
                 return path
-        found = sorted(glob.glob(os.path.join(ckpt_dir, "g_*")))
-        return found[-1] if found else None
+        return get_last_checkpoint(ckpt_dir, kind="bigvgan")[0]
 
     @torch.no_grad()
     def waveform(self, mel: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,6 @@ hop-320 generator: upsample rates (5, 4, 4, 4), kernels (9, 8, 8, 8).
 
 from __future__ import annotations
 
-import glob
 import os
 from typing import Optional, Sequence
 
@@ -20,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from versband_tpu_torch.device import DeviceLike, resolve_device
+from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
 from versband_tpu_torch.vocoder.conv import LRELU_SLOPE, fold_torch_weight_norm, get_padding
 
 
@@ -119,7 +119,7 @@ class HifiGAN:
 
     ``vocoder_ckpt`` is a directory with an optional ``config.yaml`` and a
     generator checkpoint (``model_gen.pt``, ``generator.pt`` or the
-    reference's ``model_ckpt_steps_*.ckpt``, the last by name). Without one
+    reference's ``model_ckpt_steps_*.ckpt``, the largest step). Without one
     the generator keeps a random init made from ``seed``.
     """
 
@@ -147,8 +147,7 @@ class HifiGAN:
             path = os.path.join(ckpt_dir, name)
             if os.path.exists(path):
                 return path
-        found = sorted(glob.glob(os.path.join(ckpt_dir, "model_ckpt_steps_*.ckpt")))
-        return found[-1] if found else None
+        return get_last_checkpoint(ckpt_dir, kind="hifigan")[0]
 
     @torch.no_grad()
     def waveform(self, mel: torch.Tensor) -> torch.Tensor:

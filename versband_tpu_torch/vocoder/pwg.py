@@ -21,7 +21,6 @@ and PQMF.
 
 from __future__ import annotations
 
-import glob
 import math
 import os
 from typing import Optional, Sequence
@@ -32,7 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from versband_tpu_torch.device import DeviceLike, resolve_device
-from versband_tpu_torch.ops.fused_wavenet import fused_wavenet_layer
+from versband_tpu_torch.ops.fused_wavenet import PackCache, fused_wavenet_layer
+from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
 from versband_tpu_torch.vocoder.hifigan import load_generator_state_dict
 
 
@@ -52,6 +52,7 @@ class ResidualBlock(nn.Module):
         self.conv1x1_aux = nn.Conv1d(aux_channels, gate_channels, 1, bias=False)
         self.conv1x1_out = nn.Conv1d(gate_channels // 2, residual_channels, 1, bias=use_bias)
         self.conv1x1_skip = nn.Conv1d(gate_channels // 2, skip_channels, 1, bias=use_bias)
+        self._k5_pack = PackCache()  # K5's packed weights, remade when a weight changes
 
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor],
                 skip: Optional[torch.Tensor] = None):
@@ -64,7 +65,7 @@ class ResidualBlock(nn.Module):
             return fused_wavenet_layer(
                 x, c, skip, self.conv.weight, self.conv.bias, self.conv1x1_aux.weight,
                 self.conv1x1_skip.weight, self.conv1x1_skip.bias, self.conv1x1_out.weight,
-                self.conv1x1_out.bias, self.dilation)
+                self.conv1x1_out.bias, self.dilation, self._k5_pack)
         h = self.conv(x)
         xa, xb = h.chunk(2, dim=1)
         if c is not None:
@@ -186,9 +187,9 @@ class ParallelWaveGAN:
     seeded from ``seed`` (torch draws, not the JAX package's). Weights: a
     directory with a generator checkpoint in the reference's names
     (``model_gen.pt``, ``generator.pt`` or the parallel_wavegan library's
-    ``checkpoint-*steps.pkl``, whose ``model -> generator`` is read; torch
-    weight norm folded), or none (random init from ``seed``). K5 serves by
-    default (``fused_inference=True``).
+    ``checkpoint-*steps.pkl`` of the largest step, whose ``model ->
+    generator`` is read; torch weight norm folded), or none (random init from
+    ``seed``). K5 serves by default (``fused_inference=True``).
     """
 
     def __init__(self, vocoder_ckpt: Optional[str] = None, device: DeviceLike = None,
@@ -212,8 +213,7 @@ class ParallelWaveGAN:
             path = os.path.join(ckpt_dir, name)
             if os.path.exists(path):
                 return path
-        found = sorted(glob.glob(os.path.join(ckpt_dir, "checkpoint-*steps.pkl")))
-        return found[-1] if found else None
+        return get_last_checkpoint(ckpt_dir, kind="pwg")[0]
 
     @torch.no_grad()
     def waveform(self, mel: torch.Tensor) -> torch.Tensor:
