@@ -56,16 +56,29 @@ Phases (any failure raises and exits non-zero):
      with ``scale_factor``, and 4 K1 + 4 K2 + 4 K3 launches per step;
  10. one train step at full width (batch 2) on the card and on the CPU from
      the same weights, batch and draws: loss and gradients agree;
- 11. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
+ 11. [cli] the inference CLI, ``versband_tpu_torch.cli.generate.main``, in
+     this process on the card with ``configs/vocal2music.yaml`` as committed
+     (read by the port's own YAML parser): run from a scratch directory that
+     holds ``useful_ckpts/flan-t5-large`` (flan-t5-large's published geometry,
+     random weights from SEED written as ``model.safetensors``, and a
+     Unigram ``tokenizer.json`` over the caption templates' words), a
+     2-item manifest of 1500-frame vocal mels, a DiT and a VAE ``.pt``; the
+     T5 tower in fp32 on the card against the same tower on the CPU; 96 K1
+     launches per (item, scale); every accompaniment wav 481,280 finite,
+     non-silent samples at -23 +/- 0.5 LUFS; ``clap.csv`` with items x
+     scales rows; host wall and device time per item, scale and stage;
+ 12. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
 
 import copy
+import csv
 import ctypes
 import importlib.util
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -149,6 +162,24 @@ K5_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
 # fp32 modules on the card against the CPU (TF32 off): summation order over
 # 768-1536-wide products through 4 blocks / ~30 conv layers.
 MODULE_TOL = 2e-3
+# The fp32 T5 tower on the card against the CPU, max|d| over hidden states of
+# O(1) (after the final RMS norm): summation order over 1024- and 2816-wide
+# products through 24 blocks, TF32 off.
+T5_TOL = 2e-3
+
+# [cli]: configs/vocal2music.yaml's cond_stage_config.params.version, relative
+# to the CLI's working directory, and google/flan-t5-large's published
+# config.json geometry
+T5_DIR = Path("useful_ckpts") / "flan-t5-large"
+FLAN_T5_LARGE = dict(model_type="t5", d_model=1024, d_ff=2816, d_kv=64, num_heads=16,
+                     num_layers=24, feed_forward_proj="gated-gelu", vocab_size=32128,
+                     relative_attention_num_buckets=32, relative_attention_max_distance=128,
+                     layer_norm_epsilon=1e-6)
+CLI_ITEMS, CLI_SCALES = 2, "1-2"
+CLI_T_MEL = 1500  # 1500 x 320 / 24000 = 20.0 s, within --max_sec 20; padded to 1504
+CLI_LUFS, CLI_LUFS_TOL = -23.0, 0.5
+CLI_WORK = Path("build") / "chip_smoke_cli"
+CLI_CONFIG = Path("configs") / "vocal2music.yaml"  # as committed
 # One fp32 train step, card against CPU: the loss relative to itself, and
 # for each parameter max|grad_card - grad_cpu| relative to that parameter's
 # largest CPU gradient, or to STEP_GRAD_FLOOR x the largest of all where its
@@ -1000,6 +1031,196 @@ def phase_grad_parity(dev) -> None:
         raise AssertionError("train step on the card disagrees with the CPU")
 
 
+def write_tokenizer_json(path: Path, words) -> None:
+    """A T5-style Unigram ``tokenizer.json`` written by hand: <pad> 0, </s> 1,
+    <unk> 2, then one piece per character seen (score -5) and one per
+    ``"▁" + word`` (score -1); ' {2,}' -> ' ', WhitespaceSplit + Metaspace,
+    and ``$A </s>``."""
+    words = sorted({w for w in words if w})
+    chars = sorted({c for w in words for c in w} | set("0123456789.,:;!?'-"))
+    vocab = [["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0], ["▁", -2.0]]
+    vocab += [[c, -5.0] for c in chars] + [["▁" + w, -1.0] for w in words]
+    special = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+                "normalized": False, "special": True}
+               for i, t in enumerate(("<pad>", "</s>", "<unk>"))]
+    doc = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": special,
+           "normalizer": {"type": "Sequence", "normalizers": [
+               {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+           "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+               {"type": "WhitespaceSplit"},
+               {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                "split": True}]},
+           "post_processor": {"type": "TemplateProcessing",
+                              "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                                         {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                              "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                              "special_tokens": {"</s>": {"id": "</s>", "ids": [1],
+                                                          "tokens": ["</s>"]}}},
+           "decoder": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                       "split": True},
+           "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab, "byte_fallback": False}}
+    path.write_text(json.dumps(doc, ensure_ascii=False))
+
+
+def caption_words() -> list:
+    """The words of the caption templates the CLI draws from, and of its
+    'Style: ... Musical: ...' frame."""
+    from versband_tpu_torch.text.caption_generator import reference_banks
+
+    text = json.dumps(reference_banks()) + " Style: Musical: piano pop rock ballad soft"
+    return re.findall(r"[A-Za-z]+|[0-9]+", text)
+
+
+def write_t5_dir(path: Path, config: dict, seed: int) -> "T5Encoder":
+    """A Hugging Face T5 checkpoint directory: ``config.json``, random
+    weights (transformers' init, from ``seed``) as ``model.safetensors``,
+    and a ``tokenizer.json`` over :func:`caption_words`."""
+    from versband_tpu_torch.text.t5 import T5Encoder
+    from versband_tpu_torch.utils.safetensors_io import save_safetensors
+
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(config))
+    enc = T5Encoder(config).init_weights(torch.Generator().manual_seed(seed))
+    save_safetensors(enc.state_dict(), str(path / "model.safetensors"), {"format": "pt"})
+    write_tokenizer_json(path / "tokenizer.json", caption_words())
+    return enc
+
+
+def write_cli_inputs(root: Path, n_items: int, t_mel: int, dit: dict, vae: dict,
+                     seed: int) -> dict:
+    """The CLI's inputs under ``root``: a manifest of ``n_items`` vocal mels of
+    ``t_mel`` frames (20.0 s each at 1500), ``midi.npy``/``beats.npy``, a DiT
+    (adaLN-zero layers perturbed) and a VAE as ``.pt`` state dicts, and a
+    HiFi-GAN directory (default geometry) with a ``model_gen.pt``. HiFi-GAN's
+    own init (N(0, 0.01)) renders a near-silent click whose peak the -23 LUFS
+    gain would push past full scale, where the limiter leaves it below -23;
+    these weights are N(0, 1/fan_in) instead, and render noise-like audio."""
+    rng = np.random.default_rng(seed)
+    (root / "manifest").mkdir(parents=True, exist_ok=True)
+    cols = ["name", "caption", "duration", "key", "key_confidence", "avg_pitch", "tempo",
+            "tempo_confidence", "wav_len", "audio_path", "vocal_mel_path"]
+    midi, beats, rows = {}, {}, []
+    for i in range(n_items):
+        name = f"song{i}"
+        mel = root / f"{name}_vocal_mel.npy"
+        np.save(mel, (rng.standard_normal((80, t_mel)) - 2.0).astype(np.float32))
+        midi[name] = rng.integers(40, 90, t_mel)
+        beats[name] = rng.integers(0, 2, t_mel)
+        sec = t_mel * HOP / SR
+        rows.append([name, "piano<psep>soft piano pop ballad", sec, "C major", 0.9,
+                     60.0 + 5 * i, 96.0 + 20 * i, 0.8, sec, "", str(mel)])
+    with open(root / "manifest" / "music.tsv", "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t", lineterminator="\n")
+        w.writerow(cols)
+        w.writerows(rows)
+    np.save(root / "midi.npy", midi, allow_pickle=True)
+    np.save(root / "beats.npy", beats, allow_pickle=True)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = BandMoeDiT(**dit)
+        perturb_zero_init(model, seed)
+        torch.save(model.state_dict(), root / "dit.pt")
+        torch.save(AutoencoderKL(**vae).state_dict(), root / "vae.pt")
+        voc = HifiGanGenerator()
+    g = torch.Generator().manual_seed(seed)
+    sd = {k: (torch.randn(v.shape, generator=g) / math.sqrt(v.shape[1] * v.shape[2])
+              if v.ndim == 3 else v) for k, v in voc.state_dict().items()}
+    (root / "hifigan").mkdir(exist_ok=True)
+    torch.save(sd, root / "hifigan" / "model_gen.pt")
+    return dict(manifest=str(root / "manifest"), midi=str(root / "midi.npy"),
+                dit=str(root / "dit.pt"), vae=str(root / "vae.pt"),
+                vocoder=str(root / "hifigan"))
+
+
+def phase_cli(dev) -> int:
+    """The inference CLI on the shipped YAML (phase 11); returns its K1 launches."""
+    from versband_tpu_torch.cli import generate as cli
+    from versband_tpu_torch.dsp.loudness import integrated_loudness
+    from versband_tpu_torch.text.embedders import TextVocalEmbedder
+
+    config = CLI_CONFIG.resolve()
+    shutil.rmtree(CLI_WORK, ignore_errors=True)
+    root = CLI_WORK.resolve()
+    t0 = time.perf_counter()
+    write_t5_dir(root / T5_DIR, FLAN_T5_LARGE, SEED)
+    inputs = write_cli_inputs(root, CLI_ITEMS, CLI_T_MEL, DIT, VAE, SEED)
+    print(f"[cli] inputs written in {time.perf_counter() - t0:.1f} s: {root / T5_DIR} "
+          f"(flan-t5-large geometry, {(root / T5_DIR / 'model.safetensors').stat().st_size / 2**30:.2f}"
+          f" GiB safetensors), {CLI_ITEMS} items of {CLI_T_MEL} frames")
+    argv = ["--config", str(config), "--ckpt", inputs["dit"], "--vae_ckpt", inputs["vae"],
+            "--vocoder_ckpt", inputs["vocoder"], "--manifest", inputs["manifest"], "--other_condition", inputs["midi"],
+            "--scales", CLI_SCALES, "--num_items", str(CLI_ITEMS), "--seed", str(SEED),
+            "--save_dir", "out"]
+    cwd = os.getcwd()
+    stats = []
+    try:
+        os.chdir(root)  # the YAML's relative version: resolves here
+        torch.cuda.synchronize()
+        reset_launches()  # count only this path's launches
+        t0 = time.perf_counter()
+        rc = cli.main(argv, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k4, k5 = fa.LAUNCHES, fa1.LAUNCHES, fw.LAUNCHES
+        with open(root / "out" / "clap.csv", newline="") as f:
+            rows = list(csv.DictReader(f, delimiter="\t"))
+        wavs = sorted((root / "out").rglob("*.wav"))
+        captions = [r["caption"] for r in rows]
+        cpu = TextVocalEmbedder(version=str(T5_DIR), max_length=80, device="cpu")
+        gpu = TextVocalEmbedder(version=str(T5_DIR), max_length=80, device=dev)
+    finally:
+        os.chdir(cwd)
+    n_runs = CLI_ITEMS * len(CLI_SCALES.split("-"))
+    print(f"[cli] main() returned {rc} in {wall:.2f} s host wall ({wall / CLI_ITEMS:.2f} s per "
+          f"item, model build and checkpoint loads included); K1 launches {k1} "
+          f"(want {LAUNCHES_PER_CLIP} x {n_runs}), K4 {k4}, K5 {k5}")
+    if rc != 0 or k1 != LAUNCHES_PER_CLIP * n_runs or k4 or k5:
+        raise AssertionError(f"[cli] rc {rc}, launches K1 {k1}, K4 {k4}, K5 {k5}")
+    for r in stats:
+        print(f"[cli] item {r['item']} scale {r['scale']}: " + ", ".join(
+            f"{st} {r[st + '_ms']:.2f} ms host wall, {r[st + '_device_ms']:.2f} ms device"
+            for st in cli.STAGES if st + "_ms" in r))
+    for st in cli.STAGES:
+        runs = [r for r in stats if st + "_ms" in r]
+        print(f"[cli] stage {st}: median over {len(runs)} runs "
+              f"{statistics.median(r[st + '_ms'] for r in runs):.2f} ms host wall, "
+              f"{statistics.median(r[st + '_device_ms'] for r in runs):.2f} ms device")
+
+    if len(rows) != n_runs or len(wavs) != n_runs:
+        raise AssertionError(f"[cli] clap.csv has {len(rows)} rows and {len(wavs)} wavs, "
+                             f"want {n_runs}")
+    from scipy.io import wavfile
+
+    n = (CLI_T_MEL + 7) // 8 * 8 * HOP
+    for path in wavs:
+        sr, pcm = wavfile.read(path)
+        wav = pcm.astype(np.float32) / 32768.0
+        lufs = integrated_loudness(wav, sr)
+        print(f"[cli] {path.relative_to(root)}: {wav.shape[0]} samples at {sr} Hz, "
+              f"finite {np.isfinite(wav).all()}, std {wav.std():.4f}, {lufs:.3f} LUFS")
+        if not (sr == SR and wav.shape == (n,) and np.isfinite(wav).all() and wav.std() > 0
+                and abs(lufs - CLI_LUFS) <= CLI_LUFS_TOL):
+            raise AssertionError(f"[cli] {path}: {wav.shape} samples, {lufs} LUFS")
+
+    with torch.inference_mode():
+        texts = captions[:1] + [""]
+        ref = cpu({"caption": texts, "acoustic": {}})["caption"]
+        out = gpu({"caption": texts, "acoustic": {}})["caption"]
+        torch.cuda.synchronize()
+        t5_ms = cuda_ms(lambda: gpu({"caption": texts, "acoustic": {}}), 5, warmup=1)
+    err = _max_diff(out, ref)
+    print(f"[cli] T5 tower fp32 {tuple(ref.shape)} ({FLAN_T5_LARGE['num_layers']} blocks, "
+          f"d_model {FLAN_T5_LARGE['d_model']}) card vs CPU: "
+          f"max|d| {err:.3e} (tol {T5_TOL:g}), |out|max {ref.abs().max():.3f}; card "
+          f"{t5_ms:.2f} ms per call of 2 captions (tokenizer included)")
+    if not err <= T5_TOL:
+        raise AssertionError(f"T5 on the card disagrees with the CPU: {err}")
+    del cpu, gpu
+    shutil.rmtree(CLI_WORK, ignore_errors=True)
+    return k1
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda")
@@ -1012,6 +1233,7 @@ def main() -> None:
     served = phase_serve(dev)
     trained = phase_train(dev)
     phase_grad_parity(dev)
+    n_cli = phase_cli(dev)
     n_train = trained["launches"]
     n_serve = {k: sum(f[k] for f in served.values()) for k in ("k1", "k4", "k5")}
     bwd_src = "versband_tpu_torch/ops/csrc/flash_attn_bwd.cu"
@@ -1019,7 +1241,7 @@ def main() -> None:
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/flash_attn_fwd.cu",
          "replaces": "versband_tpu/ops/flash_attention.py:57",
-         "launches": n_serve["k1"] + n_train[0], **k1},
+         "launches": n_serve["k1"] + n_train[0] + n_cli, **k1},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": bwd_src,
          "replaces": "versband_tpu/ops/flash_attention.py:162", "launches": n_train[1],
          **k23["dq"]},
@@ -1037,7 +1259,8 @@ def main() -> None:
         raise AssertionError(f"a kernel did not run on the main path: "
                              f"{[(k['name'], k['launches']) for k in table]}")
     print(f"kernels: {[k['name'] for k in table]}; K1 launches: serving {n_serve['k1']}, "
-          f"training {n_train[0]}; K4 {n_serve['k4']} (bigvgan), K5 {n_serve['k5']} (pwg)")
+          f"training {n_train[0]}, cli {n_cli}; K4 {n_serve['k4']} (bigvgan), "
+          f"K5 {n_serve['k5']} (pwg)")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,9 @@
   ``state_dict_from_jax`` gives back the same keys and bit-identical values,
   for every family of the port (DiT, VAE, HiFi-GAN, BigVGAN, PWG).
 * No file of ``versband_tpu_torch/`` and not ``chip_smoke.py`` imports
-  ``jax``, ``flax`` or ``versband_tpu``.
+  ``jax``, ``flax`` or ``versband_tpu``, nor a package the card's machine
+  lacks (``yaml``, ``pandas``, ``transformers``, ``tokenizers``,
+  ``safetensors``).
 """
 
 import ast
@@ -24,7 +26,8 @@ from torch_port_helpers import (BIGVGAN_TINY, DIT_TINY, PWG_TINY, VAE_TINY, VOC_
                                 randomize_, to_jax)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "flax", "versband_tpu"}
+FORBIDDEN = {"jax", "flax", "versband_tpu", "yaml", "pandas", "transformers", "tokenizers",
+             "safetensors"}
 
 
 @pytest.mark.parametrize("family,build,kw", [

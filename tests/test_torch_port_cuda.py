@@ -26,6 +26,11 @@ fp32 (JAX's bar: sums over 3R + A and G terms in another order, as three TF32
 passes over split operands); in bf16, x' within 1e-2 x (rounded to bf16 once)
 and skip' 1e-5 x (fp32 on both sides from the same widened inputs). The
 plain versions' convolutions run with TF32 off.
+
+The T5 caption tower (plain PyTorch) on the card against the CPU: 1e-5 (fp32,
+TF32 off, products summed in another order). The inference CLI on a tiny
+config, card (K1 in the DiT) against ``--platform cpu``, with the same start
+noise: wavs within 1e-3 of full scale and the same ``clap.csv``.
 """
 
 import math
@@ -525,3 +530,89 @@ def test_vocoder_forwards_launch_k4_and_k5(cuda):
             assert counter.LAUNCHES - n == want
             ref = model(*args)
             assert (out.cpu() - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+# a tiny copy of configs/vocal2music.yaml (the card's machine has no PyYAML
+# to write one from the shipped file); head dim 32, one K1 supports
+TINY_CLI_YAML = """\
+model:
+  target: versband_tpu.models.cfm.CFM
+  params:
+    mel_dim: 4
+    scale_by_std: true
+    unet_config:
+      target: versband_tpu.models.dit.BandMoeDiT
+      params: {in_channels: 4, ori_dim: 32, context_dim: 16, hidden_size: 64, num_heads: 2,
+               depth: 2, max_len: 64, num_experts: 2, multiple_of: 8, use_flash: true}
+    first_stage_config:
+      target: versband_tpu.models.autoencoder.AutoencoderKL
+      params:
+        embed_dim: 4
+        ckpt_path: logs/ae_accomp/checkpoints/last
+        ddconfig: {double_z: true, in_channels: 80, out_ch: 80, z_channels: 4, kernel_size: 5,
+                   ch: 8, ch_mult: [1, 2], num_res_blocks: 1, attn_layers: [],
+                   down_layers: [0], dropout: 0.0}
+        lossconfig: {target: versband_tpu.utils.config.Identity}
+    cond_stage_config:
+      target: versband_tpu.text.embedders.TextVocalEmbedder
+      params: {version: useful_ckpts/flan-t5-large, max_length: 24}
+data:
+  params: {main_spec_dir_path: none, other_condition: none}
+"""
+TINY_T5 = dict(model_type="t5", d_model=32, d_ff=48, d_kv=8, num_heads=4, num_layers=2,
+               feed_forward_proj="gated-gelu", vocab_size=32128)
+TINY_DIT = dict(in_channels=4, ori_dim=32, context_dim=16, hidden_size=64, num_heads=2,
+                depth=2, max_len=64, num_experts=2, multiple_of=8, use_flash=True)
+TINY_VAE = dict(embed_dim=4, ddconfig=dict(double_z=True, in_channels=80, out_ch=80,
+                                           z_channels=4, kernel_size=5, ch=8, ch_mult=[1, 2],
+                                           num_res_blocks=1, attn_layers=[], down_layers=[0],
+                                           dropout=0.0))
+
+
+def test_t5_tower_on_the_card_matches_the_cpu(cuda, tmp_path):
+    import chip_smoke
+    from versband_tpu_torch.text.embedders import TextVocalEmbedder
+
+    chip_smoke.write_t5_dir(tmp_path / "t5", TINY_T5, seed=0)
+    texts = ["Style: soft piano Musical: This melody, set in C major, moves slowly.", ""]
+    cpu = TextVocalEmbedder(version=str(tmp_path / "t5"), max_length=24, device="cpu")
+    gpu = TextVocalEmbedder(version=str(tmp_path / "t5"), max_length=24, device=cuda)
+    with torch.no_grad():
+        ref = cpu({"caption": texts, "acoustic": {}})["caption"]
+        out = gpu({"caption": texts, "acoustic": {}})["caption"]
+    assert out.device.type == "cuda" and out.shape == (2, 24, 32)
+    assert (out.cpu() - ref).abs().max().item() <= 1e-5
+
+
+def test_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """One item at --scales 1-2 through ``cli.generate.main``, on the card and
+    with --platform cpu, from the same checkpoints and start noise."""
+    import chip_smoke
+    from scipy.io import wavfile
+
+    from versband_tpu_torch.cli import generate as cli
+
+    chip_smoke.write_t5_dir(tmp_path / "useful_ckpts" / "flan-t5-large", TINY_T5, seed=0)
+    inputs = chip_smoke.write_cli_inputs(tmp_path, 1, 37, TINY_DIT, TINY_VAE, seed=0)
+    (tmp_path / "tiny.yaml").write_text(TINY_CLI_YAML)
+    monkeypatch.chdir(tmp_path)
+    argv = ["--config", "tiny.yaml", "--ckpt", inputs["dit"], "--vae_ckpt", inputs["vae"],
+            "--vocoder_ckpt", inputs["vocoder"], "--manifest", inputs["manifest"],
+            "--other_condition", inputs["midi"], "--scales", "1-2", "--num_items", "1"]
+    runs = {}
+    for name, extra in (("cpu", ["--platform", "cpu"]), ("card", [])):
+        rng = np.random.RandomState(3)
+        monkeypatch.setattr(cli, "start_noise", lambda gen, shape, device: torch.from_numpy(
+            rng.standard_normal(tuple(shape)).astype(np.float32)).to(device))
+        n = fa.LAUNCHES
+        assert cli.main(argv + ["--save_dir", name] + extra) == 0
+        runs[name] = fa.LAUNCHES - n
+    assert runs == {"cpu": 0, "card": 24 * TINY_DIT["depth"] * 2}
+    for scale in ("1.0", "2.0"):
+        rel = f"cond_gtcodec_accomp_scale_{scale}/0-0000[0][accomp].wav"
+        want = wavfile.read(tmp_path / "cpu" / rel)[1].astype(np.int32)
+        got = wavfile.read(tmp_path / "card" / rel)[1].astype(np.int32)
+        assert got.shape == want.shape == (40 * 320,)
+        assert np.abs(got - want).max() <= 1e-3 * 32767
+    csv_cpu = (tmp_path / "cpu" / "clap.csv").read_text().replace("cpu/", "")
+    assert csv_cpu == (tmp_path / "card" / "clap.csv").read_text().replace("card/", "")

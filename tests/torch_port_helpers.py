@@ -151,3 +151,104 @@ def assert_grads_match(model, jax_grads, tol=1e-4, floor=1e-3):
         assert err <= tol * max(own, floor * scale), (k, err, own, scale)
         if k.endswith(("attention.wq.weight", "attention.wk.weight", "attention.wv.weight")):
             assert g.abs().max().item() > 0, k
+
+
+# -- T5 caption tower fixtures -------------------------------------------------
+T5_TINY = dict(d_model=16, d_ff=32, d_kv=8, num_heads=2, num_layers=2, vocab_size=256)
+
+
+def build_charsmap(mapping: dict) -> bytes:
+    """A sentencepiece precompiled charsmap for ``{source: replacement}``: a
+    u32 trie size, a darts-clone double array (one 256-unit block per trie
+    node; a node's leaf value sits at label 0 of its block), then the
+    NUL-terminated replacements."""
+    import struct
+
+    trie = {}
+    for src in mapping:
+        node = trie
+        for b in src.encode():
+            node = node.setdefault(b, {})
+        node[None] = src
+    normalized, offsets = b"", {}
+    for src, dst in mapping.items():
+        offsets[src] = len(normalized)
+        normalized += dst.encode() + b"\0"
+    units = [0] * 256
+
+    def place(node, pos):
+        base = len(units)
+        units.extend([0] * 256)
+        offset = pos ^ base
+        assert offset < (1 << 21)
+        units[pos] = (units[pos] & 0xFF) | (int(None in node) << 8) | (offset << 10)
+        if None in node:
+            units[base] = offsets[node[None]] | (1 << 31)
+        for label, child in node.items():
+            if label is not None:
+                units[base ^ label] = label
+                place(child, base ^ label)
+
+    place(trie, 0)
+    return (struct.pack("<I", 4 * len(units)) + struct.pack(f"<{len(units)}I", *units)
+            + normalized)
+
+
+# full-width letters, a ligature and NBSP, as nmt_nfkc maps them
+CHARSMAP = {"Ａ": "A", "ｂ": "b", "Ｓ": "S", "ｔ": "t", "ﬁ": "fi", "ﬂ": "fl", " ": " ",
+            "①": "1", "é": "é"}
+
+
+def caption_corpus(n: int = 60, seed: int = 0) -> list:
+    """Captions as the CLI builds them (``CaptionGenerator2``, reference templates)."""
+    from versband_tpu.text.caption_generator import CaptionGenerator2
+
+    gen = CaptionGenerator2(rng=np.random.default_rng(seed), templates="reference")
+    keys = ["C major", "a minor", "F# major", "E- minor", "B- major"]
+    out = []
+    for i in range(n):
+        prompt = gen.transcribe(key=keys[i % 5], key_conf=0.9, avg_pitch=50.0 + 3 * (i % 11),
+                                tempo=60.0 + 13 * (i % 9), tempo_conf=0.8,
+                                emotion=None, duration=4.0 + i % 17)
+        out.append(f"Style: pop ballad with piano {i % 7} Musical: {prompt}")
+    return out
+
+
+def train_unigram_tokenizer(captions, vocab_size: int = 200, charsmap: bytes = None):
+    """A T5-style ``tokenizers.Tokenizer`` trained on ``captions``: Precompiled
+    (when given) and ' {2,}' -> ' ' normalizers, WhitespaceSplit + Metaspace,
+    a Unigram model with <pad> 0, </s> 1, <unk> 2, and '$A </s>'."""
+    from tokenizers import Regex, Tokenizer, models, normalizers, pre_tokenizers, processors
+    from tokenizers import trainers
+
+    tok = Tokenizer(models.Unigram())
+    norms = [normalizers.Replace(Regex(" {2,}"), " ")]
+    if charsmap is not None:
+        norms.insert(0, normalizers.Precompiled(charsmap))
+    tok.normalizer = normalizers.Sequence(norms)
+    tok.pre_tokenizer = pre_tokenizers.Sequence([
+        pre_tokenizers.WhitespaceSplit(),
+        pre_tokenizers.Metaspace(replacement="▁", prepend_scheme="always")])
+    tok.train_from_iterator(captions, trainers.UnigramTrainer(
+        vocab_size=vocab_size, special_tokens=["<pad>", "</s>", "<unk>"], unk_token="<unk>"))
+    tok.post_processor = processors.TemplateProcessing(single="$A </s>",
+                                                       special_tokens=[("</s>", 1)])
+    return tok
+
+
+def write_t5_dir(path, config: dict, seed: int = 0, tokenizer=None,
+                 safe_serialization: bool = True):
+    """A Hugging Face T5 encoder checkpoint directory (``config.json``, random
+    weights from ``seed``) and, given a ``tokenizers.Tokenizer``, its
+    ``tokenizer.json`` (saved through ``T5TokenizerFast`` so that
+    ``AutoTokenizer`` reads it back)."""
+    from transformers import T5Config, T5EncoderModel, T5TokenizerFast
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = T5EncoderModel(T5Config(**config)).eval()
+    model.save_pretrained(str(path), safe_serialization=safe_serialization)
+    if tokenizer is not None:
+        T5TokenizerFast(tokenizer_object=tokenizer, eos_token="</s>", pad_token="<pad>",
+                        unk_token="<unk>", extra_ids=0).save_pretrained(str(path))
+    return model

@@ -15,8 +15,11 @@ the first batch's latents). Randomness comes from a ``torch.Generator`` or is
 handed in as tensors (``noise``, ``gumbel``), so tests feed both packages the
 same draws.
 
-The text tower (``cond_stage_config``) is not ported yet: callers pass
-caption embeddings.
+Conditioning: ``cond_stage_config`` builds the frozen caption tower
+(``text/embedders.py``, the shipped ``TextVocalEmbedder``) on the model's
+device, and :meth:`LatentDiffusion.get_learned_conditioning` turns a cond
+dict with caption strings into one with caption embeddings. The trainer
+still takes captions pre-encoded.
 """
 
 from __future__ import annotations
@@ -128,9 +131,16 @@ class LatentDiffusion:
     YAML's ``model.params`` on ``device`` in ``dtype``. The training keys are
     kept (``scale_by_std``, ``l_simple_weight``, the beta schedule, and
     ``use_ema`` and ``scheduler_config``, which :class:`CFMTrainer` reads);
-    keys that neither sampling nor training reads are accepted and ignored."""
+    keys that neither sampling nor training reads are accepted and ignored.
 
-    def __init__(self, unet_config=None, first_stage_config=None, timesteps: int = 1000,
+    ``cond_stage_config`` builds the frozen caption tower on ``device`` (in
+    fp32, whatever ``dtype``). Unlike JAX (``models/cfm.py:197-204``), a
+    cond stage that fails to build raises instead of leaving
+    ``cond_stage = None``: a tower that silently vanished would leave the
+    captions unencoded."""
+
+    def __init__(self, unet_config=None, first_stage_config=None, cond_stage_config=None,
+                 timesteps: int = 1000,
                  beta_schedule: str = "linear", linear_start: float = 0.00085,
                  linear_end: float = 0.012, cosine_s: float = 8e-3,
                  mel_dim: int = 20, scale_by_std: bool = True, scale_factor: float = 1.0,
@@ -151,6 +161,9 @@ class LatentDiffusion:
         self.first_stage = self._build(first_stage_config)
         if self.first_stage is not None:
             self.first_stage.requires_grad_(False)  # frozen: never trained here
+        self.cond_stage = None
+        if cond_stage_config and cond_stage_config != "__is_unconditional__":
+            self.cond_stage = instantiate_from_config(cond_stage_config, device=self.device)
 
     def _build(self, config) -> Optional[nn.Module]:
         if not config:
@@ -184,6 +197,14 @@ class LatentDiffusion:
     def latent_length(self, cond_length: int) -> int:
         """ceil(T_cond / 2): latent frames for a conditioning of T mel frames."""
         return math.ceil(cond_length / 2)
+
+    def get_learned_conditioning(self, cond: Dict[str, Any]) -> Dict[str, Any]:
+        """The cond dict with its captions encoded by the cond stage, cast to
+        the model's dtype; as it is without a cond stage."""
+        if self.cond_stage is None:
+            return cond
+        out = self.cond_stage(cond)
+        return {**out, "caption": out["caption"].to(self.dtype)}
 
 
 class CFM(LatentDiffusion):

@@ -4,7 +4,8 @@ The port's own copy of ``load_config``, ``merge_configs`` and
 ``apply_dot_overrides`` (reference: ``versband_tpu/utils/config.py``). Target
 strings of the reference repo (``ldm.*``, ``vocoder.*``) and of the JAX package
 (``versband_tpu.*``) resolve to this package, so ``configs/vocal2music.yaml``
-builds the port unchanged. ``yaml`` is imported only where YAML is parsed.
+builds the port unchanged. YAML is read by the port's own parser
+(:mod:`versband_tpu_torch.utils.yaml_subset`), so no PyYAML is needed.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import copy
 import importlib
 import os
 from typing import Any, Iterable, Mapping
+
+from versband_tpu_torch.utils import yaml_subset
 
 _JAX_PKG = "versband_tpu."
 _PORT_PKG = "versband_tpu_torch."
@@ -81,15 +84,18 @@ NOT_PORTED = {
     "versband_tpu.models.dit_timefreq": 13,
     "versband_tpu.models.concat_dit": 13,
     "versband_tpu.models.autoencoder2d": 13,
-    "versband_tpu.text.embedders.TextVocalEmbedder": 7,
-    "versband_tpu.text.embedders.TextVocalMusicalEmbedder": 7,
-    "versband_tpu.text.embedders.FlanT5Embedder": 7,
-    "versband_tpu.text.embedders": 13,
+    "versband_tpu.text.embedders.ClapTextEmbedder": 13,
+    "versband_tpu.text.embedders.ClapFlanEmbedder": 13,
+    "versband_tpu.text.embedders.ClassEmbedder": 13,
+    "versband_tpu.text.embedders.SpatialRescaler": 13,
     "versband_tpu.train.gan_losses": 10,
     "versband_tpu.vocoder.nsf": 11,
     "versband_tpu.vocoder.hifigan.CodeUpsampleHifiGanGenerator": 11,
     "versband_tpu.data.fixed_len": 10,
-    "versband_tpu.data.vocal2accomp": 8,
+    "versband_tpu.data.vocal2accomp.JoinManifestSpecs": 8,
+    "versband_tpu.data.vocal2accomp.JoinSpecsTrain": 8,
+    "versband_tpu.data.vocal2accomp.JoinSpecsValidation": 8,
+    "versband_tpu.data.vocal2accomp.JoinSpecsTest": 8,
     "versband_tpu.data.tsvdataset": 8,
     "versband_tpu.data.anylen": 8,
     "versband_tpu.data.datamodule": 8,
@@ -161,11 +167,8 @@ def instantiate_from_config(config: Mapping, **extra_kwargs: Any) -> Any:
 
 def load_config(path: str | os.PathLike) -> Config:
     """Load one YAML file, following ``base_config`` inheritance parent-first."""
-    import yaml
-
     path = os.fspath(path)
-    with open(path) as f:
-        cfg = yaml.safe_load(f) or {}
+    cfg = yaml_subset.load(path) or {}
     bases = cfg.pop("base_config", None)
     if bases:
         if isinstance(bases, str):
@@ -192,13 +195,13 @@ def merge_configs(base: Mapping, override: Mapping) -> Config:
 
 
 def apply_dot_overrides(cfg: Mapping, overrides: Iterable[str]) -> Config:
-    """Apply ``a.b.c=value`` overrides; values are parsed as YAML scalars."""
-    import yaml
+    """Apply ``a.b.c=value`` overrides; values are parsed as YAML (flow
+    collections included); a value that does not parse stays a string."""
 
     def parse(s: str) -> Any:
         try:
-            return yaml.safe_load(s)
-        except yaml.YAMLError:
+            return yaml_subset.loads(s)
+        except yaml_subset.YAMLSubsetError:
             return s
 
     cfg = Config.wrap(copy.deepcopy(dict(cfg)))

@@ -2,7 +2,7 @@
 
 ``state_dict_from_jax(params, family)`` takes a flax param tree of
 ``versband_tpu`` (nested dicts of arrays, optionally under ``"params"``) for
-``family`` in ``{"dit", "vae", "hifigan", "bigvgan", "pwg"}`` and returns a
+``family`` in ``{"dit", "vae", "hifigan", "bigvgan", "pwg", "t5"}`` and returns a
 state_dict that loads into the matching port module. It inverts the JAX
 package's torch -> flax converter without importing it:
 
@@ -20,6 +20,9 @@ package's torch -> flax converter without importing it:
   ``last_conv_layers.{1,3}``, the upsampler's ``conv_{j}`` ``(2s+1, fk, 1,
   1)`` -> ``upsample_net.upsample.up_layers.{2j+1}.weight`` ``[1, 1, fk,
   2s+1]``;
+* T5 (``transformers``' Flax encoder tree, ``shared/embedding``,
+  ``encoder/block/{i}/layer/{j}/...``): the paths are already Hugging Face's
+  names, so only the kernels are transposed;
 * ``kernel_v``/``kernel_g`` folded with the JAX convention (per output channel).
 """
 
@@ -155,9 +158,9 @@ def _dit_special(flat: Dict[str, np.ndarray], sd: Dict[str, np.ndarray]) -> None
 
 def state_dict_from_jax(params: Dict[str, Any], family: str) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a ``versband_tpu`` param tree of ``family``."""
-    if family not in ("dit", "vae", "hifigan", "bigvgan", "pwg"):
-        raise ValueError(f"unknown family {family!r}; expected dit, vae, hifigan, bigvgan "
-                         f"or pwg")
+    if family not in ("dit", "vae", "hifigan", "bigvgan", "pwg", "t5"):
+        raise ValueError(f"unknown family {family!r}; expected dit, vae, hifigan, bigvgan, "
+                         f"pwg or t5")
     tree = params.get("params", params)
     flat = _fold(_flatten(tree))
     sd: Dict[str, np.ndarray] = {}
@@ -169,6 +172,8 @@ def state_dict_from_jax(params: Dict[str, Any], family: str) -> Dict[str, torch.
     elif family == "pwg":
         _pwg_special(flat, sd)
         rules = _PWG_RULES
+    elif family == "t5":
+        rules = []
     else:
         ks = [int(m[1]) for k in flat if (m := re.match(r"^resblocks_\d+_(\d+)/", k))]
         num_kernels = 1 + max(ks) if ks else 1

@@ -118,9 +118,11 @@ class HifiGAN:
     """Runtime wrapper: ``HifiGAN(ckpt_dir)(mel) -> np.ndarray`` waveform.
 
     ``vocoder_ckpt`` is a directory with an optional ``config.yaml`` and a
-    generator checkpoint (``model_gen.pt``, ``generator.pt`` or the
-    reference's ``model_ckpt_steps_*.ckpt``, the largest step). Without one
-    the generator keeps a random init made from ``seed``.
+    generator checkpoint (``model_gen.pt``, ``generator.pt``, the JAX
+    package's ``model_gen.npz`` or ``generator.npz``, or the reference's
+    ``model_ckpt_steps_*.ckpt``, the largest step), so one directory serves
+    both packages' CLIs. Without one the generator keeps a random init made
+    from ``seed``.
     """
 
     def __init__(self, vocoder_ckpt: Optional[str] = None, device: DeviceLike = None,
@@ -137,13 +139,19 @@ class HifiGAN:
             torch.manual_seed(seed)
             self.model = HifiGanGenerator(**kw)
         path = self._find_ckpt(vocoder_ckpt) if vocoder_ckpt else None
-        if path is not None:
+        if path is not None and path.endswith(".npz"):
+            from versband_tpu_torch.utils.checkpoint import load_npz_params
+            from versband_tpu_torch.utils.convert import state_dict_from_jax
+
+            # flax weight norm (kernel_v, kernel_g) is folded as JAX folds it
+            self.model.load_state_dict(state_dict_from_jax(load_npz_params(path), "hifigan"))
+        elif path is not None:
             self.model.load_state_dict(load_generator_state_dict(path))
         self.model.to(device=self.device, dtype=dtype).eval()
 
     @staticmethod
     def _find_ckpt(ckpt_dir: str) -> Optional[str]:
-        for name in ("model_gen.pt", "generator.pt"):
+        for name in ("model_gen.pt", "generator.pt", "model_gen.npz", "generator.npz"):
             path = os.path.join(ckpt_dir, name)
             if os.path.exists(path):
                 return path
