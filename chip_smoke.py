@@ -11,7 +11,9 @@ plain PyTorch version on the card:
   residual layer) -- through ``PipelinedGenerator``;
 * training -- the CFM step (frozen-VAE encode, OT-CFM + load-balance loss,
   backward through the flash-attention kernels, clip, AdamW) -- through
-  ``CFMTrainer.fit``.
+  ``CFMTrainer.fit``, and through the training CLI from a manifest;
+* the CLIs -- ``cli.generate`` and ``cli.train`` on ``configs/vocal2music.yaml``
+  as committed.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -67,7 +69,28 @@ Phases (any failure raises and exits non-zero):
      launches per (item, scale); every accompaniment wav 481,280 finite,
      non-silent samples at -23 +/- 0.5 LUFS; ``clap.csv`` with items x
      scales rows; host wall and device time per item, scale and stage;
- 12. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
+ 12. [train-cli] the training CLI, ``versband_tpu_torch.cli.train.main``, in
+     this process on the card with ``configs/vocal2music.yaml`` as committed
+     and only path and run-length overrides, from the same scratch directory
+     (the T5 directory of phase 11, a HiFi-GAN at ``useful_ckpts/hifigan``
+     for ``AudioLogger``): a manifest of 316 rows (300 validation, 16 train;
+     8 distinct mel and vocal-mel files of [80, 1800], so the 1500-frame crop
+     runs) with ``midi.npy``/``beats.npy``, the VAE ``.pt`` of phase 11 as
+     ``first_stage_config.params.ckpt_path``. Run 1 trains 4 steps (2 epochs
+     of 2 batches of 8, ``--steps_per_call 2``, prefetch on), validates after
+     each epoch and logs images and audio every 2 steps; checks
+     ``last.pt``/``last_step.json`` (step 4, a scale_factor other than 1),
+     the archived ``<now>-project.yaml`` read back equal, finite
+     ``val/loss_simple``, the PNG and WAV logs, the first stage loaded from
+     its checkpoint, K1/K2/K3 launches of 4/4/4 per train step, 4 K1 per
+     validation batch and 96 per ``log_images``, the caption tower's output
+     on the card and no K1 in it. Run 1 again with ``--prefetch_groups 0``;
+     run 2 resumes with ``-r`` and ends at step 6; ``cli.generate`` then
+     serves one item at ``--scales 1`` from the archived config and that
+     checkpoint: 481,280 finite samples at -23 +/- 0.5 LUFS. Prints per run
+     the event time per step, host wall per step, steps/s, the tower's time
+     per group, validation's wall and peak memory;
+ 13. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
@@ -92,6 +115,7 @@ import torch
 import torch.nn.functional as F
 
 from versband_tpu_torch.cli.generate import build_vocoder
+from versband_tpu_torch.data.manifests import write_tsv
 from versband_tpu_torch.models.autoencoder import AutoencoderKL
 from versband_tpu_torch.models.cfm import CFM
 from versband_tpu_torch.models.dit import BandMoeDiT
@@ -178,7 +202,8 @@ FLAN_T5_LARGE = dict(model_type="t5", d_model=1024, d_ff=2816, d_kv=64, num_head
 CLI_ITEMS, CLI_SCALES = 2, "1-2"
 CLI_T_MEL = 1500  # 1500 x 320 / 24000 = 20.0 s, within --max_sec 20; padded to 1504
 CLI_LUFS, CLI_LUFS_TOL = -23.0, 0.5
-CLI_WORK = Path("build") / "chip_smoke_cli"
+CLI_WORK = Path("build") / "chip_smoke_cli"  # [cli] and [train-cli] run from here
+HIFIGAN_DIR = Path("useful_ckpts") / "hifigan"  # the YAML's AudioLogger vocoder_ckpt
 CLI_CONFIG = Path("configs") / "vocal2music.yaml"  # as committed
 # One fp32 train step, card against CPU: the loss relative to itself, and
 # for each parameter max|grad_card - grad_cpu| relative to that parameter's
@@ -1092,7 +1117,8 @@ def write_cli_inputs(root: Path, n_items: int, t_mel: int, dit: dict, vae: dict,
     """The CLI's inputs under ``root``: a manifest of ``n_items`` vocal mels of
     ``t_mel`` frames (20.0 s each at 1500), ``midi.npy``/``beats.npy``, a DiT
     (adaLN-zero layers perturbed) and a VAE as ``.pt`` state dicts, and a
-    HiFi-GAN directory (default geometry) with a ``model_gen.pt``. HiFi-GAN's
+    HiFi-GAN directory (default geometry) with a ``model_gen.pt`` at the
+    YAML's ``useful_ckpts/hifigan``. HiFi-GAN's
     own init (N(0, 0.01)) renders a near-silent click whose peak the -23 LUFS
     gain would push past full scale, where the limiter leaves it below -23;
     these weights are N(0, 1/fan_in) instead, and render noise-like audio."""
@@ -1126,15 +1152,17 @@ def write_cli_inputs(root: Path, n_items: int, t_mel: int, dit: dict, vae: dict,
     g = torch.Generator().manual_seed(seed)
     sd = {k: (torch.randn(v.shape, generator=g) / math.sqrt(v.shape[1] * v.shape[2])
               if v.ndim == 3 else v) for k, v in voc.state_dict().items()}
-    (root / "hifigan").mkdir(exist_ok=True)
-    torch.save(sd, root / "hifigan" / "model_gen.pt")
+    (root / HIFIGAN_DIR).mkdir(parents=True, exist_ok=True)
+    torch.save(sd, root / HIFIGAN_DIR / "model_gen.pt")
     return dict(manifest=str(root / "manifest"), midi=str(root / "midi.npy"),
                 dit=str(root / "dit.pt"), vae=str(root / "vae.pt"),
-                vocoder=str(root / "hifigan"))
+                vocoder=str(root / HIFIGAN_DIR))
 
 
 def phase_cli(dev) -> int:
-    """The inference CLI on the shipped YAML (phase 11); returns its K1 launches."""
+    """The inference CLI on the shipped YAML (phase 11); returns its K1
+    launches. Leaves ``CLI_WORK`` (the T5 directory, HiFi-GAN, VAE) for
+    phase 12."""
     from versband_tpu_torch.cli import generate as cli
     from versband_tpu_torch.dsp.loudness import integrated_loudness
     from versband_tpu_torch.text.embedders import TextVocalEmbedder
@@ -1217,8 +1245,335 @@ def phase_cli(dev) -> int:
     if not err <= T5_TOL:
         raise AssertionError(f"T5 on the card disagrees with the CPU: {err}")
     del cpu, gpu
-    shutil.rmtree(CLI_WORK, ignore_errors=True)
     return k1
+
+
+# [train-cli]: the dataset of configs/vocal2music.yaml holds out its first 300
+# rows for validation; 16 train rows at the shipped batch of 8 make 2 batches
+# an epoch. 8 distinct 24 s mels (1800 frames) make the 1500-frame crop run.
+TRAIN_CLI_VALID, TRAIN_CLI_TRAIN, TRAIN_CLI_UNIQUE, TRAIN_CLI_T_MEL = 300, 16, 8, 1800
+TRAIN_CLI_STEPS, TRAIN_CLI_RESUME_STEPS, TRAIN_CLI_K = 4, 6, 2
+LOG_EVERY = 2  # lightning.callbacks.image_logger.params.batch_frequency for the run
+LAUNCHES_PER_LOG = (STEPS - 1) * DIT["depth"]  # log_images: one scale-1 sample, 24 steps
+
+
+def write_train_manifest(root: Path, n_rows: int, n_unique: int, t_mel: int,
+                         seed: int) -> tuple:
+    """A training manifest under ``root`` in the reference's columns (as
+    tests/test_cli_e2e.py makes them; written by the port's ``write_tsv``):
+    ``n_unique`` mel and vocal-mel ``.npy`` pairs of [80, ``t_mel``] shared
+    round-robin by ``n_rows`` rows, and per-row ``midi.npy``/``beats.npy``
+    dicts. Returns the manifest directory and the ``midi.npy`` path."""
+    rng = np.random.default_rng(seed)
+    (root / "manifests").mkdir(parents=True, exist_ok=True)
+    pairs = []
+    for i in range(n_unique):
+        mel, voc = root / f"u{i}_mel.npy", root / f"u{i}_vocal_mel.npy"
+        np.save(mel, (rng.standard_normal((80, t_mel)) * 0.5 - 2.0).astype(np.float32))
+        np.save(voc, (rng.standard_normal((80, t_mel)) * 0.5 - 2.0).astype(np.float32))
+        pairs.append((str(mel), str(voc)))
+    sec = t_mel * HOP / SR
+    midi, beats, rows = {}, {}, []
+    for j in range(n_rows):
+        name = f"song{j}"
+        midi[name] = rng.integers(40, 90, t_mel)
+        beats[name] = rng.integers(0, 2, t_mel)
+        mel, voc = pairs[j % n_unique]
+        rows.append(dict(name=name, dataset="synthetic", mel_path=mel, vocal_mel_path=voc,
+                         duration=sec, caption="piano<psep>a soft piano accompaniment",
+                         key="C major", key_confidence=0.9, avg_pitch=66.0, tempo=100.0,
+                         tempo_confidence=0.9, emotion="['calm']", wav_len=sec, audio_path=""))
+    write_tsv(str(root / "manifests" / "music.tsv"), list(rows[0]), rows)
+    np.save(root / "midi.npy", midi, allow_pickle=True)
+    np.save(root / "beats.npy", beats, allow_pickle=True)
+    return str(root / "manifests"), str(root / "midi.npy")
+
+
+class _TrainCliProbe:
+    """For the duration of a ``with``: the train steps' launches and events
+    (the step functions the trainer builds are wrapped where the trainer
+    module makes them); the wall and launches of ``_validate``,
+    ``log_images``, ``AudioLogger.log_img`` (vocoding and writing the logs;
+    ``ImageLogger.log_img`` inside it, the PNGs), ``save_checkpoint`` and
+    the caption tower (``_encode_caption_list``, on the prefetch thread);
+    and each epoch's wall, from ``on_epoch_start`` to ``on_epoch_end`` with
+    the card synchronised there. The wrappers synchronise the card before
+    ``_validate``, ``log_images`` and ``save_checkpoint`` start, so the step
+    work queued before them is not counted as theirs."""
+
+    def __init__(self):
+        from versband_tpu_torch.train import callbacks as cmod
+        from versband_tpu_torch.train import trainer as tmod
+
+        self.tmod, self.cmod = tmod, cmod
+        self.steps, self.vals, self.logs, self.writes, self.towers = [], [], [], [], []
+        self.pngs = []
+        self.saves, self.epochs, self.side_ms = [], [], 0.0
+        self._saved = []
+
+    def n_steps(self) -> int:
+        return sum(n for n, _, _ in self.steps)
+
+    def _patch(self, owner, name, wrapper):
+        self._saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, wrapper(getattr(owner, name)))
+
+    def __enter__(self):
+        probe, cls = self, self.tmod.CFMTrainer
+
+        def steps(make):
+            def made(*a, **k):
+                fn = make(*a, **k)
+
+                def timed(state, batch, generator=None, given=None):
+                    n0, ev = launches(), [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                    ev[0].record()
+                    out = fn(state, batch, generator, given)
+                    ev[1].record()
+                    n = batch["image"].shape[0] if batch["image"].ndim == 4 else 1
+                    probe.steps.append((n, tuple(b - a for a, b in zip(n0, launches())), ev))
+                    return out
+                return timed
+            return made
+
+        def timed_method(log, synced: bool, side: bool = False, extra=None):
+            def wrap(fn):
+                def call(obj, *a, **k):
+                    if synced:
+                        torch.cuda.synchronize()
+                    n0, t0 = launches(), time.perf_counter()
+                    out = fn(obj, *a, **k)
+                    if synced:
+                        torch.cuda.synchronize()
+                    row = {"ms": (time.perf_counter() - t0) * 1e3,
+                           "launches": tuple(b - a for a, b in zip(n0, launches()))}
+                    if side:
+                        probe.side_ms += row["ms"]
+                    if extra is not None:
+                        row.update(extra(a, out))
+                    log.append(row)
+                    return out
+                return call
+            return wrap
+
+        def epochs(fn):
+            def call(trainer, name, *a):
+                if name == "on_epoch_start":
+                    probe.epochs.append({"t0": time.perf_counter(), "side0": probe.side_ms,
+                                         "step0": probe.n_steps()})
+                out = fn(trainer, name, *a)
+                if name == "on_epoch_end":
+                    torch.cuda.synchronize()
+                    e = probe.epochs[-1]
+                    e.update(ms=(time.perf_counter() - e["t0"]) * 1e3,
+                             side_ms=probe.side_ms - e["side0"],
+                             steps=probe.n_steps() - e["step0"])
+                return out
+            return call
+
+        self._patch(self.tmod, "make_cfm_train_step", steps)
+        self._patch(self.tmod, "make_cfm_multi_step", steps)
+        self._patch(cls, "_dispatch", epochs)
+        self._patch(cls, "_validate", timed_method(
+            self.vals, True, extra=lambda a, out: {"batches": len(a[0]), "metrics": out}))
+        self._patch(cls, "log_images", timed_method(self.logs, True, side=True))
+        self._patch(self.cmod.AudioLogger, "log_img", timed_method(self.writes, False, side=True))
+        self._patch(self.cmod.ImageLogger, "log_img", timed_method(self.pngs, False))
+        self._patch(cls, "save_checkpoint", timed_method(self.saves, True))
+        self._patch(cls, "_encode_caption_list", timed_method(
+            self.towers, False, extra=lambda a, out: {"captions": len(a[0]),
+                                                      "device": out.device}))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+
+def _train_cli_run(dev, tag: str, argv: list, expect_steps: int, check=None) -> dict:
+    """One ``cli.train.main`` in this process under a probe: checks the
+    launches per step, per validation batch and per ``log_images``, and that
+    the tower's output lies on ``dev``; runs ``check(run)`` on the CLI's run
+    dict, then drops the run's models; prints the run's figures and returns
+    them."""
+    import gc
+
+    from versband_tpu_torch.cli import train as cli
+
+    run = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # count only this run's launches
+    t0 = time.perf_counter()
+    with _TrainCliProbe() as probe:
+        rc = cli.main(argv, run=run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total, peak, trainer = launches(), torch.cuda.max_memory_allocated(), run["trainer"]
+    writer = trainer.writer is not None
+    depth = DIT["depth"]
+    n_steps = probe.n_steps()
+    bad = [(n, k) for n, k, _ in probe.steps if k != (depth * n,) * 3]
+    bad += [(v["batches"], v["launches"]) for v in probe.vals
+            if v["launches"] != (depth * v["batches"], 0, 0)]
+    bad += [(1, g["launches"]) for g in probe.logs if g["launches"] != (LAUNCHES_PER_LOG, 0, 0)]
+    want = (depth * (n_steps + sum(v["batches"] for v in probe.vals))
+            + LAUNCHES_PER_LOG * len(probe.logs), depth * n_steps, depth * n_steps)
+    off_card = sorted({str(t["device"]) for t in probe.towers if t["device"].type != dev.type})
+    print(f"[train-cli] {tag}: main() returned {rc} in {wall:.2f} s host wall; "
+          f"{trainer.global_step} steps in {len(probe.steps)} calls of "
+          f"{[n for n, _, _ in probe.steps]}; {len(probe.vals)} validations of "
+          f"{[v['batches'] for v in probe.vals]} batches; {len(probe.logs)} log_images; "
+          f"K1/K2/K3 launches {total} (want {want}); the tower ran {len(probe.towers)} "
+          f"times on {sorted({str(t['device']) for t in probe.towers})}")
+    if (rc != 0 or trainer.global_step != expect_steps or bad or total != want or off_card
+            or not probe.towers):
+        raise AssertionError(f"[train-cli] {tag}: rc {rc}, step {trainer.global_step}, "
+                             f"launches off per call {bad}, total {total} != {want}, "
+                             f"tower devices {off_card}")
+    for v in probe.vals:
+        loss = v["metrics"].get("val/loss_simple")
+        print(f"[train-cli] {tag}: validation over {v['batches']} batches: val/loss_simple "
+              f"{loss}, {v['ms']:.1f} ms host wall (synchronised)")
+        if loss is None or not math.isfinite(loss):
+            raise AssertionError(f"[train-cli] {tag}: validation gave {v['metrics']}")
+    if check is not None:
+        check(run)
+    per_step = [ev[0].elapsed_time(ev[1]) / n for n, _, ev in probe.steps]
+    dev_ms = statistics.median(per_step[1:] or per_step)
+    epoch_ms = [e["ms"] - e["side_ms"] for e in probe.epochs]
+    host_ms = sum(epoch_ms) / sum(e["steps"] for e in probe.epochs)
+    tower = [t for t in probe.towers if t["captions"] == TRAIN_CLI_K * TRAIN_B]
+    print(f"[train-cli] {tag}: event time per train step {dev_ms:.2f} ms (median over the "
+          f"calls after the first, {['%.2f' % x for x in per_step]}), "
+          f"{1e3 / dev_ms:.3f} steps/s on the card; host wall per step {host_ms:.2f} ms "
+          f"({1e3 / host_ms:.3f} steps/s): epochs {['%.1f' % e['ms'] for e in probe.epochs]} ms "
+          f"from on_epoch_start to on_epoch_end (card synchronised), of which image logging "
+          f"{['%.1f' % e['side_ms'] for e in probe.epochs]} ms (taken out), over "
+          f"{[e['steps'] for e in probe.epochs]} steps (loader, tower, copies, the first "
+          f"batch's scale_by_std included); log_images {[round(g['ms'], 1) for g in probe.logs]} "
+          f"ms, writing and vocoding the logs {[round(g['ms'], 1) for g in probe.writes]} ms "
+          f"(of which the PNGs {[round(g['ms'], 1) for g in probe.pngs]} ms; TensorBoard "
+          f"{'on' if writer else 'off'}); "
+          f"save_checkpoint {[round(c['ms'], 1) for c in probe.saves]} ms; the tower per "
+          f"group of {TRAIN_CLI_K * TRAIN_B} captions {[round(t['ms'], 2) for t in tower]} ms "
+          f"host wall on the prefetch thread; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated)")
+    logdir, config = run["logdir"], run["config"]
+    del run, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"logdir": logdir, "config": config, "launches": total, "device_ms": dev_ms,
+            "host_ms": host_ms, "peak": peak, "probe": probe}
+
+
+def phase_train_cli(dev) -> tuple:
+    """The training CLI on the shipped YAML (phase 12), from ``CLI_WORK`` as
+    phase 11 left it; returns the K1/K2/K3 launches of its runs and of the
+    ``cli.generate`` that serves its checkpoint."""
+    from versband_tpu_torch.cli import generate as gen_cli
+    from versband_tpu_torch.dsp.loudness import integrated_loudness
+    from versband_tpu_torch.utils.config import load_config
+
+    config = CLI_CONFIG.resolve()
+    root = CLI_WORK.resolve()
+    t0 = time.perf_counter()
+    manifest, midi = write_train_manifest(root / "train_data", TRAIN_CLI_VALID + TRAIN_CLI_TRAIN,
+                                          TRAIN_CLI_UNIQUE, TRAIN_CLI_T_MEL, SEED + 30)
+    vae = root / "vae.pt"  # phase 11's, at the shipped width
+    print(f"[train-cli] manifest of {TRAIN_CLI_VALID + TRAIN_CLI_TRAIN} rows over "
+          f"{TRAIN_CLI_UNIQUE} mel pairs of [80, {TRAIN_CLI_T_MEL}] written in "
+          f"{time.perf_counter() - t0:.1f} s; T5 {T5_DIR}, HiFi-GAN {HIFIGAN_DIR} and {vae.name} "
+          f"from phase 11")
+    paths = [f"data.params.main_spec_dir_path={manifest}",
+             f"data.params.other_condition={midi}",
+             f"model.params.first_stage_config.params.ckpt_path={vae}",
+             f"lightning.callbacks.image_logger.params.batch_frequency={LOG_EVERY}"]
+    base = ["-b", str(config), "-t", "-l", "logs", "-s", str(SEED),
+            "--steps_per_call", str(TRAIN_CLI_K)]
+    run1 = base + ["-n", "prefetch", "--max_steps", str(TRAIN_CLI_STEPS), "--max_epochs", "2",
+                   "--prefetch_groups", "1", *paths]
+    inline = base + ["-n", "inline", "--max_steps", str(TRAIN_CLI_STEPS), "--max_epochs", "2",
+                     "--prefetch_groups", "0", *paths]
+    cwd = os.getcwd()
+    gen_stats = []
+    try:
+        os.chdir(root)  # the YAML's relative useful_ckpts/: resolve here
+        vae_saved = torch.load(vae, map_location="cpu", weights_only=True)
+        seen = {}
+
+        def check_run1(run):
+            trainer = run["trainer"]
+            audio = [cb for cb in trainer.callbacks if type(cb).__name__ == "AudioLogger"]
+            seen["loaded"] = all(torch.equal(v.cpu(), vae_saved[k])
+                                 for k, v in trainer.cfm.first_stage.state_dict().items())
+            seen["vocoder"] = type(audio[0].vocoder).__name__ if audio and audio[0].vocoder \
+                else None
+
+        first = _train_cli_run(dev, "run 1 (prefetch 1)", run1, TRAIN_CLI_STEPS, check_run1)
+        logdir = Path(first["logdir"])
+        again = _train_cli_run(dev, "run 1 again (prefetch 0)", inline, TRAIN_CLI_STEPS)
+        meta = json.loads((logdir / "checkpoints" / "last_step.json").read_text())
+        (project,) = sorted((logdir / "configs").glob("*-project.yaml"))
+        pngs = sorted((logdir / "images" / "train").glob("*.png"))
+        wavs = sorted((logdir / "audio" / "train").glob("*.wav"))
+        n_logs = len(first["probe"].logs)
+        print(f"[train-cli] run 1: last_step.json {meta}; {project.name} read back equal "
+              f"{load_config(project) == first['config']}; {len(pngs)} PNGs, "
+              f"{len(wavs)} wavs from {n_logs} log_images (vocoder {seen['vocoder']}); "
+              f"first stage loaded from {vae.name}: {seen['loaded']}")
+        if not ((logdir / "checkpoints" / "last.pt").exists()
+                and meta.get("step") == TRAIN_CLI_STEPS and meta.get("scale_factor", 1.0) != 1.0
+                and load_config(project) == first["config"] and seen["loaded"]
+                and n_logs == TRAIN_CLI_STEPS // LOG_EVERY and seen["vocoder"]
+                and len(pngs) == len(wavs) == n_logs * 2 * 4
+                and len(first["probe"].vals) == 2):
+            raise AssertionError("[train-cli] run 1's checkpoint, config, logs or first stage")
+
+        resumed = _train_cli_run(
+            dev, "run 2 (-r, resumed)", ["-r", str(logdir), "-t", "--max_steps",
+                                    str(TRAIN_CLI_RESUME_STEPS), "--steps_per_call",
+                                    str(TRAIN_CLI_K), "--no-test"], TRAIN_CLI_RESUME_STEPS)
+        meta2 = json.loads((logdir / "checkpoints" / "last_step.json").read_text())
+        if meta2.get("step") != TRAIN_CLI_RESUME_STEPS or \
+                resumed["probe"].n_steps() != TRAIN_CLI_RESUME_STEPS - TRAIN_CLI_STEPS:
+            raise AssertionError(f"[train-cli] run 2 did not resume at step {TRAIN_CLI_STEPS}: "
+                                 f"{meta2}")
+
+        reset_launches()
+        argv = ["--config", str(project), "--ckpt", str(logdir / "checkpoints" / "last.pt"),
+                "--vocoder_ckpt", str(root / HIFIGAN_DIR), "--manifest", manifest,
+                "--other_condition", midi, "--scales", "1", "--num_items", "1",
+                "--max_sec", "30", "--pad_to", str(T_MEL), "--seed", str(SEED),
+                "--save_dir", "out_train"]
+        rc = gen_cli.main(argv, stats=gen_stats)
+        torch.cuda.synchronize()
+        n_gen = launches()
+        gen_wavs = sorted((root / "out_train").rglob("*.wav"))
+    finally:
+        os.chdir(cwd)
+    print(f"[train-cli] host wall per step through fit: prefetch 1 {first['host_ms']:.2f} ms, "
+          f"prefetch 0 {again['host_ms']:.2f} ms, resumed (prefetch 1) "
+          f"{resumed['host_ms']:.2f} ms; event time per step {first['device_ms']:.2f} / "
+          f"{again['device_ms']:.2f} / {resumed['device_ms']:.2f} ms")
+    if rc != 0 or len(gen_wavs) != 1 or n_gen != (LAUNCHES_PER_CLIP, 0, 0):
+        raise AssertionError(f"[train-cli] cli.generate: rc {rc}, {len(gen_wavs)} wavs, "
+                             f"launches {n_gen}")
+    from scipy.io import wavfile
+
+    sr, pcm = wavfile.read(gen_wavs[0])
+    wav = pcm.astype(np.float32) / 32768.0
+    lufs = integrated_loudness(wav, sr)
+    print(f"[train-cli] cli.generate from the trained checkpoint ({T_MEL} frames, scale 1): "
+          f"{wav.shape[0]} samples at {sr} Hz, finite {np.isfinite(wav).all()}, std "
+          f"{wav.std():.4f}, {lufs:.3f} LUFS; K1 {n_gen[0]}; stages " + ", ".join(
+              f"{st} {gen_stats[0][st + '_ms']:.1f} ms" for st in gen_cli.STAGES
+              if st + "_ms" in gen_stats[0]))
+    if not (sr == SR and wav.shape == (T_MEL * HOP,) and np.isfinite(wav).all()
+            and wav.std() > 0 and abs(lufs - CLI_LUFS) <= CLI_LUFS_TOL):
+        raise AssertionError(f"[train-cli] generated {wav.shape} samples at {lufs} LUFS")
+    counts = [r["launches"] for r in (first, again, resumed)] + [n_gen]
+    return tuple(sum(c[i] for c in counts) for i in range(3))
 
 
 def main() -> None:
@@ -1234,7 +1589,9 @@ def main() -> None:
     trained = phase_train(dev)
     phase_grad_parity(dev)
     n_cli = phase_cli(dev)
-    n_train = trained["launches"]
+    n_train_cli = phase_train_cli(dev)
+    shutil.rmtree(CLI_WORK, ignore_errors=True)
+    n_train = tuple(a + b for a, b in zip(trained["launches"], n_train_cli))
     n_serve = {k: sum(f[k] for f in served.values()) for k in ("k1", "k4", "k5")}
     bwd_src = "versband_tpu_torch/ops/csrc/flash_attn_bwd.cu"
     table = [
@@ -1259,7 +1616,8 @@ def main() -> None:
         raise AssertionError(f"a kernel did not run on the main path: "
                              f"{[(k['name'], k['launches']) for k in table]}")
     print(f"kernels: {[k['name'] for k in table]}; K1 launches: serving {n_serve['k1']}, "
-          f"training {n_train[0]}, cli {n_cli}; K4 {n_serve['k4']} (bigvgan), "
+          f"training {trained['launches'][0]}, cli {n_cli}, train-cli {n_train_cli[0]} "
+          f"(its K2/K3 {n_train_cli[1]}/{n_train_cli[2]}); K4 {n_serve['k4']} (bigvgan), "
           f"K5 {n_serve['k5']} (pwg)")
     print(smi)
     print(json.dumps({"kernels": table}))

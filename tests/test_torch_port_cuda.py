@@ -30,7 +30,9 @@ plain versions' convolutions run with TF32 off.
 The T5 caption tower (plain PyTorch) on the card against the CPU: 1e-5 (fp32,
 TF32 off, products summed in another order). The inference CLI on a tiny
 config, card (K1 in the DiT) against ``--platform cpu``, with the same start
-noise: wavs within 1e-3 of full scale and the same ``clap.csv``.
+noise: wavs within 1e-3 of full scale and the same ``clap.csv``. The
+training CLI on a tiny config: K1, K2 and K3 counted per step and per
+validation batch.
 """
 
 import math
@@ -616,3 +618,43 @@ def test_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
         assert np.abs(got - want).max() <= 1e-3 * 32767
     csv_cpu = (tmp_path / "cpu" / "clap.csv").read_text().replace("cpu/", "")
     assert csv_cpu == (tmp_path / "card" / "clap.csv").read_text().replace("card/", "")
+
+
+def test_cli_train_on_the_card(cuda, tmp_path, monkeypatch):
+    """Two steps of ``cli.train`` (one group of 2) on ``configs/vocal2music.yaml``
+    shrunk by overrides, then validation over the 300 held-out rows: K1 in
+    every forward, K2 and K3 in every backward, the caption tower (the
+    random fallback at a tiny width) on the card."""
+    from pathlib import Path
+
+    import chip_smoke
+    from versband_tpu_torch.cli import train as cli
+
+    config = Path(__file__).resolve().parents[1] / "configs" / "vocal2music.yaml"
+    manifest, midi = chip_smoke.write_train_manifest(tmp_path / "data", 308, 2, 70, seed=0)
+    monkeypatch.chdir(tmp_path)
+    over = [f"data.params.main_spec_dir_path={manifest}", f"data.params.other_condition={midi}",
+            "data.params.batch_size=4", "data.params.spec_crop_len=64",
+            "data.params.min_batch_len=64", "model.params.mel_dim=4",
+            *(f"model.params.unet_config.params.{k}={v}" for k, v in TINY_DIT.items()
+              if k != "use_flash"),
+            *(f"model.params.first_stage_config.params.{o}" for o in (
+                "embed_dim=4", "ddconfig.z_channels=4", "ddconfig.ch=8",
+                "ddconfig.ch_mult=[1, 2]", "ddconfig.num_res_blocks=1",
+                "ddconfig.attn_layers=[]")),
+            "model.params.cond_stage_config.params.max_length=16",
+            "model.params.cond_stage_config.params.fallback_config={d_model: 32, d_ff: 48, "
+            "d_kv: 8, num_heads: 4, num_layers: 2}"]
+    n0 = (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
+    run = {}
+    assert cli.main(["-b", str(config), "-t", "--no-test", "-l", "logs", "--max_steps", "2",
+                     "--max_epochs", "1", "--steps_per_call", "2", *over], run=run) == 0
+    torch.cuda.synchronize()
+    n = tuple(b - a for a, b in zip(n0, (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)))
+    depth, val_batches = TINY_DIT["depth"], 300 // 4
+    assert n == (depth * (2 + val_batches), depth * 2, depth * 2)
+    tr = run["trainer"]
+    assert tr.global_step == 2 and tr.device.type == "cuda"
+    assert tr._encode_caption_list(["a", "b", "a"]).device.type == "cuda"
+    meta = (Path(run["logdir"]) / "checkpoints" / "last_step.json").read_text()
+    assert '"step": 2' in meta

@@ -159,12 +159,6 @@ def test_trainer_takes_ema_and_schedule_from_the_model_config(tmp_path):
     assert not plain.use_ema and plain.tx.lr_at(0) == plain.tx.lr_at(10 ** 6) == 2.4e-5
 
 
-def test_trainer_refuses_a_text_tower(tmp_path):
-    with pytest.raises(NotImplementedError, match="text tower"):
-        CFMTrainer(CFM(device="cpu"), object(), 1e-3, logdir=str(tmp_path),
-                   use_tensorboard=False)
-
-
 def test_checkpoint_manager_top_k_archive_and_restore(tmp_path):
     from versband_tpu_torch.train.checkpoints import CheckpointManager
     from versband_tpu_torch.train.state import TrainState, make_adamw

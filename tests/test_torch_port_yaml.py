@@ -5,6 +5,9 @@ give what ``safe_load`` gives on the repository's configs, on the vocoders'
 config formats (a HiFi-GAN ``config.yaml``, a BigVGAN ``args.yml``), on the
 dot-override values of ``tests/test_cli_e2e.py`` and on scalar strings drawn
 by ``hypothesis`` (YAML 1.1 resolution); outside its subset it raises.
+Its writer (``dumps``, ``config_to_yaml``) gives text that ``safe_load`` and
+the reader both read back as the tree written, and that ``safe_load`` reads
+as it reads the JAX package's ``config_to_yaml`` of the same config.
 """
 
 import ast
@@ -19,7 +22,7 @@ from hypothesis import strategies as st
 
 from versband_tpu.utils import config as jax_config
 from versband_tpu_torch.utils import config as port_config
-from versband_tpu_torch.utils.yaml_subset import YAMLSubsetError, loads, resolve_plain
+from versband_tpu_torch.utils.yaml_subset import YAMLSubsetError, dumps, loads, resolve_plain
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -254,3 +257,90 @@ def test_quirks():
     assert loads("a: ''\nb: 'it''s'\nc: \"tab\\there\"\n") == {"a": "", "b": "it's",
                                                             "c": "tab\there"}
     assert loads("k: [1,\n   2]  # across lines\n") == {"k": [1, 2]}
+
+
+# --- the writer: dumps / config_to_yaml ---------------------------------------
+
+def _plain(o):
+    """Nested dicts/lists as safe_load returns them (tuples as lists)."""
+    if isinstance(o, dict):
+        return {k: _plain(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return [_plain(v) for v in o]
+    return o
+
+
+def _same_tree(a, b):
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(map(_same_tree, a, b))
+    return _same(a, b)
+
+
+TEXT = st.text(st.characters(blacklist_categories=("Cs",)), max_size=12)
+YAMLISH = st.sampled_from(["on", "off", "yes", "No", "1e-6", "3.0e-06", "012", "0x1F", "",
+                           "null", "~", "1:30", ".inf", "-.nan", "2001-12-14", "<<", "=",
+                           "- a", "a: b", "#c", "x #y", "[1]", "{a: 1}", "'q'", '"q"', " lead",
+                           "trail ", "tab\there", "line\nbreak", "\x85", " ", "﻿",
+                           "é ü", "@a", "`b", "%c", "!t", "&a", "*a", "|", ">", "?", "true"])
+LEAF = st.one_of(st.none(), st.booleans(), st.integers(-10 ** 20, 10 ** 20),
+                 st.floats(allow_nan=False), TEXT, YAMLISH)
+KEY = st.one_of(TEXT, YAMLISH, st.integers(-100, 100))
+TREE = st.recursive(LEAF, lambda kids: st.one_of(
+    st.lists(kids, max_size=4), st.tuples(kids, kids),
+    st.dictionaries(KEY, kids, max_size=4)), max_leaves=12)
+
+
+@settings(max_examples=400, deadline=None, derandomize=True, database=None)
+@given(st.dictionaries(KEY, TREE, max_size=5))
+def test_dumps_round_trips_through_safe_load_and_loads(tree):
+    text = dumps(tree)
+    want = _plain(tree)
+    assert _same_tree(yaml.safe_load(text), want), text
+    assert _same_tree(loads(text), want), text
+
+
+@settings(max_examples=100, deadline=None, derandomize=True, database=None)
+@given(st.one_of(LEAF, st.lists(LEAF, max_size=4)))
+def test_dumps_of_a_bare_value(value):
+    text = dumps(value)
+    assert _same_tree(yaml.safe_load(text), _plain(value)) and _same_tree(loads(text),
+                                                                         _plain(value))
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO))
+                                        for p in (REPO / "configs").glob("*.yaml")))
+def test_config_to_yaml_matches_the_jax_writer(path):
+    """The port's config_to_yaml against the JAX package's (yaml.safe_dump),
+    on every config with the overrides of tests/test_cli_e2e.py applied."""
+    over = ["model.params.ddconfig.ch_mult=[1, 2]", "model.params.mel_dim=4",
+            "model.params.cond_stage_config.params.fallback_config="
+            "{d_model: 16, d_ff: 32, d_kv: 8, num_heads: 2, num_layers: 1}",
+            "data.params.other_spec_dir_path=", "lightning.trainer.note=on"]
+    port = port_config.apply_dot_overrides(port_config.load_config(REPO / path), over)
+    ref = jax_config.apply_dot_overrides(jax_config.load_config(str(REPO / path)), over)
+    text = port_config.config_to_yaml(port)
+    assert yaml.safe_load(text) == yaml.safe_load(jax_config.config_to_yaml(ref))
+    assert port_config.load_config(_write(text)) == port
+    assert list(yaml.safe_load(text)) == list(port)  # key order kept
+
+
+def _write(text):
+    import tempfile
+
+    f = tempfile.NamedTemporaryFile("w", suffix=".yaml", delete=False)
+    f.write(text)
+    f.close()
+    return f.name
+
+
+def test_dumps_quotes_what_would_read_back_otherwise():
+    text = dumps({"a": ["on", "1e-6", "012", "", "null"], "ch_mult": [1, 2, 4],
+                  "lr": 3e-06, "big": 1e16, "tiny": 5e-324, "nested": [{"x": []}, {}]})
+    assert text.splitlines()[:4] == ['a: ["on", "1e-6", "012", "", "null"]',
+                                     "ch_mult: [1, 2, 4]", "lr: 3.0e-06", "big: 1.0e+16"]
+    assert yaml.safe_load(text)["tiny"] == 5e-324
+    with pytest.raises(YAMLSubsetError):
+        dumps({"a": object()})

@@ -252,3 +252,43 @@ def write_t5_dir(path, config: dict, seed: int = 0, tokenizer=None,
         T5TokenizerFast(tokenizer_object=tokenizer, eos_token="</s>", pad_token="<pad>",
                         unk_token="<unk>", extra_ids=0).save_pretrained(str(path))
     return model
+
+
+def write_v2a_manifest(root, n_rows: int, lengths=(40, 52, 60), seed: int = 0,
+                       vocal_extra=(0, 3, 9), captions=("piano<psep>a soft piano accompaniment",
+                                                         "rock<psep>loud guitars<psep>drums")):
+    """A vocal-to-accompaniment manifest under ``root`` in the reference's
+    columns (written with pandas): one mel and vocal-mel ``.npy`` pair per
+    entry of ``lengths`` (the vocal mel longer by ``vocal_extra``: more than
+    5 frames trips the dataset's length guard), shared round-robin by
+    ``n_rows`` rows whose durations tie, and ``midi.npy``/``beats.npy``
+    dicts. Returns the manifest directory and the ``midi.npy`` path."""
+    import os
+
+    import pandas as pd
+
+    root = str(root)
+    os.makedirs(f"{root}/manifests", exist_ok=True)
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for i, (T, extra) in enumerate(zip(lengths, vocal_extra)):
+        mp, vp = f"{root}/u{i}_mel.npy", f"{root}/u{i}_vocal_mel.npy"
+        np.save(mp, (rng.standard_normal((80, T)) * 0.5 - 1.0).astype(np.float32))
+        np.save(vp, (rng.standard_normal((80, T + extra)) * 0.5).astype(np.float32))
+        pairs.append((mp, vp, T))
+    rows, midi, beats = [], {}, {}
+    for j in range(n_rows):
+        mp, vp, T = pairs[j % len(pairs)]
+        name = f"song{j}"
+        midi[name] = rng.integers(0, 128, T).astype(np.int64)
+        beats[name] = rng.integers(0, 2, T).astype(np.int64)
+        rows.append(dict(name=name, dataset="synthetic", mel_path=mp, vocal_mel_path=vp,
+                         duration=T / 75.0, caption=captions[j % len(captions)],
+                         key=("C major", "A minor")[j % 2], key_confidence=0.9,
+                         avg_pitch=60.0 + j % 7, tempo=90.0 + 5 * (j % 5),
+                         tempo_confidence=0.8, emotion="['calm']", wav_len=T / 75.0,
+                         audio_path=""))
+    pd.DataFrame(rows).to_csv(f"{root}/manifests/music.tsv", sep="\t", index=False)
+    np.save(f"{root}/midi.npy", midi, allow_pickle=True)
+    np.save(f"{root}/beats.npy", beats, allow_pickle=True)
+    return f"{root}/manifests", f"{root}/midi.npy"

@@ -1,4 +1,4 @@
-"""TSV manifests without pandas (port of ``versband_tpu/data/manifests.py::load_manifest_dirs``).
+"""TSV manifests without pandas (port of ``versband_tpu/data/manifests.py``).
 
 A manifest directory holds ``*.tsv`` files, read in sorted order and
 concatenated into one table. Cells come back with the values
@@ -15,6 +15,12 @@ read:
 * across files a column takes the widest of its kinds (int < float <
   strings); in a string column each value keeps its own file's type, as in
   an ``object`` column.
+
+:func:`split_dataset` splits a table as the datasets do: the first
+``valid_head`` rows validate, the rest train, and the test split takes every
+row with duplicate names suffixed (:func:`add_name_num`); each split's rows
+are renumbered from 0 with the old position kept in an ``index`` column, as
+``DataFrame.reset_index()`` does.
 
 :func:`write_tsv` writes as ``DataFrame.to_csv(sep="\\t", index=False)``
 does: ``csv`` quoting, NaN as an empty cell, floats by ``repr``.
@@ -143,3 +149,47 @@ def write_tsv(path: str, columns: Sequence[str], rows: Iterable[Dict[str, Any]])
         w.writerow(columns)
         for r in rows:
             w.writerow([_cell(r[c]) for c in columns])
+
+
+def split_dataset(df: Manifest, split: str, valid_head: int) -> Manifest:
+    """train = rows[valid_head:], valid = rows[:valid_head], test = all with
+    names made unique; an ``index`` column (first) holds each row's position
+    in the split's source."""
+    if split == "train":
+        start, rows = valid_head, df.rows[valid_head:]
+    elif split in ("valid", "val"):
+        start, rows = 0, df.rows[:valid_head]
+    elif split == "test":
+        start, rows = 0, add_name_num(df).rows
+    else:
+        raise ValueError(f"Unknown split {split}")
+    rows = [{"index": start + i, **r} for i, r in enumerate(rows)]
+    columns = ["index"] + [c for c in df.columns if c != "index"]
+    return Manifest(columns, rows, {"index": "int", **df.kinds})
+
+
+def add_name_num(df: Manifest) -> Manifest:
+    """A copy with each name suffixed ``_<n>``, n counting that name's earlier
+    rows, so every audio-caption pair has a unique identifier."""
+    counts: Dict[Any, int] = {}
+    rows = []
+    for r in df.rows:
+        n = counts.get(r["name"], -1) + 1
+        counts[r["name"]] = n
+        rows.append({**r, "name": f"{r['name']}_{n}"})
+    return Manifest(df.columns, rows, {**df.kinds, "name": "object"})
+
+
+def argsort_column(df: Manifest, column: str) -> List[int]:
+    """Row positions in ascending order of the numeric ``column``, NaN last:
+    ``sort_values(by=column)``, whose default is numpy's unstable quicksort,
+    over the column's dtype as pandas holds it, so ties come out in the same
+    order."""
+    import numpy as np
+
+    dtype = np.int64 if df.kinds.get(column) == "int" else np.float64
+    values = np.asarray([r[column] for r in df.rows], dtype=dtype)
+    nan = np.isnan(values)
+    idx = np.arange(len(values))
+    order = idx[~nan][values[~nan].argsort(kind="quicksort")]
+    return [int(i) for i in np.concatenate([order, idx[nan]])]

@@ -19,7 +19,7 @@ Conditioning: ``cond_stage_config`` builds the frozen caption tower
 (``text/embedders.py``, the shipped ``TextVocalEmbedder``) on the model's
 device, and :meth:`LatentDiffusion.get_learned_conditioning` turns a cond
 dict with caption strings into one with caption embeddings. The trainer
-still takes captions pre-encoded.
+runs the same tower on each step's captions (``train/trainer.py``).
 """
 
 from __future__ import annotations

@@ -78,8 +78,14 @@ class _FrozenT5Tower(nn.Module):
 
     @torch.no_grad()
     def forward(self, text: Sequence[str]) -> torch.Tensor:
-        ids = torch.from_numpy(np.asarray(self.tokenize(text), np.int64)).to(self.device)
-        return self.model(ids)
+        """Hidden states ``[B, max_length, d_model]``, computed without
+        autograd (``no_grad``, not ``inference_mode``: a trainer feeds them
+        to layers it differentiates). On the card the ids go from pinned
+        memory, so a caller on another thread does not wait for queued work."""
+        ids = torch.from_numpy(np.asarray(self.tokenize(text), np.int64))
+        if self.device.type == "cuda":
+            return self.model(ids.pin_memory().to(self.device, non_blocking=True))
+        return self.model(ids.to(self.device))
 
 
 class FlanT5Embedder(nn.Module):

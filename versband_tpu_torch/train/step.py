@@ -1,4 +1,5 @@
-"""The CFM train step (port of ``versband_tpu/train/step.py::make_cfm_train_step``).
+"""The CFM train steps (port of ``versband_tpu/train/step.py``:
+``make_cfm_train_step`` and ``make_cfm_multi_step``).
 
 One call takes one micro-batch: frozen-VAE encode (posterior sample), t ~
 randint(0, 1000), the OT-CFM + load-balance loss in training mode (soft
@@ -8,11 +9,16 @@ annealing schedules see the optimizer step ``state.step // k``, as in JAX.
 Randomness comes from a ``torch.Generator`` in the order posterior, t, noise,
 Gumbel; any of them can be handed in instead (``given``), which is how the
 tests feed the JAX step and this one the same draws.
+
+``make_cfm_multi_step`` runs K steps in one call over a ``[K, ...]``-stacked
+batch and returns the metrics as ``[K]`` tensors on the device, so a caller
+reads them back once per K steps. Its steps take the generator's draws in
+the order K single calls would, so its result is theirs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -73,3 +79,22 @@ def make_cfm_train_step(cfm: CFM, accumulate_grad_batches: int = 1
         return metrics
 
     return step_fn
+
+
+def make_cfm_multi_step(cfm: CFM, accumulate_grad_batches: int = 1
+                        ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Build ``multi_fn(state, batches, generator=None, given=None) -> metrics``:
+    K chained steps of :func:`make_cfm_train_step` over ``batches``, the step
+    batch with a leading ``[K]`` axis; ``given`` is None or a list of K
+    per-step ``given`` dicts. Metrics come back stacked ``[K]``."""
+    step_fn = make_cfm_train_step(cfm, accumulate_grad_batches=accumulate_grad_batches)
+
+    def multi_fn(state: TrainState, batches: Dict[str, Any],
+                 generator: Optional[torch.Generator] = None,
+                 given: Optional[List[Dict[str, Any]]] = None) -> Dict[str, torch.Tensor]:
+        K = next(v.shape[0] for v in batches.values() if torch.is_tensor(v))
+        per_step = [step_fn(state, {k: v[i] for k, v in batches.items()}, generator,
+                            None if given is None else given[i]) for i in range(K)]
+        return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    return multi_fn

@@ -4,8 +4,8 @@ The port's own copy of ``load_config``, ``merge_configs`` and
 ``apply_dot_overrides`` (reference: ``versband_tpu/utils/config.py``). Target
 strings of the reference repo (``ldm.*``, ``vocoder.*``) and of the JAX package
 (``versband_tpu.*``) resolve to this package, so ``configs/vocal2music.yaml``
-builds the port unchanged. YAML is read by the port's own parser
-(:mod:`versband_tpu_torch.utils.yaml_subset`), so no PyYAML is needed.
+builds the port unchanged. YAML is read and written by the port's own
+:mod:`versband_tpu_torch.utils.yaml_subset`, so no PyYAML is needed.
 """
 
 from __future__ import annotations
@@ -92,15 +92,8 @@ NOT_PORTED = {
     "versband_tpu.vocoder.nsf": 11,
     "versband_tpu.vocoder.hifigan.CodeUpsampleHifiGanGenerator": 11,
     "versband_tpu.data.fixed_len": 10,
-    "versband_tpu.data.vocal2accomp.JoinManifestSpecs": 8,
-    "versband_tpu.data.vocal2accomp.JoinSpecsTrain": 8,
-    "versband_tpu.data.vocal2accomp.JoinSpecsValidation": 8,
-    "versband_tpu.data.vocal2accomp.JoinSpecsTest": 8,
     "versband_tpu.data.tsvdataset": 8,
     "versband_tpu.data.anylen": 8,
-    "versband_tpu.data.datamodule": 8,
-    "versband_tpu.train.callbacks.AudioLogger": 8,
-    "versband_tpu.train.callbacks.ImageLogger": 8,
 }
 
 
@@ -217,3 +210,11 @@ def apply_dot_overrides(cfg: Mapping, overrides: Iterable[str]) -> Config:
             node = node[p]
         node[parts[-1]] = Config.wrap(parse(raw))
     return cfg
+
+
+def config_to_yaml(cfg: Mapping) -> str:
+    """YAML text of a config tree (the counterpart of the JAX package's
+    ``config_to_yaml``, written without PyYAML): ``yaml.safe_load`` of it
+    equals ``yaml.safe_load`` of the JAX text, and :func:`load_config` reads
+    it back equal."""
+    return yaml_subset.dumps(cfg)

@@ -559,3 +559,116 @@ def loads(text: str) -> Any:
 def load(path: str) -> Any:
     with open(path, encoding="utf-8") as f:
         return loads(f.read())
+
+
+# --- writing ---------------------------------------------------------------
+
+# a string written unquoted: starts with a letter, '_', '/' or '.', holds no
+# character with a meaning in YAML, and reads back as itself (not a bool,
+# null or number); every other string is double-quoted
+_PLAIN_SAFE = re.compile(r"^[A-Za-z_/.][A-Za-z0-9_./+=()-]*(?: [A-Za-z0-9_./+=()-]+)*$")
+# characters a double-quoted scalar escapes: outside PyYAML's printable set,
+# YAML line breaks, the BOM, and '"' and '\'
+_ESCAPE = re.compile("[^\x20-\x7e\xa0-\u2027\u202a-\ud7ff\ue000-\ufefe\uff00-\ufffd"
+                     "\U00010000-\U0010ffff]|[\"\\\\]")
+_SHORT_ESCAPES = {"\0": "0", "\x07": "a", "\x08": "b", "\t": "t", "\n": "n", "\x0b": "v",
+                  "\x0c": "f", "\r": "r", "\x1b": "e", '"': '"', "\\": "\\", "\x85": "N",
+                  "\u2028": "L", "\u2029": "P"}
+
+
+def _escape(match: "re.Match") -> str:
+    c = match.group(0)
+    if c in _SHORT_ESCAPES:
+        return "\\" + _SHORT_ESCAPES[c]
+    n = ord(c)
+    return f"\\x{n:02X}" if n <= 0xFF else f"\\u{n:04X}" if n <= 0xFFFF else f"\\U{n:08X}"
+
+
+def _float_text(v: float) -> str:
+    """PyYAML's ``represent_float``: YAML 1.1 needs a dot before an exponent."""
+    if math.isnan(v):
+        return ".nan"
+    if math.isinf(v):
+        return ".inf" if v > 0 else "-.inf"
+    text = repr(v).lower()
+    if "." not in text and "e" in text:
+        text = text.replace("e", ".0e", 1)
+    return text
+
+
+def _scalar_text(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(int(v))
+    if isinstance(v, float):
+        return _float_text(float(v))
+    if not isinstance(v, str):
+        raise YAMLSubsetError(f"cannot write a {type(v).__name__} as YAML")
+    if _PLAIN_SAFE.match(v) and resolve_plain(v) == v:
+        return v
+    return '"' + _ESCAPE.sub(_escape, v) + '"'
+
+
+def _is_collection(v: Any) -> bool:
+    return isinstance(v, (dict, list, tuple))
+
+
+def _flow_or_none(v: Any) -> Optional[str]:
+    """One-line text of ``v``: a scalar, an empty collection, or a list of
+    scalars as a flow sequence; None for what needs a block."""
+    if isinstance(v, dict):
+        return "{}" if not v else None
+    if isinstance(v, (list, tuple)):
+        if any(_is_collection(x) for x in v):
+            return None
+        return "[" + ", ".join(_scalar_text(x) for x in v) + "]"
+    return _scalar_text(v)
+
+
+def _dump_block(v: Any, indent: int, out: List[str], first: str) -> None:
+    """Lines of the non-empty collection ``v`` at ``indent``; ``first``
+    prefixes its first line (a ``- `` entry marker written in compact form)."""
+    pad = " " * indent
+    lead = first
+    if isinstance(v, dict):
+        for key, val in v.items():
+            if _is_collection(key):
+                raise YAMLSubsetError("collection keys cannot be written")
+            text = _flow_or_none(val)
+            head = (lead or pad) + _scalar_text(key) + ":"
+            lead = ""
+            if text is not None:
+                out.append(f"{head} {text}")
+            else:
+                out.append(head)
+                _dump_block(val, indent + 2, out, "")
+        return
+    for val in v:
+        text = _flow_or_none(val)
+        marker = (lead or pad) + "-"
+        lead = ""
+        if text is not None:
+            out.append(f"{marker} {text}")
+        elif isinstance(val, dict):
+            _dump_block(val, indent + 2, out, marker + " ")
+        else:
+            out.append(marker)
+            _dump_block(val, indent + 2, out, "")
+
+
+def dumps(obj: Any) -> str:
+    """YAML text of ``obj`` (dicts, lists, tuples, strings, numbers, bools and
+    None) that :func:`loads` and ``yaml.safe_load`` both read back as ``obj``
+    (tuples as lists): block mappings in key order, lists of scalars as flow
+    sequences (``ch_mult: [1, 2, 4]``), other lists as block sequences, and
+    every string that would read back as something else (``'on'``,
+    ``'1e-6'``, ``'012'``, ``''``, ``'null'``) double-quoted."""
+    text = _flow_or_none(obj)
+    if text is not None:
+        return text + "\n"
+    out: List[str] = []
+    _dump_block(obj, 0, out, "")
+    return "\n".join(out) + "\n"
