@@ -13,7 +13,8 @@ plain PyTorch version on the card:
   backward through the flash-attention kernels, clip, AdamW) -- through
   ``CFMTrainer.fit``, and through the training CLI from a manifest;
 * the CLIs -- ``cli.generate`` and ``cli.train`` on ``configs/vocal2music.yaml``
-  as committed.
+  as committed, and ``cli.train`` on ``configs/ae_accomp.yaml`` (stage 1, the
+  VAE-GAN, with K4 in its BigVGAN audio logger).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -90,7 +91,28 @@ Phases (any failure raises and exits non-zero):
      checkpoint: 481,280 finite samples at -23 +/- 0.5 LUFS. Prints per run
      the event time per step, host wall per step, steps/s, the tower's time
      per group, validation's wall and peak memory;
- 13. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
+ 13. [vae-train-cli] the training CLI on ``configs/ae_accomp.yaml`` as
+     committed (batch 20, 624-frame crops padded to 640, the full-width
+     VAE and PatchGAN), with path and run-length overrides and
+     ``disc_start`` lowered to 2 so both sides of the gate run: a manifest
+     of 140 rows (100 held out) over mels of 300-1800 frames (tile and crop
+     paths) and an unreadable file, read by the C++ loader; a BigVGAN
+     directory holding ``g_00000001`` for the audio logger. Run 1 trains 4
+     steps in 2 epochs, validates after each and logs every 2 steps (2
+     images of each of 3 keys); checks finite losses, ``disc_factor`` 0, 0,
+     2, 2, moved generator and discriminator weights (the BatchNorm
+     running means among them), ``logvar`` 0, ``last.pt`` as a
+     ``{"gen", "disc", "step"}`` pair, the archived YAML read back equal, the
+     PNGs and wavs, no K1-K3 and exactly 73 K4 per vocoded clip. Run 2
+     resumes with ``-r`` to step 6; ``cli.generate --vae_ckpt`` then serves
+     one item from phase 11's directory with that ``last.pt``: the decoder's
+     weights equal the checkpoint's, 481,280 samples at -23 +/- 0.5 LUFS.
+     Prints per run the event time per step, host wall per step, steps/s,
+     validation's wall, K4's device time per log event and peak memory;
+ 14. [vae-step] one full-width VAE-GAN step (batch 2, 640 frames) on the
+     card and on the CPU from the same weights, batch and posterior draw:
+     losses, gradients and the updated parameters agree;
+ 15. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
@@ -1289,15 +1311,81 @@ def write_train_manifest(root: Path, n_rows: int, n_unique: int, t_mel: int,
     return str(root / "manifests"), str(root / "midi.npy")
 
 
-class _TrainCliProbe:
+class _CliProbe:
+    """What the CLI probes share: methods patched for the duration of a
+    ``with`` (undone on exit), each timed (host wall, optionally with the
+    card synchronised around it) with the launches in it; each epoch's wall
+    from ``on_epoch_start`` to ``on_epoch_end`` (card synchronised there),
+    less the time of the methods marked ``side`` (image and audio logging)."""
+
+    def __init__(self):
+        self.epochs, self.k4_calls, self.side_ms, self._saved = [], [], 0.0, []
+
+    def counts(self) -> tuple:
+        return launches()
+
+    def n_steps(self) -> int:
+        raise NotImplementedError
+
+    def _patch(self, owner, name, wrapper):
+        self._saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, wrapper(getattr(owner, name)))
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+    def timed(self, log: list, synced: bool, side: bool = False, extra=None):
+        """A wrapper for a method: appends its wall ("ms"), launches and the
+        K4 calls made in it to ``log``, with ``extra(args, out)``."""
+        probe = self
+
+        def wrap(fn):
+            def call(obj, *a, **k):
+                if synced:
+                    torch.cuda.synchronize()
+                n0, k0, t0 = probe.counts(), len(probe.k4_calls), time.perf_counter()
+                out = fn(obj, *a, **k)
+                if synced:
+                    torch.cuda.synchronize()
+                row = {"ms": (time.perf_counter() - t0) * 1e3,
+                       "launches": tuple(b - a for a, b in zip(n0, probe.counts())),
+                       "k4_calls": probe.k4_calls[k0:]}
+                if side:
+                    probe.side_ms += row["ms"]
+                if extra is not None:
+                    row.update(extra(a, out))
+                log.append(row)
+                return out
+            return call
+        return wrap
+
+    def epoch_clock(self, fn):
+        """A wrapper for the trainer's ``_dispatch``."""
+        probe = self
+
+        def call(trainer, name, *a):
+            if name == "on_epoch_start":
+                probe.epochs.append({"t0": time.perf_counter(), "side0": probe.side_ms,
+                                     "step0": probe.n_steps()})
+            out = fn(trainer, name, *a)
+            if name == "on_epoch_end":
+                torch.cuda.synchronize()
+                e = probe.epochs[-1]
+                e.update(ms=(time.perf_counter() - e["t0"]) * 1e3,
+                         side_ms=probe.side_ms - e["side0"], steps=probe.n_steps() - e["step0"])
+            return out
+        return call
+
+
+class _TrainCliProbe(_CliProbe):
     """For the duration of a ``with``: the train steps' launches and events
     (the step functions the trainer builds are wrapped where the trainer
     module makes them); the wall and launches of ``_validate``,
     ``log_images``, ``AudioLogger.log_img`` (vocoding and writing the logs;
     ``ImageLogger.log_img`` inside it, the PNGs), ``save_checkpoint`` and
     the caption tower (``_encode_caption_list``, on the prefetch thread);
-    and each epoch's wall, from ``on_epoch_start`` to ``on_epoch_end`` with
-    the card synchronised there. The wrappers synchronise the card before
+    and each epoch's wall. The wrappers synchronise the card before
     ``_validate``, ``log_images`` and ``save_checkpoint`` start, so the step
     work queued before them is not counted as theirs."""
 
@@ -1305,18 +1393,13 @@ class _TrainCliProbe:
         from versband_tpu_torch.train import callbacks as cmod
         from versband_tpu_torch.train import trainer as tmod
 
+        super().__init__()
         self.tmod, self.cmod = tmod, cmod
         self.steps, self.vals, self.logs, self.writes, self.towers = [], [], [], [], []
-        self.pngs = []
-        self.saves, self.epochs, self.side_ms = [], [], 0.0
-        self._saved = []
+        self.pngs, self.saves = [], []
 
     def n_steps(self) -> int:
         return sum(n for n, _, _ in self.steps)
-
-    def _patch(self, owner, name, wrapper):
-        self._saved.append((owner, name, getattr(owner, name)))
-        setattr(owner, name, wrapper(getattr(owner, name)))
 
     def __enter__(self):
         probe, cls = self, self.tmod.CFMTrainer
@@ -1336,58 +1419,19 @@ class _TrainCliProbe:
                 return timed
             return made
 
-        def timed_method(log, synced: bool, side: bool = False, extra=None):
-            def wrap(fn):
-                def call(obj, *a, **k):
-                    if synced:
-                        torch.cuda.synchronize()
-                    n0, t0 = launches(), time.perf_counter()
-                    out = fn(obj, *a, **k)
-                    if synced:
-                        torch.cuda.synchronize()
-                    row = {"ms": (time.perf_counter() - t0) * 1e3,
-                           "launches": tuple(b - a for a, b in zip(n0, launches()))}
-                    if side:
-                        probe.side_ms += row["ms"]
-                    if extra is not None:
-                        row.update(extra(a, out))
-                    log.append(row)
-                    return out
-                return call
-            return wrap
-
-        def epochs(fn):
-            def call(trainer, name, *a):
-                if name == "on_epoch_start":
-                    probe.epochs.append({"t0": time.perf_counter(), "side0": probe.side_ms,
-                                         "step0": probe.n_steps()})
-                out = fn(trainer, name, *a)
-                if name == "on_epoch_end":
-                    torch.cuda.synchronize()
-                    e = probe.epochs[-1]
-                    e.update(ms=(time.perf_counter() - e["t0"]) * 1e3,
-                             side_ms=probe.side_ms - e["side0"],
-                             steps=probe.n_steps() - e["step0"])
-                return out
-            return call
-
         self._patch(self.tmod, "make_cfm_train_step", steps)
         self._patch(self.tmod, "make_cfm_multi_step", steps)
-        self._patch(cls, "_dispatch", epochs)
-        self._patch(cls, "_validate", timed_method(
+        self._patch(cls, "_dispatch", self.epoch_clock)
+        self._patch(cls, "_validate", self.timed(
             self.vals, True, extra=lambda a, out: {"batches": len(a[0]), "metrics": out}))
-        self._patch(cls, "log_images", timed_method(self.logs, True, side=True))
-        self._patch(self.cmod.AudioLogger, "log_img", timed_method(self.writes, False, side=True))
-        self._patch(self.cmod.ImageLogger, "log_img", timed_method(self.pngs, False))
-        self._patch(cls, "save_checkpoint", timed_method(self.saves, True))
-        self._patch(cls, "_encode_caption_list", timed_method(
+        self._patch(cls, "log_images", self.timed(self.logs, True, side=True))
+        self._patch(self.cmod.AudioLogger, "log_img", self.timed(self.writes, False, side=True))
+        self._patch(self.cmod.ImageLogger, "log_img", self.timed(self.pngs, False))
+        self._patch(cls, "save_checkpoint", self.timed(self.saves, True))
+        self._patch(cls, "_encode_caption_list", self.timed(
             self.towers, False, extra=lambda a, out: {"captions": len(a[0]),
                                                       "device": out.device}))
         return self
-
-    def __exit__(self, *exc):
-        for owner, name, fn in reversed(self._saved):
-            setattr(owner, name, fn)
 
 
 def _train_cli_run(dev, tag: str, argv: list, expect_steps: int, check=None) -> dict:
@@ -1576,6 +1620,447 @@ def phase_train_cli(dev) -> tuple:
     return tuple(sum(c[i] for c in counts) for i in range(3))
 
 
+# [vae-train-cli]: configs/ae_accomp.yaml's data: batch 20, 624-frame crops
+# (padded to 640, the 128-frame bucket), the first 100 manifest rows held out
+# for validation (valid_head); 40 train rows make 2 batches an epoch. Mels of
+# 8 lengths, below the crop (tiled) and above it (cropped), and one unreadable
+# file (a zero mel).
+VAE_B, VAE_CROP, VAE_T_PAD = 20, 624, 640
+VAE_VALID, VAE_TRAIN_ROWS = 100, 40
+VAE_T_MELS = (300, 500, 624, 700, 900, 1200, 1800)
+VAE_STEPS, VAE_RESUME_STEPS = 4, 6
+VAE_DISC_START = 2  # lowered from 80001 so both sides of the gate run
+VAE_LOG_EVERY, VAE_MAX_IMAGES = 2, 2  # image_logger batch_frequency, max_images
+VAE_LOG_KEYS = ("inputs", "reconstructions", "samples")
+VAE_CONFIG = Path("configs") / "ae_accomp.yaml"  # as committed
+BIGVGAN_DIR = Path("useful_ckpts") / "bigvgan"  # the AudioLogger's vocoder_cfg.ckpt_vocoder
+# One full-width VAE-GAN step (batch 2, 640 frames), card against CPU:
+# losses relative to themselves; per parameter the gradient's max|d| over its
+# scale, its own largest floored at STEP_GRAD_FLOOR x the largest of all, as
+# phase 10; and the updated parameters within VAE_PARAM_TOL x LR on the
+# elements whose CPU gradient is at least VAE_SIGN_FLOOR of that scale (10x
+# the gradient tolerance, so its sign is settled). Adam's first step moves
+# an element by LR g / (|g| + eps), LR x sign(g) where |g| >> eps; an element
+# whose gradient is within summation noise of 0 (the attention's key bias
+# has an exactly-zero gradient: softmax ignores a shift of a row of scores)
+# moves by +-LR either way, so it shows nothing.
+VAE_LOSS_TOL, VAE_SIGN_FLOOR, VAE_PARAM_TOL = 1e-4, 1e-2, 1e-3
+
+
+def write_vae_train_data(root: Path, seed: int) -> tuple:
+    """The stage-1 manifest (the port's ``write_tsv``) over ``VAE_T_MELS`` mels
+    and one unreadable file, and a BigVGAN directory at ``BIGVGAN_DIR`` holding
+    the reference's ``g_00000001`` (``{"generator": state_dict}``, the
+    geometry of phase 8's ``BigVGANGenerator()``, random weights from
+    ``seed``). Returns the manifest directory and the BigVGAN directory."""
+    rng = np.random.default_rng(seed)
+    data = root / "vae_data"
+    (data / "manifests").mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i, t in enumerate(VAE_T_MELS):
+        p = data / f"mel{i}_{t}.npy"
+        np.save(p, (rng.standard_normal((80, t)) * 0.5 - 2.0).astype(np.float32))
+        paths.append(str(p))
+    bad = data / "corrupt.npy"
+    bad.write_bytes(b"\x93NUMPY not a mel")
+    paths.append(str(bad))
+    rows = [dict(name=f"song{j}", dataset="synthetic", mel_path=paths[j % len(paths)],
+                 duration=1.0, caption="", audio_path="")
+            for j in range(VAE_VALID + VAE_TRAIN_ROWS)]
+    write_tsv(str(data / "manifests" / "music.tsv"), list(rows[0]), rows)
+    (root / BIGVGAN_DIR).mkdir(parents=True, exist_ok=True)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        torch.save({"generator": BigVGANGenerator().state_dict()},
+                   root / BIGVGAN_DIR / "g_00000001")
+    return str(data / "manifests"), str(root / BIGVGAN_DIR)
+
+
+class _VaeCliProbe(_CliProbe):
+    """For the duration of a ``with``: each VAE-GAN step's events, metrics and
+    launches (the step function is wrapped where the trainer module makes
+    it); the wall, metrics and launches of ``_validate`` and, inside it, of
+    ``save_monitored`` (a checkpoint write); the wall of ``log_images`` and
+    of ``AudioLogger.log_img`` with the K4 launches in it, and each K4 call
+    there (its shape and parameters, and CUDA events around the name
+    ``vocoder/bigvgan.py`` calls, which take in the host's gaps where the
+    card waits for it); ``save_checkpoint``'s wall; each epoch's wall."""
+
+    def __init__(self):
+        from versband_tpu_torch.train import callbacks as cmod
+        from versband_tpu_torch.train import checkpoints as ckmod
+        from versband_tpu_torch.train import trainer as tmod
+        from versband_tpu_torch.vocoder import bigvgan as bmod
+
+        super().__init__()
+        self.tmod, self.cmod, self.ckmod, self.bmod = tmod, cmod, ckmod, bmod
+        self.steps, self.vals, self.monitored, self.logs, self.writes, self.saves = \
+            [], [], [], [], [], []
+
+    def counts(self) -> tuple:
+        return launches() + (fa1.LAUNCHES,)
+
+    def n_steps(self) -> int:
+        return len(self.steps)
+
+    def __enter__(self):
+        probe, cls = self, self.tmod.VAETrainer
+
+        def steps(make):
+            def made(*a, **k):
+                fn = make(*a, **k)
+
+                def timed(gen_state, disc_state, batch, generator=None, given=None):
+                    n0, ev = probe.counts(), [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                    ev[0].record()
+                    out = fn(gen_state, disc_state, batch, generator, given)
+                    ev[1].record()
+                    probe.steps.append({"metrics": out, "events": ev, "shape": tuple(
+                        batch["image"].shape), "launches": tuple(
+                            b - a for a, b in zip(n0, probe.counts()))})
+                    return out
+                return timed
+            return made
+
+        def k4(fn):
+            def call(x, alpha, beta=None, logscale=True):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                out = fn(x, alpha, beta, logscale)
+                ev[1].record()
+                probe.k4_calls.append({"events": ev, "key": (tuple(x.shape), x.dtype,
+                                                             beta is None, bool(logscale)),
+                                       "params": (alpha, beta)})
+                return out
+            return call
+
+        self._patch(self.tmod, "make_vae_train_step", steps)
+        self._patch(self.bmod, "fused_alias_free_snake", k4)
+        self._patch(cls, "_dispatch", self.epoch_clock)
+        self._patch(cls, "_validate", self.timed(
+            self.vals, True, extra=lambda a, out: {"batches": len(a[0]), "metrics": out}))
+        self._patch(cls, "log_images", self.timed(self.logs, True, side=True))
+        self._patch(self.cmod.AudioLogger, "log_img", self.timed(
+            self.writes, True, side=True, extra=lambda a, out: {"clips": sum(
+                min(len(m), VAE_MAX_IMAGES) for m in a[1].values())}))
+        self._patch(cls, "save_checkpoint", self.timed(self.saves, True))
+        self._patch(self.ckmod.CheckpointManager, "save_monitored",
+                    self.timed(self.monitored, True))
+        return self
+
+
+def k4_replay_ms(calls: list) -> float:
+    """The device time of K4 over ``calls`` (the probe's records): each
+    distinct (shape, type, Snake or SnakeBeta, logscale) timed once by
+    ``cuda_ms`` on a random input with the call's own parameters, times the
+    number of its calls."""
+    groups = {}
+    for c in calls:
+        groups.setdefault(c["key"], [c["params"], 0])[1] += 1
+    total = 0.0
+    for (shape, dtype, _, logscale), ((alpha, beta), n) in groups.items():
+        x = torch.randn(shape, device=alpha.device, dtype=dtype)
+        total += n * cuda_ms(lambda: fa1.fused_alias_free_snake(x, alpha, beta, logscale), 20)
+    return total
+
+
+def _vae_cli_run(tag: str, argv: list, expect_steps: int, check=None) -> dict:
+    """One ``cli.train.main`` on the stage-1 YAML under a probe: checks each
+    step's metrics, the launches (no K1-K3 anywhere; K4 exactly
+    ``K4_PER_CLIP`` per vocoded clip, in the audio logs only) and each
+    validation; runs ``check(run)``; prints the run's figures and returns
+    them."""
+    import gc
+
+    from versband_tpu_torch.cli import train as cli
+
+    run = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # count only this run's launches
+    t0 = time.perf_counter()
+    with _VaeCliProbe() as probe:
+        rc = cli.main(argv, run=run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total, k4_total, peak = launches(), fa1.LAUNCHES, torch.cuda.max_memory_allocated()
+    trainer = run["trainer"]
+    factors = [m["metrics"]["disc_factor"] for m in probe.steps]
+    bad = [m["launches"] for m in probe.steps if m["launches"] != (0, 0, 0, 0)]
+    bad += [v["launches"] for v in probe.vals + probe.logs if v["launches"] != (0, 0, 0, 0)]
+    bad += [(w["clips"], w["launches"]) for w in probe.writes
+            if w["launches"] != (0, 0, 0, K4_PER_CLIP * w["clips"])]
+    want_k4 = K4_PER_CLIP * sum(w["clips"] for w in probe.writes)
+    print(f"[vae-train-cli] {tag}: main() returned {rc} in {wall:.2f} s host wall; "
+          f"{trainer.global_step} steps on batches {sorted({m['shape'] for m in probe.steps})}"
+          f", disc_factor per step {factors} (disc_start lowered to {VAE_DISC_START}); "
+          f"{len(probe.vals)} validations of {[v['batches'] for v in probe.vals]} batches; "
+          f"{len(probe.writes)} audio logs of {[w['clips'] for w in probe.writes]} clips; "
+          f"K1/K2/K3 launches {total}, K4 {k4_total} (want {want_k4}: {K4_PER_CLIP} per clip)")
+    if rc != 0 or trainer.global_step != expect_steps or bad or total != (0, 0, 0) \
+            or k4_total != want_k4:
+        raise AssertionError(f"[vae-train-cli] {tag}: rc {rc}, step {trainer.global_step}, "
+                             f"launches off {bad}, K1-K3 {total}, K4 {k4_total} != {want_k4}")
+    keys = ("aeloss", "discloss", "rec_loss", "kl_loss", "d_weight", "r1_penalty")
+    for i, m in enumerate(probe.steps):
+        vals = {k: float(m["metrics"][k]) for k in keys}
+        print(f"[vae-train-cli] {tag}: step {i + 1}: " + ", ".join(
+            f"{k} {x:.5g}" for k, x in vals.items()) + f", disc_factor {factors[i]}")
+        if not all(math.isfinite(x) for x in vals.values()):
+            raise AssertionError(f"[vae-train-cli] {tag}: step {i + 1} gave {vals}")
+    for v in probe.vals:
+        rec = v["metrics"].get("val/rec_loss")
+        print(f"[vae-train-cli] {tag}: validation over {v['batches']} batches: "
+              f"{ {k: round(x, 6) for k, x in v['metrics'].items()} }, {v['ms']:.1f} ms host "
+              f"wall (synchronised)")
+        if rec is None or not math.isfinite(rec):
+            raise AssertionError(f"[vae-train-cli] {tag}: validation gave {v['metrics']}")
+    if check is not None:
+        check(run)
+    per_step = [m["events"][0].elapsed_time(m["events"][1]) for m in probe.steps]
+    dev_ms = statistics.median(per_step[1:] or per_step)
+    host_ms = sum(e["ms"] - e["side_ms"] for e in probe.epochs) / sum(
+        e["steps"] for e in probe.epochs)
+    k4_wall = [sum(c["events"][0].elapsed_time(c["events"][1]) for c in w["k4_calls"])
+               for w in probe.writes]
+    k4_ms = [k4_replay_ms(w["k4_calls"]) for w in probe.writes]
+    print(f"[vae-train-cli] {tag}: event time per train step {dev_ms:.2f} ms (median over the "
+          f"steps after the first, {['%.2f' % x for x in per_step]}), {1e3 / dev_ms:.3f} "
+          f"steps/s on the card; host wall per step {host_ms:.2f} ms ({1e3 / host_ms:.3f} "
+          f"steps/s): epochs {['%.1f' % e['ms'] for e in probe.epochs]} ms from on_epoch_start "
+          f"to on_epoch_end (card synchronised), of which image and audio logging "
+          f"{['%.1f' % e['side_ms'] for e in probe.epochs]} ms (taken out), over "
+          f"{[e['steps'] for e in probe.epochs]} steps (loader, C++ mel reads, copies "
+          f"included); validation {[round(v['ms'], 1) for v in probe.vals]} ms; log_images "
+          f"{[round(g['ms'], 1) for g in probe.logs]} ms; PNGs, vocoding and wavs per log "
+          f"event {[round(w['ms'], 1) for w in probe.writes]} ms, of which K4 "
+          f"{['%.3f' % x for x in k4_ms]} ms of device time ({K4_PER_CLIP} launches x "
+          f"{[w['clips'] for w in probe.writes]} clips, replayed at their shapes with the "
+          f"stream held busy; {['%.1f' % x for x in k4_wall]} ms between CUDA events around "
+          f"the calls in the run, host gaps included); save_monitored inside validation "
+          f"{[round(c['ms'], 1) for c in probe.monitored]} ms; save_checkpoint "
+          f"{[round(c['ms'], 1) for c in probe.saves]} ms; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated)")
+    logdir, config = run["logdir"], run["config"]
+    del run, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"logdir": logdir, "config": config, "k4": k4_total, "device_ms": dev_ms,
+            "host_ms": host_ms, "k4_ms": k4_ms, "peak": peak, "probe": probe,
+            "factors": factors}
+
+
+def phase_vae_train_cli(dev) -> tuple:
+    """Stage-1 training through the CLI on ``configs/ae_accomp.yaml`` (phase
+    13), then ``cli.generate`` with the trained VAE from ``CLI_WORK`` as
+    phase 11 left it; returns the K4 launches of its runs and the K1
+    launches of that ``cli.generate``."""
+    from versband_tpu_torch.cli import generate as gen_cli
+    from versband_tpu_torch.cli import train as cli
+    from versband_tpu_torch.dsp.loudness import integrated_loudness
+    from versband_tpu_torch.train import checkpoints as ckmod
+    from versband_tpu_torch.utils.config import load_config
+
+    root, v2m = CLI_WORK.resolve(), CLI_CONFIG.resolve()
+    t0 = time.perf_counter()
+    manifest, bigvgan = write_vae_train_data(root, SEED + 40)
+    print(f"[vae-train-cli] manifest of {VAE_VALID + VAE_TRAIN_ROWS} rows ({VAE_VALID} held out "
+          f"for validation) over mels of {list(VAE_T_MELS)} frames and one unreadable file, "
+          f"and {BIGVGAN_DIR}/g_00000001 written in {time.perf_counter() - t0:.1f} s")
+    argv = ["-b", str(VAE_CONFIG.resolve()), "-t", "-l", "logs", "-s", str(SEED), "-n", "vae",
+            "--max_steps", str(VAE_STEPS), "--max_epochs", "2",
+            f"data.params.spec_dir_path={manifest}",
+            f"lightning.callbacks.image_logger.params.vocoder_cfg.params.ckpt_vocoder={bigvgan}",
+            f"lightning.callbacks.image_logger.params.batch_frequency={VAE_LOG_EVERY}",
+            f"lightning.callbacks.image_logger.params.max_images={VAE_MAX_IMAGES}",
+            f"model.params.lossconfig.params.disc_start={VAE_DISC_START}"]
+    cwd = os.getcwd()
+    gen_stats, loaded = [], []
+    try:
+        os.chdir(root)
+        seen = {}
+
+        def check_run1(run):
+            tr = run["trainer"]
+            vae0, loss0 = cli.build_vae_gan(run["config"]["model"], torch.device("cpu"), SEED)
+            moved = {name: max((v.cpu() - ref).abs().max().item()
+                               for v, ref in zip(mod.state_dict().values(),
+                                                 ref_mod.state_dict().values()))
+                     for name, mod, ref_mod in (("gen", tr.vae, vae0), ("disc", tr.loss, loss0))}
+            bn = [k for k in tr.loss.state_dict() if k.endswith("running_mean")]
+            moved["bn_running_mean"] = min(
+                (tr.loss.state_dict()[k].cpu() - loss0.state_dict()[k]).abs().max().item()
+                for k in bn)
+            audio = [cb for cb in tr.callbacks if type(cb).__name__ == "AudioLogger"]
+            seen.update(moved=moved, logvar=tr.loss.logvar.item(),
+                        vocoder=type(audio[0].vocoder).__name__ if audio and audio[0].vocoder
+                        else None)
+
+        first = _vae_cli_run("run 1", argv, VAE_STEPS, check_run1)
+        logdir = Path(first["logdir"]).resolve()
+        ckpt = torch.load(logdir / "checkpoints" / "last.pt", map_location="cpu",
+                          weights_only=False)
+        meta = json.loads((logdir / "checkpoints" / "last_step.json").read_text())
+        (project,) = sorted((logdir / "configs").glob("*-project.yaml"))
+        pngs = sorted((logdir / "images" / "train").glob("*.png"))
+        wavs = sorted((logdir / "audio" / "train").glob("*.wav"))
+        n_logs = len(first["probe"].writes)
+        n_clips = n_logs * len(VAE_LOG_KEYS) * VAE_MAX_IMAGES
+        want_factors = [0.0 if s < VAE_DISC_START else
+                        float(first["config"]["model"]["params"]["lossconfig"]["params"]
+                              ["disc_factor"]) for s in range(VAE_STEPS)]
+        print(f"[vae-train-cli] run 1: weights moved {seen['moved']} (max|d|; the smallest "
+              f"over the BatchNorm running_means), logvar {seen['logvar']}; last.pt keys "
+              f"{sorted(ckpt)} at step {ckpt['step']}, last_step.json {meta}; {project.name} read "
+              f"back equal {load_config(project) == first['config']}; {len(pngs)} PNGs and "
+              f"{len(wavs)} wavs from {n_logs} log events (vocoder {seen['vocoder']})")
+        if not (set(ckpt) == {"gen", "disc", "step"} and ckpt["step"] == VAE_STEPS
+                and meta.get("step") == VAE_STEPS and first["factors"] == want_factors
+                and min(seen["moved"].values()) > 0 and seen["logvar"] == 0.0
+                and load_config(project) == first["config"]
+                and seen["vocoder"] == "VocoderBigVGAN" and n_logs == VAE_STEPS // VAE_LOG_EVERY
+                and len(pngs) == len(wavs) == n_clips and len(first["probe"].vals) == 2):
+            raise AssertionError(f"[vae-train-cli] run 1: checkpoint, gate {first['factors']}, "
+                                 f"weights, logvar, config or logs")
+
+        resumed = _vae_cli_run("run 2 (-r, resumed)", ["-r", str(logdir), "-t", "--max_steps",
+                                                     str(VAE_RESUME_STEPS), "--no-test"],
+                               VAE_RESUME_STEPS)
+        meta2 = json.loads((logdir / "checkpoints" / "last_step.json").read_text())
+        if meta2.get("step") != VAE_RESUME_STEPS or \
+                len(resumed["probe"].steps) != VAE_RESUME_STEPS - VAE_STEPS:
+            raise AssertionError(f"[vae-train-cli] run 2 did not resume at step {VAE_STEPS}: "
+                                 f"{meta2}")
+
+        real_load = ckmod.load_model_checkpoint
+
+        def recording_load(model, path, *a, **k):
+            loaded.append((model, str(path)))
+            return real_load(model, path, *a, **k)
+
+        last = logdir / "checkpoints" / "last.pt"
+        reset_launches()
+        gen_argv = ["--config", str(v2m), "--ckpt", str(root / "dit.pt"),
+                    "--vae_ckpt", str(last), "--vocoder_ckpt", str(root / HIFIGAN_DIR),
+                    "--manifest", str(root / "manifest"), "--other_condition",
+                    str(root / "midi.npy"), "--scales", "1", "--num_items", "1",
+                    "--seed", str(SEED), "--save_dir", "out_vae"]
+        ckmod.load_model_checkpoint = recording_load
+        try:
+            rc = gen_cli.main(gen_argv, stats=gen_stats)
+        finally:
+            ckmod.load_model_checkpoint = real_load
+        torch.cuda.synchronize()
+        n_gen = launches()
+        gen_wavs = sorted((root / "out_vae").rglob("*.wav"))
+    finally:
+        os.chdir(cwd)
+    gen_sd = torch.load(last, map_location="cpu", weights_only=False)["gen"]["model"]
+    vaes = [m for m, path in loaded if path == str(last)]
+    dec_equal = len(vaes) == 1 and all(
+        torch.equal(v.cpu(), gen_sd[f"decoder.{k}"])
+        for k, v in vaes[0].decoder.state_dict().items())
+    if rc != 0 or len(gen_wavs) != 1 or n_gen != (LAUNCHES_PER_CLIP, 0, 0) or not dec_equal:
+        raise AssertionError(f"[vae-train-cli] cli.generate: rc {rc}, {len(gen_wavs)} wavs, "
+                             f"launches {n_gen}, decoder equal to last.pt {dec_equal}")
+    from scipy.io import wavfile
+
+    sr, pcm = wavfile.read(gen_wavs[0])
+    wav = pcm.astype(np.float32) / 32768.0
+    lufs = integrated_loudness(wav, sr)
+    n = (CLI_T_MEL + 7) // 8 * 8 * HOP
+    print(f"[vae-train-cli] cli.generate --vae_ckpt {last.name} (step {VAE_RESUME_STEPS}): "
+          f"decoder weights equal to the checkpoint's {dec_equal}; {wav.shape[0]} samples at "
+          f"{sr} Hz, finite {np.isfinite(wav).all()}, std {wav.std():.4f}, {lufs:.3f} LUFS; "
+          f"K1 {n_gen[0]}")
+    if not (sr == SR and wav.shape == (n,) and np.isfinite(wav).all() and wav.std() > 0
+            and abs(lufs - CLI_LUFS) <= CLI_LUFS_TOL):
+        raise AssertionError(f"[vae-train-cli] generated {wav.shape} samples at {lufs} LUFS")
+    print(f"[vae-train-cli] per run (run 1 / run 2 resumed): event time per step "
+          f"{first['device_ms']:.2f} / {resumed['device_ms']:.2f} ms, host wall per step "
+          f"{first['host_ms']:.2f} / {resumed['host_ms']:.2f} ms, K4 device ms per log event "
+          f"{first['k4_ms']} / {resumed['k4_ms']}, peak {first['peak'] / 2 ** 30:.2f} / "
+          f"{resumed['peak'] / 2 ** 30:.2f} GiB")
+    return first["k4"] + resumed["k4"], n_gen[0]
+
+
+def phase_vae_step_parity(dev) -> None:
+    """One full-width VAE-GAN step (``make_vae_train_step``, batch 2, 640
+    frames, ``disc_start`` 0) on the card and on the CPU from the same
+    weights, batch and posterior draw."""
+    from versband_tpu_torch.cli import train as cli
+    from versband_tpu_torch.train.state import make_adam
+    from versband_tpu_torch.train.vae_step import make_vae_train_step
+    from versband_tpu_torch.utils.config import load_config
+
+    model_cfg = load_config(VAE_CONFIG)["model"]
+    model_cfg["params"]["lossconfig"]["params"]["disc_start"] = 0
+    lr = 4.5e-6 * VAE_B  # the shipped LR, scaled by the shipped batch
+    rng = np.random.RandomState(SEED + 5)
+    mel = (rng.randn(2, 80, VAE_T_PAD) * 0.5 - 2.0).astype(np.float32)
+    noise = rng.randn(2, model_cfg["params"]["embed_dim"], VAE_T_PAD // 2).astype(np.float32)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        vae, loss = cli.build_vae_gan(model_cfg, device, SEED + 6)
+        start = {f"{n}.{k}": v.detach().float().cpu().clone() for n, m in (("gen", vae),
+                                                                          ("disc", loss))
+                 for k, v in m.named_parameters()}
+        gen, disc = TrainState(vae, make_adam(lr)), TrainState(loss, make_adam(lr))
+        grads = {}
+        for name, state in (("gen", gen), ("disc", disc)):
+            apply = state.apply_gradients
+
+            def snapshot_then_apply(state=state, name=name, apply=apply):
+                grads.update({f"{name}.{k}": p.grad.detach().float().cpu().clone()
+                              for k, p in state.named.items() if p.grad is not None})
+                return apply()
+
+            state.apply_gradients = snapshot_then_apply
+        n0 = launches() + (fa1.LAUNCHES,)
+        m = make_vae_train_step(vae, loss)(gen, disc, {"image": torch.from_numpy(mel).to(device)},
+                                           given={"posterior": torch.from_numpy(noise).to(device)})
+        after = {f"{n}.{k}": v.detach().float().cpu() for n, mod in (("gen", vae), ("disc", loss))
+                 for k, v in mod.named_parameters()}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            if launches() + (fa1.LAUNCHES,) != n0:
+                raise AssertionError("the VAE-GAN step launched a kernel of K1-K4")
+        results.append(({k: float(v) for k, v in m.items()}, grads, start, after))
+        del vae, loss, gen, disc
+    (m_gpu, g_gpu, s_gpu, a_gpu), (m_cpu, g_cpu, s_cpu, a_cpu) = results
+    if set(g_gpu) != set(g_cpu) or any(not torch.equal(s_gpu[k], s_cpu[k]) for k in s_cpu):
+        raise AssertionError("card and CPU started from other weights or differ in the "
+                             "parameters with a gradient")
+    lrel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+            for k in ("aeloss", "d_weight", "r1_penalty", "discloss", "rec_loss", "g_loss")}
+    big = max(g.abs().max().item() for g in g_cpu.values())
+    grel = {k: (g_gpu[k] - g).abs().max().item() / max(g.abs().max().item(),
+                                                       STEP_GRAD_FLOOR * big)
+            for k, g in g_cpu.items()}
+    worst = max(grel, key=grel.get)
+    prel, excluded, total = {}, 0, 0
+    for k, g in g_cpu.items():
+        sure = g.abs() >= VAE_SIGN_FLOOR * max(g.abs().max().item(), STEP_GRAD_FLOOR * big)
+        excluded, total = excluded + int((~sure).sum()), total + g.numel()
+        d = (a_gpu[k] - a_cpu[k]).abs()[sure]
+        prel[k] = d.max().item() / lr if d.numel() else 0.0
+    pworst = max(prel, key=prel.get)
+    moved = min((a_cpu[k] - s_cpu[k]).abs().max().item() for k in g_cpu)
+    print(f"[vae-step] one fp32 VAE-GAN step at full width (ch "
+          f"{model_cfg['params']['ddconfig']['ch']}), batch "
+          f"2, {VAE_T_PAD} frames, disc_factor {m_cpu['disc_factor']}, card vs CPU: " + ", ".join(
+              f"{k} {m_gpu[k]:.6g} vs {m_cpu[k]:.6g} (rel {lrel[k]:.2e})" for k in lrel)
+          + f" (tol {VAE_LOSS_TOL:g}); gradients per parameter over its own scale: worst "
+          f"{grel[worst]:.2e} ({worst}, tol {STEP_GRAD_TOL:g}); updated parameters: worst "
+          f"{prel[pworst]:.2e} x LR ({pworst}, tol {VAE_PARAM_TOL:g}) over the elements whose "
+          f"gradient is >= {VAE_SIGN_FLOOR:g} of its parameter's scale ({excluded} of {total} "
+          f"elements below it); every parameter moved (min max|d| {moved:.2e})")
+    if not (max(lrel.values()) <= VAE_LOSS_TOL and grel[worst] <= STEP_GRAD_TOL
+            and prel[pworst] <= VAE_PARAM_TOL and "disc.discriminator.main.3.running_mean"
+            in g_cpu):
+        raise AssertionError("the VAE-GAN step on the card disagrees with the CPU")
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda")
@@ -1590,7 +2075,9 @@ def main() -> None:
     phase_grad_parity(dev)
     n_cli = phase_cli(dev)
     n_train_cli = phase_train_cli(dev)
+    n_vae_cli, n_vae_gen = phase_vae_train_cli(dev)
     shutil.rmtree(CLI_WORK, ignore_errors=True)
+    phase_vae_step_parity(dev)
     n_train = tuple(a + b for a, b in zip(trained["launches"], n_train_cli))
     n_serve = {k: sum(f[k] for f in served.values()) for k in ("k1", "k4", "k5")}
     bwd_src = "versband_tpu_torch/ops/csrc/flash_attn_bwd.cu"
@@ -1598,7 +2085,7 @@ def main() -> None:
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/flash_attn_fwd.cu",
          "replaces": "versband_tpu/ops/flash_attention.py:57",
-         "launches": n_serve["k1"] + n_train[0] + n_cli, **k1},
+         "launches": n_serve["k1"] + n_train[0] + n_cli + n_vae_gen, **k1},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": bwd_src,
          "replaces": "versband_tpu/ops/flash_attention.py:162", "launches": n_train[1],
          **k23["dq"]},
@@ -1607,7 +2094,8 @@ def main() -> None:
          **k23["dkv"]},
         {"name": "fused_alias_free_snake", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/fused_act1d.cu",
-         "replaces": "versband_tpu/ops/fused_act1d.py:94", "launches": n_serve["k4"], **k4},
+         "replaces": "versband_tpu/ops/fused_act1d.py:94", "launches": n_serve["k4"] + n_vae_cli,
+         **k4},
         {"name": "fused_wavenet_layer", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/fused_wavenet.cu",
          "replaces": "versband_tpu/ops/fused_wavenet.py:46", "launches": n_serve["k5"], **k5},
@@ -1616,8 +2104,10 @@ def main() -> None:
         raise AssertionError(f"a kernel did not run on the main path: "
                              f"{[(k['name'], k['launches']) for k in table]}")
     print(f"kernels: {[k['name'] for k in table]}; K1 launches: serving {n_serve['k1']}, "
-          f"training {trained['launches'][0]}, cli {n_cli}, train-cli {n_train_cli[0]} "
-          f"(its K2/K3 {n_train_cli[1]}/{n_train_cli[2]}); K4 {n_serve['k4']} (bigvgan), "
+          f"training {trained['launches'][0]}, cli {n_cli}, train-cli {n_train_cli[0]}, "
+          f"vae-train-cli's cli.generate {n_vae_gen} "
+          f"(its K2/K3 {n_train_cli[1]}/{n_train_cli[2]}); K4 {n_serve['k4']} (bigvgan) + "
+          f"{n_vae_cli} (vae-train-cli audio logs), "
           f"K5 {n_serve['k5']} (pwg)")
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -32,7 +32,11 @@ TF32 off, products summed in another order). The inference CLI on a tiny
 config, card (K1 in the DiT) against ``--platform cpu``, with the same start
 noise: wavs within 1e-3 of full scale and the same ``clap.csv``. The
 training CLI on a tiny config: K1, K2 and K3 counted per step and per
-validation batch.
+validation batch. One stage-1 VAE-GAN step (plain PyTorch, R1 double
+backward) at tiny widths, card against CPU: losses 1e-5 relative, each
+parameter's gradient 1e-4 of its own largest, floored at 1e-3 of the largest
+of all (fp32, TF32 off, summed in another order), no kernel of K1-K4
+launched.
 """
 
 import math
@@ -658,3 +662,42 @@ def test_cli_train_on_the_card(cuda, tmp_path, monkeypatch):
     assert tr._encode_caption_list(["a", "b", "a"]).device.type == "cuda"
     meta = (Path(run["logdir"]) / "checkpoints" / "last_step.json").read_text()
     assert '"step": 2' in meta
+
+
+def test_vae_gan_step_on_the_card_matches_the_cpu(cuda):
+    from versband_tpu_torch.models.autoencoder import AutoencoderKL
+    from versband_tpu_torch.train.gan_losses import VAEGANLoss
+    from versband_tpu_torch.train.state import TrainState, make_adam
+    from versband_tpu_torch.train.vae_step import make_vae_train_step
+
+    dd = dict(double_z=True, in_channels=80, out_ch=80, z_channels=4, kernel_size=5, ch=32,
+              ch_mult=[1, 2], num_res_blocks=1, attn_layers=[], down_layers=[0], dropout=0.0)
+    rng = np.random.RandomState(0)
+    mel = torch.from_numpy(rng.randn(2, 80, 64).astype(np.float32))
+    noise = torch.from_numpy(rng.randn(2, 4, 32).astype(np.float32))
+    runs = []
+    for device in ("cuda", "cpu"):
+        torch.manual_seed(0)
+        vae = AutoencoderKL(embed_dim=4, ddconfig=dd).to(device)
+        loss = VAEGANLoss(disc_start=0, disc_hidden_size=16, disc_num_layers=2).to(device)
+        gen, disc = TrainState(vae, make_adam(1e-3)), TrainState(loss, make_adam(1e-3))
+        grads = {}
+        for name, state in (("gen", gen), ("disc", disc)):
+            def snap(state=state, name=name, apply=state.apply_gradients):
+                grads.update({f"{name}.{k}": p.grad.float().cpu() for k, p in state.named.items()
+                              if p.grad is not None})
+                return apply()
+            state.apply_gradients = snap
+        n0 = (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV, fa1.LAUNCHES)
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            m = make_vae_train_step(vae, loss)(gen, disc, {"image": mel.to(device)},
+                                               given={"posterior": noise.to(device)})
+        assert (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV, fa1.LAUNCHES) == n0
+        runs.append(({k: float(v) for k, v in m.items()}, grads))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = runs
+    for k in ("aeloss", "discloss", "d_weight", "r1_penalty"):
+        assert abs(m_gpu[k] - m_cpu[k]) <= 1e-5 * abs(m_cpu[k]), (k, m_gpu[k], m_cpu[k])
+    assert set(g_gpu) == set(g_cpu) and "disc.discriminator.main.3.running_mean" in g_cpu
+    big = max(g.abs().max() for g in g_cpu.values())
+    for k, g in g_cpu.items():  # a gradient that is 0 but for rounding: the floor
+        assert (g_gpu[k] - g).abs().max() <= 1e-4 * max(g.abs().max(), 1e-3 * big), k

@@ -292,3 +292,115 @@ def write_v2a_manifest(root, n_rows: int, lengths=(40, 52, 60), seed: int = 0,
     np.save(f"{root}/midi.npy", midi, allow_pickle=True)
     np.save(f"{root}/beats.npy", beats, allow_pickle=True)
     return f"{root}/manifests", f"{root}/midi.npy"
+
+
+# stage 1: the JAX suite's tiny VAE (tests/test_vae_gan_training.py TINY_DD)
+# and a PatchGAN of hidden size 8 and 2 layers
+VAE_GAN_DD = dict(double_z=True, in_channels=80, out_ch=80, z_channels=4, kernel_size=5, ch=16,
+                  ch_mult=[1, 2], num_res_blocks=1, attn_layers=[], down_layers=[0],
+                  dropout=0.0)
+VAE_GAN_DISC = dict(disc_hidden_size=8, disc_num_layers=2)
+
+
+def record_normals(monkeypatch) -> list:
+    """Every ``jax.random.normal`` draw, recorded in program order as the
+    (jitted) JAX code makes it."""
+    import jax
+
+    draws = []
+    real = jax.random.normal
+
+    def normal(*args, **kwargs):
+        v = real(*args, **kwargs)
+        jax.debug.callback(lambda a: draws.append(np.asarray(a).copy()), v, ordered=True)
+        return v
+
+    monkeypatch.setattr(jax.random, "normal", normal)
+    return draws
+
+
+def one_draw(draws: list) -> torch.Tensor:
+    """The draw of a step whose forwards all drew the same noise (emptying
+    ``draws``)."""
+    import jax
+
+    jax.effects_barrier()
+    assert draws and all(np.array_equal(d, draws[0]) for d in draws), len(draws)
+    out = torch.from_numpy(draws[0])
+    draws.clear()
+    return out
+
+
+def jax_loss_vars(loss, mel, seed: int = 3):
+    """A JAX ``VAEGANLoss``'s variables, every leaf perturbed (variances kept
+    positive, logvar kept), so the BatchNorm statistics matter."""
+    import jax
+    import jax.numpy as jnp
+
+    v = loss.init(jax.random.PRNGKey(seed), jnp.asarray(mel), method="disc_forward")
+    leaves, tree = jax.tree_util.tree_flatten_with_path(v)
+    rng = np.random.RandomState(seed)
+    out = []
+    for path, leaf in leaves:
+        name = jax.tree_util.keystr(path)
+        a = np.asarray(leaf)
+        if "logvar" in name:
+            out.append(a)
+        elif "var" in name:
+            out.append((a * np.exp(0.3 * rng.randn(*a.shape))).astype(np.float32))
+        else:
+            out.append((a + 0.1 * rng.randn(*a.shape)).astype(np.float32))
+    return jax.tree_util.tree_unflatten(tree, [jnp.asarray(a) for a in out])
+
+
+def port_loss(jvars, **kw):
+    """The port's ``VAEGANLoss`` holding the JAX variables ``jvars``."""
+    import jax
+
+    from versband_tpu_torch.train.gan_losses import VAEGANLoss
+
+    loss = VAEGANLoss(**{**VAE_GAN_DISC, **kw})
+    loss.load_state_dict(state_dict_from_jax(jax.device_get(jvars), "vaegan_loss"))
+    return loss
+
+
+def port_vae(seed: int = 0):
+    """The port's tiny stage-1 VAE, GroupNorm affine parameters varied."""
+    from versband_tpu_torch.models.autoencoder import AutoencoderKL
+
+    torch.manual_seed(seed)
+    vae = AutoencoderKL(embed_dim=4, ddconfig=VAE_GAN_DD)
+    with torch.no_grad():  # they start at 1/0
+        for name, p in vae.named_parameters():
+            if "norm" in name:
+                p.add_(0.1 * torch.randn(p.shape))
+    return vae
+
+
+def write_stage1_manifest(root, n_rows: int, lengths=(25, 40, 57, 71), seed: int = 0,
+                          corrupt: bool = True, nested: bool = True):
+    """A manifest of ``n_rows`` rows over one mel per entry of ``lengths``
+    and, with ``corrupt``, an unreadable file, written with pandas, in a
+    subdirectory of the returned manifest directory where ``nested``
+    (``fixed_len`` reads recursively, ``anylen`` does not)."""
+    import pandas as pd
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, T in enumerate(lengths):
+        p = root / f"mel{i}.npy"
+        np.save(p, rng.standard_normal((80, T)).astype(np.float32))
+        paths.append(str(p))
+    if corrupt:
+        bad = root / "corrupt.npy"
+        bad.write_bytes(b"\x93NUMPY garbage")
+        paths.append(str(bad))
+    rows = [dict(name=f"song{j % 7}", mel_path=paths[j % len(paths)],
+                 duration=float(1 + (j * 37) % 11) / 2,
+                 caption=("" if j % 5 == 0 else f"caption {j % 3}"),
+                 ori_cap=f"ori {j % 4}") for j in range(n_rows)]
+    where = root / "manifests" / ("sub" if nested else "")
+    where.mkdir(parents=True, exist_ok=True)
+    pd.DataFrame(rows).to_csv(where / "a.tsv", sep="\t", index=False)
+    return str(root / "manifests")

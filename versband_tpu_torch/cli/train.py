@@ -17,8 +17,11 @@ Runs on the card unless ``--platform cpu`` is given:
   where it exists, else it keeps a random init, which is printed;
 * after ``fit``, ``test`` runs unless ``--no-test``.
 
-One card only: ``--devices`` or ``--n_model`` above 1 raise (ROADMAP Queue
-1 item 12), and so does a stage-1 model (``AutoencoderKL``, item 10).
+A stage-1 config (an ``AutoencoderKL`` target, ``configs/ae_accomp.yaml``)
+trains the VAE-GAN with ``VAETrainer``: the VAE and its ``lossconfig``
+(``VAEGANLoss``) are built from ``--seed`` on the card; any other config
+trains the CFM with ``CFMTrainer``. One card only: ``--devices`` or
+``--n_model`` above 1 raise (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -114,11 +117,6 @@ def main(argv: Optional[List[str]] = None, run: Optional[Dict[str, Any]] = None)
     config = apply_dot_overrides(config, unknown)
 
     model_cfg = config["model"]
-    target = model_cfg["target"]
-    if "autoencoder" in target.lower() or target.endswith("AutoencoderKL"):
-        raise NotImplementedError(f"{target}: stage-1 (VAE-GAN) training is not ported yet "
-                                  f"(ROADMAP Queue 1 item 10)")
-
     logdir = build_logdir(opt, now)
     ckptdir = os.path.join(logdir, "checkpoints")
     cfgdir = os.path.join(logdir, "configs")
@@ -133,7 +131,7 @@ def main(argv: Optional[List[str]] = None, run: Optional[Dict[str, Any]] = None)
 
     from versband_tpu_torch.train.callbacks import DeviceStatsCallback, SetupCallback
     from versband_tpu_torch.train.checkpoints import CheckpointManager
-    from versband_tpu_torch.train.trainer import CFMTrainer
+    from versband_tpu_torch.train.trainer import CFMTrainer, VAETrainer
 
     callbacks = [SetupCallback(bool(opt.resume), now, logdir, ckptdir, cfgdir, config,
                                lightning_cfg), DeviceStatsCallback()]
@@ -145,19 +143,25 @@ def main(argv: Optional[List[str]] = None, run: Optional[Dict[str, Any]] = None)
 
     ckpt = CheckpointManager(ckptdir, monitor=model_cfg.get("params", {}).get("monitor"),
                              every_n_train_steps=10000)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(opt.seed)  # the DiT and first-stage init
-        cfm = instantiate_from_config(model_cfg, device=device)
-    fs_cfg = model_cfg["params"].get("first_stage_config") or {}
-    load_first_stage(cfm, (fs_cfg.get("params") or {}).get("ckpt_path"))
-    trainer = CFMTrainer(
-        cfm, cfm.cond_stage, learning_rate=lr,
-        use_ema=bool(model_cfg["params"].get("use_ema", False)),
-        steps_per_call=opt.steps_per_call, prefetch_groups=opt.prefetch_groups,
-        transfer_dtype=opt.transfer_dtype, caption_cache_dir=opt.caption_cache_dir,
-        accumulate_grad_batches=opt.accumulate_grad_batches, logdir=logdir,
-        max_steps=opt.max_steps, max_epochs=opt.max_epochs, callbacks=callbacks, ckpt=ckpt,
-        seed=opt.seed)
+    common = dict(logdir=logdir, max_steps=opt.max_steps, max_epochs=opt.max_epochs,
+                  callbacks=callbacks, ckpt=ckpt, seed=opt.seed,
+                  accumulate_grad_batches=opt.accumulate_grad_batches)
+    target = model_cfg["target"]
+    if "autoencoder" in target.lower() or target.endswith("AutoencoderKL"):
+        trainer = VAETrainer(*build_vae_gan(model_cfg, device, opt.seed), learning_rate=lr,
+                             **common)
+    else:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(opt.seed)  # the DiT and first-stage init
+            cfm = instantiate_from_config(model_cfg, device=device)
+        fs_cfg = model_cfg["params"].get("first_stage_config") or {}
+        load_first_stage(cfm, (fs_cfg.get("params") or {}).get("ckpt_path"))
+        trainer = CFMTrainer(
+            cfm, cfm.cond_stage, learning_rate=lr,
+            use_ema=bool(model_cfg["params"].get("use_ema", False)),
+            steps_per_call=opt.steps_per_call, prefetch_groups=opt.prefetch_groups,
+            transfer_dtype=opt.transfer_dtype, caption_cache_dir=opt.caption_cache_dir,
+            **common)
     if run is not None:
         run.update(trainer=trainer, config=config, logdir=logdir)
 
@@ -169,6 +173,24 @@ def main(argv: Optional[List[str]] = None, run: Optional[Dict[str, Any]] = None)
             except Exception as e:
                 print(f"test pass skipped: {e}")
     return 0
+
+
+def build_vae_gan(model_cfg, device: torch.device, seed: int):
+    """Stage 1's (VAE, VAEGANLoss) on ``device``, initialised from ``seed``;
+    the YAML's ``lossconfig`` builds the loss."""
+    from versband_tpu_torch.models.autoencoder import AutoencoderKL
+    from versband_tpu_torch.train.gan_losses import VAEGANLoss
+
+    params = dict(model_cfg.get("params", {}))
+    loss_cfg = params.pop("lossconfig", None)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        vae = AutoencoderKL(embed_dim=params["embed_dim"], ddconfig=params.get("ddconfig"),
+                            monitor=params.get("monitor"))
+        loss = instantiate_from_config(loss_cfg) if loss_cfg else None
+    if not isinstance(loss, VAEGANLoss):
+        raise ValueError(f"stage 1 trains with a VAEGANLoss lossconfig, not {loss_cfg!r}")
+    return vae.to(device), loss.to(device)
 
 
 def load_first_stage(cfm, ckpt_path: Optional[str]) -> bool:

@@ -116,7 +116,7 @@ class CheckpointManager:
 # the port's module classes -> their family in ``utils.convert.state_dict_from_jax``
 _FAMILIES = {"BandMoeDiT": "dit", "AutoencoderKL": "vae", "HifiGanGenerator": "hifigan",
              "BigVGANGenerator": "bigvgan", "ParallelWaveGANGenerator": "pwg",
-             "T5Encoder": "t5"}
+             "T5Encoder": "t5", "VAEGANLoss": "vaegan_loss"}
 # where the reference's Lightning checkpoints keep a sub-model's weights
 _LIGHTNING_PREFIXES = ("model.diffusion_model.", "first_stage_model.", "")
 

@@ -93,6 +93,17 @@ def make_adamw(learning_rate: LearningRate, betas=(0.9, 0.999), weight_decay: fl
                  max(1, int(accumulate_grad_batches)))
 
 
+def make_adam(learning_rate: LearningRate, betas=(0.5, 0.9), eps: float = 1e-8,
+              accumulate_grad_batches: int = 1) -> AdamW:
+    """Adam with the GAN betas (0.5, 0.9) for stage 1's VAE/discriminator
+    pair (JAX ``make_adam``: ``optax.adam``, no clipping, no decay, with
+    ``optax.MultiSteps`` accumulation). It runs as ``torch.optim.AdamW`` with
+    ``weight_decay=0``, which is ``torch.optim.Adam``'s update and optax's,
+    ``m_hat / (sqrt(v_hat) + eps)``."""
+    return AdamW(learning_rate, tuple(betas), 0.0, eps, None,
+                 max(1, int(accumulate_grad_batches)))
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``)."""
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))

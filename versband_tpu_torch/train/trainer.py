@@ -1,5 +1,15 @@
-"""The stage-2 training loop (port of ``versband_tpu/train/trainer.py``:
-``pad_batch_time``, ``BaseTrainer`` and ``CFMTrainer``).
+"""The training loops (port of ``versband_tpu/train/trainer.py``:
+``pad_batch_time``, ``BaseTrainer``, ``VAETrainer`` and ``CFMTrainer``).
+
+``VAETrainer`` trains stage 1, the VAE-GAN of ``configs/ae_accomp.yaml``, on
+the VAE's device: the generator (``AutoencoderKL``) and the loss module
+(``VAEGANLoss``: the discriminator and ``logvar``) each under its own Adam
+(0.5, 0.9) state; batches padded to the time bucket; validation
+(``val/rec_loss``, ``val/kl_loss``, ``val/mse``) every ``val_every_n_epochs``
+epochs into ``save_monitored``; ``last`` as a ``{"gen", "disc", "step"}``
+pair at every epoch end and on SIGUSR1; ``log_images`` (inputs,
+reconstructions, prior samples) for the logging callbacks; ``test`` saves
+each test item's reconstruction.
 
 ``CFMTrainer`` trains the flow-matching backbone over frozen-VAE latents
 (``configs/vocal2music.yaml``) on the CFM's device:
@@ -47,9 +57,11 @@ from versband_tpu_torch.data.collate import pad_or_cut_xd
 from versband_tpu_torch.models.cfm import CFM, cfm_p_losses
 from versband_tpu_torch.train.callbacks import Callback
 from versband_tpu_torch.train.checkpoints import CheckpointManager
-from versband_tpu_torch.train.state import TrainState, ema_scope, make_adamw
+from versband_tpu_torch.train.state import TrainState, ema_scope, make_adam, make_adamw
 from versband_tpu_torch.train.step import (_decompress_batch, make_cfm_multi_step,
                                            make_cfm_train_step)
+from versband_tpu_torch.train.vae_step import (make_vae_eval_step, make_vae_train_step,
+                                               vae_forward)
 from versband_tpu_torch.utils.config import instantiate_from_config
 
 MIDI_PAD, BEATS_PAD = 128, 2
@@ -150,6 +162,153 @@ class BaseTrainer:
     def _dispatch(self, fn_name: str, *args):
         for cb in self.callbacks:
             getattr(cb, fn_name)(self, *args)
+
+
+class _StatePair:
+    """Stage 1's two train states as one checkpoint: ``{"gen", "disc",
+    "step"}``."""
+
+    def __init__(self, trainer: "VAETrainer"):
+        self.trainer = trainer
+
+    def state_dict(self) -> dict:
+        t = self.trainer
+        return {"gen": t.gen_state.state_dict(), "disc": t.disc_state.state_dict(),
+                "step": t.global_step}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.trainer.gen_state.load_state_dict(sd["gen"])
+        self.trainer.disc_state.load_state_dict(sd["disc"])
+
+
+class VAETrainer(BaseTrainer):
+    """Stage-1 trainer (``AutoencoderKL.training_step`` semantics) on the
+    VAE's device. ``loss`` is a :class:`VAEGANLoss` on the same device.
+    Posterior and prior draws come from a generator seeded with ``seed``;
+    validation batch i draws from one seeded ``VAL_SEED * 2**32 + i``, so the
+    metric is comparable across epochs."""
+
+    def __init__(self, vae, loss, learning_rate: float, accumulate_grad_batches: int = 1, **kw):
+        super().__init__(**kw)
+        self.vae = vae
+        self.loss = loss
+        self.device = next(vae.parameters()).device
+        self.accumulate_grad_batches = max(1, int(accumulate_grad_batches))
+        self.tx = make_adam(learning_rate, betas=(0.5, 0.9),
+                            accumulate_grad_batches=self.accumulate_grad_batches)
+        self.train_step = make_vae_train_step(vae, loss)
+        self.eval_step = make_vae_eval_step(vae, loss)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.gen_state = TrainState(vae, self.tx)
+        self.disc_state = TrainState(loss, self.tx)
+        self._pair = _StatePair(self)
+
+    def _put(self, a) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def save_checkpoint(self, name: str = "last"):
+        self.ckpt.save_last(self._pair, self.global_step)
+
+    def _restore(self):
+        if self.ckpt.restore_last(self._pair) is None:
+            return
+        self.global_step = self.ckpt.last_step()
+        print(f"Resumed at step {self.global_step}")
+
+    def fit(self, datamodule, resume: bool = False):
+        self._dispatch("on_fit_start")
+        train_loader = datamodule.train_dataloader()
+        try:
+            val_loader = datamodule.val_dataloader()
+        except Exception:
+            val_loader = None
+        if resume:
+            self._restore()
+        try:
+            for epoch in range(self.max_epochs):
+                self._dispatch("on_epoch_start", epoch)
+                for batch in train_loader:
+                    batch = pad_batch_time(batch, self.time_bucket)
+                    metrics = self.train_step(self.gen_state, self.disc_state,
+                                              {"image": self._put(batch["image"])},
+                                              self.generator)
+                    self.global_step += 1  # on the host: no read of the card per step
+                    self.log_metrics(metrics, self.global_step, "train/")
+                    self._dispatch("on_train_batch_end", batch, metrics, self.global_step)
+                    if self._sig_save:
+                        self.save_checkpoint("last")
+                        self._sig_save = False
+                    if self.global_step >= self.max_steps:
+                        break
+                self._dispatch("on_epoch_end", epoch)
+                if val_loader and (epoch + 1) % self.val_every_n_epochs == 0:
+                    self._validate(val_loader)  # the first after N epochs
+                self.save_checkpoint("last")
+                if self.global_step >= self.max_steps:
+                    break
+        except KeyboardInterrupt:
+            self._dispatch("on_exception")
+            raise
+
+    def _validate(self, val_loader) -> Dict[str, float]:
+        """The mean of each eval metric over the validation batches, logged
+        and handed to ``save_monitored``; read back once, at the end."""
+        vals = []
+        for i, vb in enumerate(val_loader):
+            mel = self._put(pad_batch_time(vb, self.time_bucket)["image"])
+            gen = torch.Generator(device=self.device).manual_seed(VAL_SEED * 2 ** 32 + i)
+            vals.append(self.eval_step({"image": mel}, gen))
+        agg = {k: float(np.mean(torch.stack([v[k] for v in vals]).cpu().tolist()))
+               for k in vals[0]} if vals else {}
+        self.log_metrics(agg, self.global_step, "")
+        self.ckpt.save_monitored(self._pair, self.global_step, agg)
+        return agg
+
+    def test(self, datamodule):
+        """Reconstruction MSE over the test split and each item's
+        reconstruction as ``<logdir>/output_imgs/fake_class/<name>.npy``."""
+        try:
+            loader = datamodule.test_dataloader()
+        except Exception:
+            print("no test split configured")
+            return {}
+        savedir = os.path.join(self.logdir, "output_imgs", "fake_class")
+        os.makedirs(savedir, exist_ok=True)
+        mses, count = [], 0
+        with torch.no_grad():
+            for batch in loader:
+                batch = pad_batch_time(batch, self.time_bucket)
+                mel = self._put(batch["image"])
+                recon = vae_forward(self.vae, mel, self.generator)[0]
+                mses.append(float(((recon - mel) ** 2).mean()))
+                names = batch.get("f_name") or batch.get("name") or \
+                    [str(count + i) for i in range(mel.shape[0])]
+                recon = recon.float().cpu().numpy()
+                for b, name in enumerate(names):
+                    s = str(name)  # a trailing _<n> is dropped where there is one
+                    base = s[: s.rfind("_")] if "_" in s else s
+                    np.save(os.path.join(savedir, f"{base}.npy"), recon[b])
+                    count += 1
+        metrics = {"test/mse_loss": float(np.mean(mses)) if mses else 0.0}
+        self.log_metrics(metrics, self.global_step, "")
+        print(f"test: {count} reconstructions -> {savedir}, "
+              f"mse={metrics['test/mse_loss']:.5f}")
+        return metrics
+
+    @torch.no_grad()
+    def log_images(self, batch) -> Dict[str, np.ndarray]:
+        """The batch's mels, their reconstructions and decodes of prior
+        draws z ~ N(0, 1) at the posterior's shape, for the logging
+        callbacks."""
+        mel = self._put(batch["image"])
+        recon, posterior = vae_forward(self.vae, mel, self.generator)
+        z = torch.randn(posterior.mode().shape, generator=self.generator, device=self.device)
+        samples = self.vae.decode(z)
+        return {"inputs": mel.cpu().numpy(), "reconstructions": recon.float().cpu().numpy(),
+                "samples": samples.float().cpu().numpy()}
 
 
 class CFMTrainer(BaseTrainer):

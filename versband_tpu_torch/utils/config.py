@@ -88,12 +88,8 @@ NOT_PORTED = {
     "versband_tpu.text.embedders.ClapFlanEmbedder": 13,
     "versband_tpu.text.embedders.ClassEmbedder": 13,
     "versband_tpu.text.embedders.SpatialRescaler": 13,
-    "versband_tpu.train.gan_losses": 10,
     "versband_tpu.vocoder.nsf": 11,
     "versband_tpu.vocoder.hifigan.CodeUpsampleHifiGanGenerator": 11,
-    "versband_tpu.data.fixed_len": 10,
-    "versband_tpu.data.tsvdataset": 8,
-    "versband_tpu.data.anylen": 8,
 }
 
 

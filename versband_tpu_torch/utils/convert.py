@@ -2,8 +2,8 @@
 
 ``state_dict_from_jax(params, family)`` takes a flax param tree of
 ``versband_tpu`` (nested dicts of arrays, optionally under ``"params"``) for
-``family`` in ``{"dit", "vae", "hifigan", "bigvgan", "pwg", "t5"}`` and returns a
-state_dict that loads into the matching port module. It inverts the JAX
+``family`` in ``{"dit", "vae", "hifigan", "bigvgan", "pwg", "t5", "vaegan_loss"}``
+and returns a state_dict that loads into the matching port module. It inverts the JAX
 package's torch -> flax converter without importing it:
 
 * Dense kernels ``[in, out]`` -> ``[out, in]``; Conv ``[k, in, out]`` ->
@@ -23,7 +23,14 @@ package's torch -> flax converter without importing it:
 * T5 (``transformers``' Flax encoder tree, ``shared/embedding``,
   ``encoder/block/{i}/layer/{j}/...``): the paths are already Hugging Face's
   names, so only the kernels are transposed;
-* ``kernel_v``/``kernel_g`` folded with the JAX convention (per output channel).
+* ``kernel_v``/``kernel_g`` folded with the JAX convention (per output channel);
+* the VAE-GAN loss module (``vaegan_loss``: ``logvar`` and the PatchGAN, its
+  ``batch_stats`` beside its ``params``): NHWC conv kernels ``(kh, kw, in,
+  out)`` -> ``[out, in, kh, kw]``; ``main_0`` -> ``discriminator.main.0``,
+  ``main_n`` -> ``main.{3n-1}``, ``norm_n`` -> ``main.{3n}`` (BatchNorm
+  ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/``running_mean``/
+  ``running_var``; ActNorm ``loc``/``scale`` ``(C,)`` -> ``[1, C, 1, 1]``),
+  ``main_out`` -> ``main.{3 n_layers + 2}``.
 """
 
 from __future__ import annotations
@@ -156,11 +163,42 @@ def _dit_special(flat: Dict[str, np.ndarray], sd: Dict[str, np.ndarray]) -> None
             [flat.pop(f"{base}/{n}/bias") for n in ("wq", "wk", "wv")], axis=0)
 
 
+def _vaegan_loss_state(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The ``VAEGANLoss`` state_dict of its flax variables (``params`` and
+    ``batch_stats``)."""
+    flat = _flatten(variables.get("params", variables))
+    flat.update(_flatten(variables.get("batch_stats", {})))
+    n_layers = max([int(m[1]) for k in flat if (m := re.match(r"discriminator/main_(\d+)/", k))]
+                   or [0])
+    actnorm = {k.rsplit("/", 1)[0] for k in flat if k.endswith("/loc")}
+    sd = {}
+    for path, w in flat.items():
+        mod, _, leaf = path.rpartition("/")
+        if path == "logvar":
+            sd["logvar"] = w
+            continue
+        m = re.match(r"^discriminator/(main|norm)_(\d+|out)$", mod)
+        if m is None:
+            raise ValueError(f"unexpected VAEGANLoss variable {path!r}")
+        kind, n = m[1], m[2]
+        idx = 3 * n_layers + 2 if n == "out" else (0 if n == "0" else 3 * int(n) - (kind == "main"))
+        if leaf == "kernel":
+            leaf, w = "weight", w.transpose(3, 2, 0, 1)
+        elif mod in actnorm:
+            w = w.reshape(1, -1, 1, 1)
+        else:
+            leaf = {"scale": "weight", "mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
+        sd[f"discriminator.main.{idx}.{leaf}"] = w
+    return sd
+
+
 def state_dict_from_jax(params: Dict[str, Any], family: str) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a ``versband_tpu`` param tree of ``family``."""
-    if family not in ("dit", "vae", "hifigan", "bigvgan", "pwg", "t5"):
+    if family not in ("dit", "vae", "hifigan", "bigvgan", "pwg", "t5", "vaegan_loss"):
         raise ValueError(f"unknown family {family!r}; expected dit, vae, hifigan, bigvgan, "
-                         f"pwg or t5")
+                         f"pwg, t5 or vaegan_loss")
+    if family == "vaegan_loss":
+        return {k: torch.from_numpy(np.array(v)) for k, v in _vaegan_loss_state(params).items()}
     tree = params.get("params", params)
     flat = _fold(_flatten(tree))
     sd: Dict[str, np.ndarray] = {}
