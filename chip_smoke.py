@@ -14,7 +14,10 @@ plain PyTorch version on the card:
   ``CFMTrainer.fit``, and through the training CLI from a manifest;
 * the CLIs -- ``cli.generate`` and ``cli.train`` on ``configs/vocal2music.yaml``
   as committed, and ``cli.train`` on ``configs/ae_accomp.yaml`` (stage 1, the
-  VAE-GAN, with K4 in its BigVGAN audio logger).
+  VAE-GAN, with K4 in its BigVGAN audio logger);
+* the vocoders' GAN recipes -- HiFi-GAN (MPD + MSD), BigVGAN (MPD + MRD) and
+  ParallelWaveGAN (MR-STFT, RAdam) at full width, each trained generator then
+  served through ``build_vocoder`` with K4 (BigVGAN) or K5 (PWG) live.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -47,12 +50,15 @@ Phases (any failure raises and exits non-zero):
      (``git archive``), phases 5 and 6 also build that tree's K4 and K5 from
      its sources and time them on the same inputs, beside these;
   7. the shipped-width DiT forward (fp32) on the card against the CPU, and
-     the VAE decoder, HiFi-GAN, BigVGAN (73 K4) and PWG (30 K5) likewise at
+     the VAE decoder, HiFi-GAN, BigVGAN (73 K4), PWG (30 K5) and HiFi-GAN
+     NSF (f0 estimated from the mel, the source's draws injected) likewise at
      a short length;
   8. serves 3 requests (20 s clips, bf16 sampler and decoder, CFG 2.0, 25
-     steps) once per vocoder family (hifigan, bigvgan, pwg) and checks the
-     waveforms and the launches per clip: 96 K1, and 73 K4 (bigvgan) or 30
-     K5 (pwg);
+     steps) once per vocoder family (hifigan, bigvgan, pwg, nsf) and checks
+     the waveforms and the launches per clip: 96 K1, and 73 K4 (bigvgan) or
+     30 K5 (pwg); [nsf]: ``NSFHifiGanGenerator()``'s defaults from a
+     ``model_ckpt_steps_1.ckpt``, f0 estimated from each mel, every clip
+     481,280 finite samples at -23 +/- 0.5 LUFS after normalisation;
   9. trains 5 steps at full width (fp32, batch 8, 1500-frame mels padded to
      1536) through ``CFMTrainer.fit`` with the shipped LR scaling and
      schedule; checks finite losses, moved weights, a ``last`` checkpoint
@@ -112,7 +118,30 @@ Phases (any failure raises and exits non-zero):
  14. [vae-step] one full-width VAE-GAN step (batch 2, 640 frames) on the
      card and on the CPU from the same weights, batch and posterior draw:
      losses, gradients and the updated parameters agree;
- 15. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
+ 15. [voc-train-hifigan] the HiFi-GAN recipe at full width, fp32:
+     ``HifiGanGenerator()`` trainable (weight norm as (v, g)), MPD (periods
+     2, 3, 5, 7, 11) and MSD, the port's ``MelSpectrogram`` on the card as
+     ``mel_fn``; batch 16 of 8,320 samples, AdamW(2e-4, (0.8, 0.99), 0.01),
+     5 steps: finite losses, both sides' weights moved; event time per step,
+     steps/s and peak memory;
+ 16. [voc-train-bigvgan] the same recipe with ``BigVGANGenerator()``'s
+     geometry, trainable and unfused, MPD and MRD, batch 4, 4 steps; the
+     recipe refuses the ``use_fused=True`` generator; the trained generator
+     folded, saved as ``g_<step>`` and served through ``build_vocoder`` on a
+     1500-frame mel: exactly 73 K4 launches, within 2e-3 of the trained
+     unfused generator on the card;
+ 17. [voc-train-pwg] the ParallelWaveGAN recipe at full width
+     (``ParallelWaveGANGenerator()`` trainable and unfused,
+     ``ParallelWaveGANDiscriminator()``, RAdam 1e-4 / 5e-5 at eps 1e-6,
+     batch 6 of 25,600 samples, lambda_adv 4, ``disc_start`` 2 in 4 steps):
+     the discriminator unchanged before the gate and moved after it; the
+     trained generator saved as ``checkpoint-<n>steps.pkl`` and served through
+     ``build_vocoder``: exactly 30 K5 launches, within 2e-3 of the unfused
+     generator on the same noise;
+ 18. [voc-step] one step of each recipe at full width (batch 1, 8,320
+     samples) on the card and on the CPU from the same weights and batch:
+     losses within 1e-4, gradients within 1e-3 of their parameter's scale;
+ 19. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
@@ -168,7 +197,8 @@ VAE = dict(embed_dim=20, ddconfig=dict(
     double_z=True, in_channels=80, out_ch=80, z_channels=20, kernel_size=5, ch=384,
     ch_mult=[1, 2, 4], num_res_blocks=2, attn_layers=[3], down_layers=[0], dropout=0.0))
 LAUNCHES_PER_CLIP = (STEPS - 1) * DIT["depth"]  # one K1 per block per Euler step
-VOCODERS = ("hifigan", "bigvgan", "pwg")  # served in this order; hifigan in bf16
+VOCODERS = ("hifigan", "bigvgan", "pwg", "nsf")  # served in this order; hifigan in bf16
+NSF_DIR = Path("build") / "chip_smoke_nsf"  # [nsf]'s checkpoint directory
 # the generators' defaults (BigVGANGenerator(), ParallelWaveGANGenerator())
 BIGVGAN_CH0, BIGVGAN_RATES, BIGVGAN_ACTS_PER_STAGE = 512, (5, 4, 4, 4), 3 * 3 * 2
 PWG_R, PWG_GATE, PWG_S, PWG_A, PWG_LAYERS, PWG_PER_STACK = 64, 128, 64, 80, 30, 10
@@ -794,6 +824,29 @@ def phase_modules(dev) -> None:
         if not (err <= MODULE_TOL and n == want and ref.abs().max() > 0):
             raise AssertionError(f"{name} on the card: max|d| {err}, {n} launches (want {want})")
 
+    # HiFi-GAN NSF at full width, f0 estimated from the mel, the source's
+    # draws (initial phases, noise) injected on both sides
+    from versband_tpu_torch.vocoder.nsf import NSFHifiGanGenerator, estimate_f0_from_mel
+
+    torch.manual_seed(SEED + 3)
+    nsf = NSFHifiGanGenerator().eval()
+    nsf.load_state_dict(scaled_conv_weights(nsf, SEED + 3))
+    nmel = (rng.randn(1, 80, 48) - 2.0).astype(np.float32)
+    nmel[:, 12, :] += 3.0  # a voiced band
+    f0 = torch.from_numpy(estimate_f0_from_mel(nmel[0]))[None]
+    draws = (torch.from_numpy(rng.rand(1, 1, 9).astype(np.float32)),
+             torch.from_numpy(rng.randn(1, 48 * HOP, 9).astype(np.float32)))
+    ref = nsf(torch.from_numpy(nmel), f0, init_phase=draws[0], noise=draws[1])
+    nsf.to(dev)
+    out = nsf(torch.from_numpy(nmel).to(dev), f0.to(dev), init_phase=draws[0].to(dev),
+              noise=draws[1].to(dev))
+    err = _max_diff(out, ref)
+    print(f"[modules] HiFi-GAN NSF fp32 {tuple(ref.shape)} card vs CPU (draws injected, "
+          f"{int((f0 > 0).sum())}/{f0.shape[1]} frames voiced): max|d| {err:.3e} "
+          f"(tol {MODULE_TOL:g}), |out|max {ref.abs().max():.3f}")
+    if not (err <= MODULE_TOL and ref.abs().max() > 0):
+        raise AssertionError(f"HiFi-GAN NSF on the card disagrees with the CPU: {err}")
+
 
 def build_serving(dev, n_requests: int = N_REQUESTS):
     """The shipped-width serving models in bf16 (random weights from SEED),
@@ -864,6 +917,17 @@ def serve_family(family: str, cfm, voc, uncond, requests) -> dict:
         if w.shape != (n,) or not np.isfinite(w).all() or not w.std() > 0:
             raise AssertionError(f"{family} request {i}: waveform shape {w.shape}, "
                                  f"finite {np.isfinite(w).all()}, std {w.std()}")
+    if family == "nsf":  # as cli.generate writes it: cut to 20.0 s, -23 LUFS
+        from versband_tpu_torch.dsp.loudness import integrated_loudness, normalize_loudness
+
+        for i, w in enumerate(wavs):
+            out = normalize_loudness(w[: CLI_T_MEL * HOP], CLI_LUFS)
+            lufs = integrated_loudness(out, SR)
+            print(f"[nsf] request {i}: {out.shape[0]} samples, finite "
+                  f"{np.isfinite(out).all()}, {lufs:.3f} LUFS after normalisation")
+            if not (out.shape == (CLI_T_MEL * HOP,) and np.isfinite(out).all()
+                    and abs(lufs - CLI_LUFS) <= CLI_LUFS_TOL):
+                raise AssertionError(f"[nsf] request {i}: {out.shape} samples, {lufs} LUFS")
     want = [LAUNCHES_PER_CLIP, want_k4, want_k5]
     if counts != [want] * len(requests) or [main["k1"], main["k4"], main["k5"]] != \
             [sum(c[j] for c in counts) for j in range(3)]:
@@ -894,10 +958,37 @@ def phase_serve(dev, families=VOCODERS) -> dict:
     cfm, voc, uncond, requests = build_serving(dev)
     served = {}
     for family in families:
-        if family != "hifigan":
+        if family == "nsf":
+            voc = build_vocoder("nsf", write_nsf_dir(NSF_DIR, SEED + 30), device=dev)
+        elif family != "hifigan":
             voc = build_vocoder(family, device=dev)
         served[family] = serve_family(family, cfm, voc, uncond, requests)
+    shutil.rmtree(NSF_DIR, ignore_errors=True)
     return served
+
+
+def scaled_conv_weights(model: torch.nn.Module, seed: int) -> dict:
+    """The model's state_dict with every conv weight drawn N(0, 1/fan_in):
+    the vocoders' own init (N(0, 0.01)) renders a near-silent click whose
+    peak the -23 LUFS gain would push past full scale, where the limiter
+    leaves it below -23; these weights render noise-like audio."""
+    g = torch.Generator().manual_seed(seed)
+    return {k: (torch.randn(v.shape, generator=g) / math.sqrt(v[0].numel())
+                if v.ndim == 3 else v) for k, v in model.state_dict().items()}
+
+
+def write_nsf_dir(root: Path, seed: int) -> str:
+    """A HiFi-GAN NSF directory: ``NSFHifiGanGenerator()``'s defaults (512
+    channels, rates 5/4/4/4) as ``model_ckpt_steps_1.ckpt``, the layout
+    ``HifiGAN_NSF`` reads (the newest ``model_ckpt_steps_*``)."""
+    from versband_tpu_torch.vocoder.nsf import NSFHifiGanGenerator
+
+    root.mkdir(parents=True, exist_ok=True)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        torch.save(scaled_conv_weights(NSFHifiGanGenerator(), seed),
+                   root / "model_ckpt_steps_1.ckpt")
+    return str(root)
 
 
 def training_configs():
@@ -1140,10 +1231,8 @@ def write_cli_inputs(root: Path, n_items: int, t_mel: int, dit: dict, vae: dict,
     ``t_mel`` frames (20.0 s each at 1500), ``midi.npy``/``beats.npy``, a DiT
     (adaLN-zero layers perturbed) and a VAE as ``.pt`` state dicts, and a
     HiFi-GAN directory (default geometry) with a ``model_gen.pt`` at the
-    YAML's ``useful_ckpts/hifigan``. HiFi-GAN's
-    own init (N(0, 0.01)) renders a near-silent click whose peak the -23 LUFS
-    gain would push past full scale, where the limiter leaves it below -23;
-    these weights are N(0, 1/fan_in) instead, and render noise-like audio."""
+    YAML's ``useful_ckpts/hifigan``, its conv weights N(0, 1/fan_in)
+    (``scaled_conv_weights``)."""
     rng = np.random.default_rng(seed)
     (root / "manifest").mkdir(parents=True, exist_ok=True)
     cols = ["name", "caption", "duration", "key", "key_confidence", "avg_pitch", "tempo",
@@ -1171,11 +1260,8 @@ def write_cli_inputs(root: Path, n_items: int, t_mel: int, dit: dict, vae: dict,
         torch.save(model.state_dict(), root / "dit.pt")
         torch.save(AutoencoderKL(**vae).state_dict(), root / "vae.pt")
         voc = HifiGanGenerator()
-    g = torch.Generator().manual_seed(seed)
-    sd = {k: (torch.randn(v.shape, generator=g) / math.sqrt(v.shape[1] * v.shape[2])
-              if v.ndim == 3 else v) for k, v in voc.state_dict().items()}
     (root / HIFIGAN_DIR).mkdir(parents=True, exist_ok=True)
-    torch.save(sd, root / HIFIGAN_DIR / "model_gen.pt")
+    torch.save(scaled_conv_weights(voc, seed), root / HIFIGAN_DIR / "model_gen.pt")
     return dict(manifest=str(root / "manifest"), midi=str(root / "midi.npy"),
                 dit=str(root / "dit.pt"), vae=str(root / "vae.pt"),
                 vocoder=str(root / HIFIGAN_DIR))
@@ -2061,6 +2147,392 @@ def phase_vae_step_parity(dev) -> None:
         raise AssertionError("the VAE-GAN step on the card disagrees with the CPU")
 
 
+# [voc-train-*]: the vocoders' GAN recipes at full width, fp32
+VOC_SEG = 8320  # 26 frames at hop 320: the whole-frame length nearest HiFi-GAN v1's 8,192
+HIFIGAN_B, HIFIGAN_STEPS = 16, 5  # HiFi-GAN v1: batch 16, AdamW(2e-4, (0.8, 0.99), 0.01)
+HIFIGAN_OPT = dict(learning_rate=2e-4, betas=(0.8, 0.99), weight_decay=0.01)
+BIGVGAN_B, BIGVGAN_STEPS = 4, 4  # batch cut from BigVGAN's published 32 for the run's time
+MRD_RESOLUTIONS = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
+# ParallelWaveGAN v1: batch 6 of 25,600 samples (80 frames + 2 x 2 context
+# frames of mel), RAdam 1e-4 / 5e-5 at eps 1e-6, lambda_adv 4; disc_start
+# lowered from the shipped 100,000 so that both sides of the gate run
+PWG_B, PWG_STEPS, PWG_FRAMES, PWG_CTX, PWG_DISC_START = 6, 4, 80, 2, 2
+VOC_T_MEL = 1500  # the 20.0 s mel the trained generators serve
+VOC_DIR = Path("build") / "chip_smoke_voc"  # the trained generators' checkpoints
+# [voc-step]: one step of each recipe on the card against the CPU's float64
+# step, as phase 10 holds the CFM step: the losses relative to themselves,
+# each gradient relative to its parameter's largest reference gradient
+# (floored at STEP_GRAD_FLOOR x the largest of all). Through cuDNN, whose
+# fp32 convolution backward measured 2.4e-3 off float64 on HiFi-GAN's
+# stage-2 gradients (see phase_voc_step_parity), the gradient bar is 1e-2.
+VOC_STEP_LOSS_TOL, VOC_STEP_GRAD_TOL, VOC_STEP_CUDNN_GRAD_TOL = 1e-4, 1e-3, 1e-2
+
+
+def voc_audio(dev, B: int, n: int, seed: int) -> torch.Tensor:
+    """``[B, n]`` audio-like waveforms made on the device: a sine of 100-500
+    Hz per row, its third harmonic and noise, peak under 0.5."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.arange(n, device=dev, dtype=torch.float32) / SR
+    f = 100.0 + 400.0 * torch.rand(B, 1, generator=g, device=dev)
+    return (0.25 * torch.sin(2 * math.pi * f * t) + 0.08 * torch.sin(6 * math.pi * f * t)
+            + 0.05 * torch.randn(B, n, generator=g, device=dev))
+
+
+class CallRecorder:
+    """Wraps ``module.name`` (a kernel's wrapper, as a vocoder module
+    imported it) to keep each call's arguments, then puts it back; the
+    wrapped function still launches and counts the kernel."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+        self.fn = getattr(module, name)
+
+    def __enter__(self):
+        def record(*args, **kw):
+            self.calls.append((args, kw))
+            return self.fn(*args, **kw)
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def replay_ms(self) -> float:
+        """Mean device time per recorded call: each call timed again by
+        ``cuda_ms`` on its own arguments (launches made here are not the main
+        path's: read the counts before)."""
+        with torch.inference_mode():
+            return statistics.mean(cuda_ms(lambda a=a, k=k: self.fn(*a, **k), 3, warmup=1)
+                                   for a, k in self.calls)
+
+
+def _snapshot(module: torch.nn.Module) -> dict:
+    return {k: v.detach().clone() for k, v in module.named_parameters()}
+
+
+def _max_moved(module: torch.nn.Module, before: dict) -> float:
+    return max((v.detach() - before[k]).abs().max().item()
+               for k, v in module.named_parameters())
+
+
+def run_voc_recipe(tag: str, step, gstate: TrainState, dstate: TrainState, batches: list,
+                   gate: int = None) -> dict:
+    """Run ``step`` over ``batches`` with event timing; check finite metrics,
+    moved generator and discriminator weights and, with ``gate`` (PWG's
+    ``disc_start``), a discriminator unchanged before it and moved after."""
+    g0, d0 = _snapshot(gstate.model), _snapshot(dstate.model)
+    events, metrics, d_moved = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for batch in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        metrics.append(step(gstate, dstate, batch))
+        ev[1].record()
+        events.append(ev)
+        if gate is not None:  # a host sync per step: only where the gate is checked
+            d_moved.append(_max_moved(dstate.model, d0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = [a.elapsed_time(b) for a, b in events]
+    for i, m in enumerate(metrics):
+        vals = {k: v.item() for k, v in m.items()}
+        print(f"[{tag}] step {i + 1}: " + ", ".join(f"{k} {x:.5f}" for k, x in vals.items())
+              + f"; device {ms[i]:.2f} ms"
+              + (f"; discriminator max|d| from start {d_moved[i]:.3e}" if gate is not None
+                 else ""))
+        if not all(math.isfinite(x) for x in vals.values()):
+            raise AssertionError(f"[{tag}] step {i + 1}: non-finite metrics {vals}")
+    g_moved, d_end = _max_moved(gstate.model, g0), _max_moved(dstate.model, d0)
+    if not (g_moved > 0 and d_end > 0):
+        raise AssertionError(f"[{tag}] weights did not move: generator {g_moved}, "
+                             f"discriminator {d_end}")
+    if gate is not None and not (all(x == 0.0 for x in d_moved[:gate])
+                                 and all(x > 0 for x in d_moved[gate:])):
+        raise AssertionError(f"[{tag}] the warm-up gate at step {gate}: discriminator moved "
+                             f"{d_moved}")
+    med = statistics.median(ms[1:])
+    n_g = sum(p.numel() for p in gstate.params)
+    n_d = sum(p.numel() for p in dstate.params)
+    print(f"[{tag}] {len(batches)} steps: generator {n_g / 1e6:.2f} M and discriminators "
+          f"{n_d / 1e6:.2f} M parameters moved (max|d| {g_moved:.3e}, {d_end:.3e}); device "
+          f"time per step (median of steps 2-{len(batches)}) {med:.2f} ms, "
+          f"{1e3 / med:.3f} steps/s; host wall {wall * 1e3:.1f} ms; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
+    return {"ms": med, "peak_gib": peak / 2 ** 30}
+
+
+def _hifigan_batches(dev, mel_fn, B: int, steps: int, seed: int) -> list:
+    wavs = voc_audio(dev, B * steps, VOC_SEG, seed).view(steps, B, VOC_SEG)
+    return [{"mel": mel_fn(w), "wav": w} for w in wavs]
+
+
+def _fold_to(gen: torch.nn.Module) -> dict:
+    """The serving form's state_dict (weight norm folded) on the host."""
+    from versband_tpu_torch.vocoder.conv import fold_weight_norm_
+
+    return {k: v.cpu() for k, v in fold_weight_norm_(copy.deepcopy(gen)).state_dict().items()}
+
+
+def phase_voc_train_hifigan(dev) -> dict:
+    """[voc-train-hifigan]: the HiFi-GAN recipe at full width: ``HifiGanGenerator()``
+    trainable, MPD (2, 3, 5, 7, 11) and MSD, the port's ``MelSpectrogram``
+    on the card as ``mel_fn``, lambda_fm 2 and lambda_mel 45."""
+    from versband_tpu_torch.dsp.mel import MelSpectrogram
+    from versband_tpu_torch.train.vocoder_step import make_hifigan_train_step
+    from versband_tpu_torch.vocoder.discriminators import (MultiPeriodDiscriminator,
+                                                          MultiScaleDiscriminator)
+
+    torch.manual_seed(SEED + 40)
+    gen = HifiGanGenerator(use_weight_norm=True).to(dev)
+    mpd, msd = MultiPeriodDiscriminator().to(dev), MultiScaleDiscriminator().to(dev)
+    mel_fn = MelSpectrogram()
+    gstate = TrainState(gen, make_adamw(**HIFIGAN_OPT))
+    dstate = TrainState(torch.nn.ModuleDict({"mpd": mpd, "msd": msd}), make_adamw(**HIFIGAN_OPT))
+    batches = _hifigan_batches(dev, mel_fn, HIFIGAN_B, HIFIGAN_STEPS, SEED + 41)
+    print(f"[voc-train-hifigan] batch {HIFIGAN_B} x {VOC_SEG} samples (mel "
+          f"{tuple(batches[0]['mel'].shape)}), AdamW {HIFIGAN_OPT}, fp32")
+    return run_voc_recipe("voc-train-hifigan",
+                          make_hifigan_train_step(gen, mpd, msd, mel_fn), gstate, dstate,
+                          batches)
+
+
+def _serve_trained(tag: str, voc, trained, mel: torch.Tensor, counter, want: int,
+                   recorder: CallRecorder, ref_fn) -> tuple:
+    """Vocode ``mel`` through the wrapper with its kernel live (counts reset
+    just before, read just after); hold it to the trained unfused generator
+    (``ref_fn``) on the card; time both and the kernel per launch."""
+    torch.cuda.synchronize()
+    reset_launches()  # count only the main path's launches
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.inference_mode(), recorder:
+        ev[0].record()
+        out = voc()
+        ev[1].record()
+    torch.cuda.synchronize()
+    n = counter.LAUNCHES
+    with torch.inference_mode():
+        ev[2].record()
+        ref = ref_fn()
+        ev[3].record()
+    torch.cuda.synchronize()
+    err = _max_diff(out, ref)
+    k_ms = recorder.replay_ms()
+    name = "K4" if counter is fa1 else "K5"
+    print(f"[{tag}] served the trained generator from its checkpoint: {mel.shape[-1]} frames -> "
+          f"{out.shape[-1]} samples, {n} {name} launches (want {want}); vocode "
+          f"{ev[0].elapsed_time(ev[1]):.2f} ms with {name}, the trained unfused generator "
+          f"{ev[2].elapsed_time(ev[3]):.2f} ms; max|d| {err:.3e} (tol {MODULE_TOL:g}, phase 7's "
+          f"bar for {name} through the generator), |out|max {ref.abs().max():.3f}; {name} "
+          f"{k_ms:.3f} ms per launch (each call replayed)")
+    if not (n == want and err <= MODULE_TOL and torch.isfinite(out).all()):
+        raise AssertionError(f"[{tag}] {n} {name} launches (want {want}), max|d| {err}")
+    return n, k_ms
+
+
+def phase_voc_train_bigvgan(dev) -> dict:
+    """[voc-train-bigvgan]: the same recipe with ``BigVGANGenerator()``'s
+    geometry, trainable and unfused, MPD and MRD; then the trained generator
+    folded, saved as ``g_<step>`` and served through ``build_vocoder`` with
+    K4 live."""
+    from versband_tpu_torch.dsp.mel import MelSpectrogram
+    from versband_tpu_torch.train.vocoder_step import make_hifigan_train_step
+    from versband_tpu_torch.vocoder import bigvgan as vb
+    from versband_tpu_torch.vocoder.discriminators import (MultiPeriodDiscriminator,
+                                                          MultiResolutionDiscriminator)
+
+    torch.manual_seed(SEED + 50)
+    gen = BigVGANGenerator(use_fused=False, use_weight_norm=True).to(dev)
+    mpd = MultiPeriodDiscriminator().to(dev)
+    mrd = MultiResolutionDiscriminator(MRD_RESOLUTIONS).to(dev)
+    mel_fn = MelSpectrogram()
+    try:
+        make_hifigan_train_step(BigVGANGenerator(), mpd, mrd, mel_fn)
+    except ValueError as e:
+        if "use_fused" not in str(e):
+            raise
+        print(f"[voc-train-bigvgan] the recipe refuses the use_fused=True generator: {e}")
+    else:
+        raise AssertionError("[voc-train-bigvgan] the recipe took a generator that launches K4")
+    gstate = TrainState(gen, make_adamw(**HIFIGAN_OPT))
+    dstate = TrainState(torch.nn.ModuleDict({"mpd": mpd, "mrd": mrd}), make_adamw(**HIFIGAN_OPT))
+    batches = _hifigan_batches(dev, mel_fn, BIGVGAN_B, BIGVGAN_STEPS, SEED + 51)
+    print(f"[voc-train-bigvgan] batch {BIGVGAN_B} x {VOC_SEG} samples, MRD {MRD_RESOLUTIONS}, "
+          f"AdamW {HIFIGAN_OPT}, fp32")
+    out = run_voc_recipe("voc-train-bigvgan", make_hifigan_train_step(gen, mpd, mrd, mel_fn),
+                         gstate, dstate, batches)
+
+    ckpt = VOC_DIR / "bigvgan"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    torch.save({"generator": _fold_to(gen)}, ckpt / f"g_{BIGVGAN_STEPS:08d}")
+    voc = build_vocoder("bigvgan", str(ckpt), device=dev)
+    mel = mel_fn(voc_audio(dev, 1, VOC_T_MEL * HOP, SEED + 52))  # 1500 frames
+    gen.eval()
+    n, k_ms = _serve_trained("voc-train-bigvgan", lambda: voc.waveform(mel), gen, mel, fa1,
+                             K4_PER_CLIP, CallRecorder(vb, "fused_alias_free_snake"),
+                             lambda: gen(mel))
+    return {**out, "k4": n, "k4_ms": k_ms}
+
+
+def _pwg_batches(dev, mel_fn, B: int, steps: int, seed: int) -> list:
+    """(mel [B, 80, F + 2 ctx], noise, wav [B, F x hop]): the mel of a
+    waveform 2 ctx frames longer, the target its middle."""
+    n_in, n = (PWG_FRAMES + 2 * PWG_CTX) * HOP, PWG_FRAMES * HOP
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    out = []
+    for w in voc_audio(dev, B * steps, n_in, seed).view(steps, B, n_in):
+        mel = mel_fn(w)[..., : PWG_FRAMES + 2 * PWG_CTX]
+        out.append({"mel": mel, "wav": w[:, PWG_CTX * HOP: PWG_CTX * HOP + n].contiguous(),
+                    "noise": torch.randn(B, 1, n, generator=g, device=dev)})
+    return out
+
+
+def phase_voc_train_pwg(dev) -> dict:
+    """[voc-train-pwg]: the ParallelWaveGAN recipe at full width (the
+    generator's and discriminator's defaults, trainable and unfused, RAdam),
+    with the warm-up gate inside the run; then the trained generator saved as
+    ``checkpoint-<n>steps.pkl`` and served through ``build_vocoder`` with K5
+    live."""
+    from versband_tpu_torch.dsp.mel import MelSpectrogram
+    from versband_tpu_torch.train.state import make_radam
+    from versband_tpu_torch.train.vocoder_step import make_pwg_train_step
+    from versband_tpu_torch.vocoder import pwg as vp
+
+    torch.manual_seed(SEED + 60)
+    gen = ParallelWaveGANGenerator(use_weight_norm=True).to(dev)
+    disc = vp.ParallelWaveGANDiscriminator().to(dev)
+    gstate = TrainState(gen, make_radam(1e-4, eps=1e-6))
+    dstate = TrainState(disc, make_radam(5e-5, eps=1e-6))
+    mel_fn = MelSpectrogram()
+    batches = _pwg_batches(dev, mel_fn, PWG_B, PWG_STEPS, SEED + 61)
+    print(f"[voc-train-pwg] batch {PWG_B} x {PWG_FRAMES * HOP} samples (mel "
+          f"{tuple(batches[0]['mel'].shape)}), RAdam 1e-4 / 5e-5 eps 1e-6, lambda_adv 4, "
+          f"disc_start {PWG_DISC_START}, fp32")
+    out = run_voc_recipe("voc-train-pwg",
+                         make_pwg_train_step(gen, disc, lambda_adv=4.0,
+                                             disc_start=PWG_DISC_START),
+                         gstate, dstate, batches, gate=PWG_DISC_START)
+
+    ckpt = VOC_DIR / "pwg"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": {"generator": _fold_to(gen)}}, ckpt / f"checkpoint-{PWG_STEPS}steps.pkl")
+    voc = build_vocoder("pwg", str(ckpt), device=dev)
+    mel = mel_fn(voc_audio(dev, 1, VOC_T_MEL * HOP, SEED + 62))
+    voc.generator = torch.Generator(device=dev).manual_seed(SEED + 63)
+    w = gen.aux_context_window
+    noise = torch.randn((1, 1, mel.shape[-1] * HOP), dtype=torch.float32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 63))
+    gen.eval()
+    n, k_ms = _serve_trained("voc-train-pwg", lambda: voc.waveform(mel), gen, mel, fw,
+                             K5_PER_CLIP, CallRecorder(vp, "fused_wavenet_layer"),
+                             lambda: gen(noise, F.pad(mel, (w, w), mode="replicate"))[:, 0])
+    shutil.rmtree(VOC_DIR, ignore_errors=True)
+    return {**out, "k5": n, "k5_ms": k_ms}
+
+
+def _voc_step_grads(step, gstate, dstate, batch) -> tuple:
+    """One recipe step; the metrics and each side's gradients as applied."""
+    grads = {}
+    for tag, state in (("g", gstate), ("d", dstate)):
+        apply = state.apply_gradients
+
+        def snapshot_then_apply(tag=tag, state=state, apply=apply):
+            grads.update({f"{tag}.{k}": p.grad.detach().double().cpu().clone()
+                          for k, p in state.named.items()})
+            return apply()
+
+        state.apply_gradients = snapshot_then_apply
+    metrics = step(gstate, dstate, batch)
+    return {k: v.item() for k, v in metrics.items()}, grads
+
+
+def phase_voc_step_parity(dev) -> None:
+    """[voc-step]: one HiFi-GAN-recipe step and one PWG-recipe step at full
+    width (batch 1, 8,320 samples, the PWG gate open) on the card and on the
+    CPU from the same weights and batch.
+
+    The CPU computes the step in float64, the reference. The card's fp32
+    step is held to it twice: with PyTorch's own CUDA convolutions (cuDNN
+    off: the port's function on the card) at the bars of phase 10, and as
+    the recipes train, through cuDNN, at VOC_STEP_CUDNN_GRAD_TOL: cuDNN's
+    fp32 convolution backward (its default, deterministic and benchmarked
+    algorithms alike, ``voc_probe.py grad``) left HiFi-GAN's stage-2
+    gradients 2.4e-3 of their scale from float64 on an H100 (the forward
+    3.5e-7), where PyTorch's own CUDA convolutions and the CPU's fp32 step
+    are 9.1e-4 away."""
+    from versband_tpu_torch.dsp.mel import MelSpectrogram
+    from versband_tpu_torch.train.state import make_radam
+    from versband_tpu_torch.train.vocoder_step import make_hifigan_train_step, make_pwg_train_step
+    from versband_tpu_torch.vocoder.conv import apply_weight_norm
+    from versband_tpu_torch.vocoder.discriminators import (MultiPeriodDiscriminator,
+                                                          MultiScaleDiscriminator)
+    from versband_tpu_torch.vocoder.pwg import ParallelWaveGANDiscriminator
+
+    torch.manual_seed(SEED + 70)
+    # HiFi-GAN's own init renders a near-silent waveform whose mel sits at the
+    # log10 clamp (1e-5), where the mel L1's gradient is 1/(m ln 10): there
+    # fp32 on the CPU is 1.1e-3 of conv_post.bias's gradient from float64.
+    # Audible weights (N(0, 1/fan_in)) keep the comparison off that clamp.
+    hifigan = HifiGanGenerator()
+    hifigan.load_state_dict(scaled_conv_weights(hifigan, SEED + 70))
+    hifi = (apply_weight_norm(hifigan),
+            torch.nn.ModuleDict({"mpd": MultiPeriodDiscriminator(),
+                                 "msd": MultiScaleDiscriminator()}))
+    pwg = (ParallelWaveGANGenerator(use_weight_norm=True), ParallelWaveGANDiscriminator())
+    mel_fn = MelSpectrogram()
+    wav = voc_audio(torch.device("cpu"), 1, VOC_SEG + 2 * PWG_CTX * HOP, SEED + 71)
+    seg = wav[:, PWG_CTX * HOP: PWG_CTX * HOP + VOC_SEG].contiguous()
+    batches = {"hifigan": {"mel": mel_fn(seg), "wav": seg},
+               "pwg": {"mel": mel_fn(wav)[..., : VOC_SEG // HOP + 2 * PWG_CTX], "wav": seg,
+                       "noise": torch.from_numpy(np.random.RandomState(SEED + 72).randn(
+                           1, 1, VOC_SEG).astype(np.float32))}}
+
+    def run(name, device, dtype, cudnn=True):
+        gen0, disc0 = hifi if name == "hifigan" else pwg
+        gen, disc = copy.deepcopy(gen0).to(device, dtype), copy.deepcopy(disc0).to(device, dtype)
+        if name == "hifigan":
+            gstate = TrainState(gen, make_adamw(**HIFIGAN_OPT))
+            dstate = TrainState(disc, make_adamw(**HIFIGAN_OPT))
+            step = make_hifigan_train_step(gen, disc["mpd"], disc["msd"], mel_fn)
+        else:
+            gstate = TrainState(gen, make_radam(1e-4, eps=1e-6))
+            dstate = TrainState(disc, make_radam(5e-5, eps=1e-6))
+            step = make_pwg_train_step(gen, disc, lambda_adv=4.0, disc_start=0)
+        batch = {k: v.to(device, dtype) for k, v in batches[name].items()}
+        t0 = time.perf_counter()
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            out = _voc_step_grads(step, gstate, dstate, batch)
+        print(f"[voc-step] {name} on {device.type} ({dtype}, cuDNN {'on' if cudnn else 'off'}): "
+              f"{(time.perf_counter() - t0) * 1e3:.0f} ms of host wall")
+        return out
+
+    for name in ("hifigan", "pwg"):
+        m_ref, g_ref = run(name, torch.device("cpu"), torch.float64)
+        big = max(g.abs().max().item() for g in g_ref.values())
+        for label, device, cudnn, gtol in (
+                ("card, cuDNN off", dev, False, VOC_STEP_GRAD_TOL),
+                ("card, cuDNN (as trained)", dev, True, VOC_STEP_CUDNN_GRAD_TOL),
+                ("CPU fp32 (not held)", torch.device("cpu"), True, None)):
+            m, g = run(name, device, torch.float32, cudnn)
+            lerr = max(abs(m[k] - m_ref[k]) / abs(m_ref[k]) for k in m_ref)
+            rel = {k: (g[k] - r).abs().max().item()
+                   / max(r.abs().max().item(), STEP_GRAD_FLOOR * big) for k, r in g_ref.items()}
+            worst = max(rel, key=rel.get)
+            print(f"[voc-step] {name} recipe, full width, batch 1 x {VOC_SEG}, {label} (fp32) vs "
+                  f"the CPU in float64: losses " + ", ".join(
+                      f"{k} {m[k]:.6f}/{m_ref[k]:.6f}" for k in m_ref)
+                  + f" (worst rel {lerr:.2e}, tol {VOC_STEP_LOSS_TOL:g}); {len(rel)} gradients, "
+                  f"worst max|dgrad| / max(max|grad|, {STEP_GRAD_FLOOR:g} x {big:.3e}) "
+                  f"{rel[worst]:.2e} ({worst}, tol {gtol})")
+            if gtol is not None and not (set(g) == set(g_ref) and lerr <= VOC_STEP_LOSS_TOL
+                                         and rel[worst] <= gtol):
+                raise AssertionError(f"[voc-step] the {name} step ({label}) disagrees with the "
+                                     f"CPU's float64 step")
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda")
@@ -2078,6 +2550,15 @@ def main() -> None:
     n_vae_cli, n_vae_gen = phase_vae_train_cli(dev)
     shutil.rmtree(CLI_WORK, ignore_errors=True)
     phase_vae_step_parity(dev)
+    voc_hifigan = phase_voc_train_hifigan(dev)
+    voc_bigvgan = phase_voc_train_bigvgan(dev)
+    voc_pwg = phase_voc_train_pwg(dev)
+    phase_voc_step_parity(dev)
+    print(f"[voc-train] per step (device, median): hifigan {voc_hifigan['ms']:.2f} ms "
+          f"({voc_hifigan['peak_gib']:.2f} GiB), bigvgan {voc_bigvgan['ms']:.2f} ms "
+          f"({voc_bigvgan['peak_gib']:.2f} GiB), pwg {voc_pwg['ms']:.2f} ms "
+          f"({voc_pwg['peak_gib']:.2f} GiB); on the trained generators K4 "
+          f"{voc_bigvgan['k4_ms']:.3f} ms and K5 {voc_pwg['k5_ms']:.3f} ms per launch")
     n_train = tuple(a + b for a, b in zip(trained["launches"], n_train_cli))
     n_serve = {k: sum(f[k] for f in served.values()) for k in ("k1", "k4", "k5")}
     bwd_src = "versband_tpu_torch/ops/csrc/flash_attn_bwd.cu"
@@ -2094,11 +2575,12 @@ def main() -> None:
          **k23["dkv"]},
         {"name": "fused_alias_free_snake", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/fused_act1d.cu",
-         "replaces": "versband_tpu/ops/fused_act1d.py:94", "launches": n_serve["k4"] + n_vae_cli,
-         **k4},
+         "replaces": "versband_tpu/ops/fused_act1d.py:94",
+         "launches": n_serve["k4"] + n_vae_cli + voc_bigvgan["k4"], **k4},
         {"name": "fused_wavenet_layer", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/fused_wavenet.cu",
-         "replaces": "versband_tpu/ops/fused_wavenet.py:46", "launches": n_serve["k5"], **k5},
+         "replaces": "versband_tpu/ops/fused_wavenet.py:46",
+         "launches": n_serve["k5"] + voc_pwg["k5"], **k5},
     ]
     if not all(k["launches"] > 0 for k in table):
         raise AssertionError(f"a kernel did not run on the main path: "
@@ -2107,8 +2589,8 @@ def main() -> None:
           f"training {trained['launches'][0]}, cli {n_cli}, train-cli {n_train_cli[0]}, "
           f"vae-train-cli's cli.generate {n_vae_gen} "
           f"(its K2/K3 {n_train_cli[1]}/{n_train_cli[2]}); K4 {n_serve['k4']} (bigvgan) + "
-          f"{n_vae_cli} (vae-train-cli audio logs), "
-          f"K5 {n_serve['k5']} (pwg)")
+          f"{n_vae_cli} (vae-train-cli audio logs) + {voc_bigvgan['k4']} (the trained "
+          f"BigVGAN), K5 {n_serve['k5']} (pwg) + {voc_pwg['k5']} (the trained PWG)")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

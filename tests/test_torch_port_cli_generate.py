@@ -201,6 +201,18 @@ def test_pad_to_trims_to_the_true_length(assets, tmp_path, monkeypatch):
     assert wavfile.read(path)[1].shape == (40 * 320,)  # 64 frames sampled, 40 kept
 
 
+def test_vocoder_nsf_serves(assets, tmp_path, monkeypatch):
+    """``--vocoder nsf``: the HiFi-GAN NSF wrapper reads the directory's
+    config.yaml (no ``model_ckpt_steps_*`` there: a seeded random init) and
+    estimates each mel's f0."""
+    monkeypatch.chdir(tmp_path)
+    args = [a if a != "1-2" else "1" for a in assets["args"]]
+    assert port_cli.main(args + ["--platform", "cpu", "--vocoder", "nsf"]) == 0
+    (path,) = glob.glob(str(tmp_path / "gen_out" / "**" / "*.wav"), recursive=True)
+    sr, wav = wavfile.read(path)
+    assert sr == 24000 and wav.shape == (40 * 320,) and np.abs(wav).max() > 0
+
+
 def test_infer_dataset_matches_jax(tmp_path):
     """Empty cells (NaN in pandas), numeric columns, the duration filter and
     the random subset: the same items, captions and arrays as JAX's."""

@@ -54,7 +54,7 @@ def test_state_dict_round_trip(family, build, kw):
 
 def test_unknown_family_raises():
     with pytest.raises(ValueError, match="family"):
-        state_dict_from_jax({}, "nsf")
+        state_dict_from_jax({}, "clap")
 
 
 def _imported_roots(path: Path):

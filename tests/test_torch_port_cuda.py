@@ -701,3 +701,96 @@ def test_vae_gan_step_on_the_card_matches_the_cpu(cuda):
     big = max(g.abs().max() for g in g_cpu.values())
     for k, g in g_cpu.items():  # a gradient that is 0 but for rounding: the floor
         assert (g_gpu[k] - g).abs().max() <= 1e-4 * max(g.abs().max(), 1e-3 * big), k
+
+
+def test_vocoder_recipe_steps_on_the_card_match_the_cpu(cuda):
+    """One HiFi-GAN-recipe step (trainable HiFi-GAN, MPD, MRD, mel L1 on the
+    device) and one PWG-recipe step (gate open) at tiny widths, card against
+    CPU: no kernel launched (training is unfused), losses 1e-5 relative,
+    gradients 1e-3 of their parameter's largest (floored as above), the bar
+    of ``torch_port_helpers.assert_grads_match``: the tiny generators'
+    near-silent output puts the log magnitudes near their clamps (1e-7
+    power, 1e-5 mel), where the gradient is the reciprocal of a value held
+    to fp32's rounding (measured 3.6e-4 on the PWG upsampler's conv)."""
+    from versband_tpu_torch.dsp.mel import MelConfig, MelSpectrogram
+    from versband_tpu_torch.train.state import TrainState, make_adamw, make_radam
+    from versband_tpu_torch.train.vocoder_step import make_hifigan_train_step, make_pwg_train_step
+    from versband_tpu_torch.vocoder.discriminators import (MultiPeriodDiscriminator,
+                                                          MultiResolutionDiscriminator)
+    from versband_tpu_torch.vocoder.hifigan import HifiGanGenerator
+    from versband_tpu_torch.vocoder.pwg import (ParallelWaveGANDiscriminator,
+                                                ParallelWaveGANGenerator)
+
+    rng = np.random.RandomState(0)
+    mel_fn = MelSpectrogram(MelConfig(n_mels=16, n_fft=128, win_size=128, hop_size=16))
+    wav = torch.from_numpy((rng.randn(2, 1120) * 0.3).astype(np.float32))
+    mel = torch.from_numpy(rng.randn(2, 20, 74).astype(np.float32))
+    noise = torch.from_numpy(rng.randn(2, 1, 1120).astype(np.float32))
+    gen_kw = dict(upsample_initial_channel=16, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+                  resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3, 5),))
+    pwg_kw = dict(layers=6, stacks=3, residual_channels=8, gate_channels=16, skip_channels=8,
+                  aux_channels=20, upsample_scales=(4, 4))
+    for recipe in ("hifigan", "pwg"):
+        runs = []
+        for device in ("cuda", "cpu"):
+            torch.manual_seed(1)
+            if recipe == "hifigan":
+                gen = HifiGanGenerator(in_channels=20, **gen_kw, use_weight_norm=True)
+                disc = torch.nn.ModuleDict({
+                    "mpd": MultiPeriodDiscriminator((2, 3)),
+                    "mrd": MultiResolutionDiscriminator(((64, 16, 32), (128, 32, 64)), 0.25)})
+                gen, disc = gen.to(device), disc.to(device)
+                states = TrainState(gen, make_adamw(1e-4)), TrainState(disc, make_adamw(1e-4))
+                step = make_hifigan_train_step(gen, disc["mpd"], disc["mrd"], mel_fn)
+                batch = {"mel": mel[..., :70], "wav": wav}
+            else:
+                gen = ParallelWaveGANGenerator(**pwg_kw, use_weight_norm=True).to(device)
+                disc = ParallelWaveGANDiscriminator(layers=4, conv_channels=8).to(device)
+                states = TrainState(gen, make_radam(1e-4)), TrainState(disc, make_radam(5e-5))
+                step = make_pwg_train_step(gen, disc, disc_start=0)
+                batch = {"mel": mel, "wav": wav[:, :1120], "noise": noise}
+            grads = {}
+            for name, state in zip(("gen", "disc"), states):
+                def snap(state=state, name=name, apply=state.apply_gradients):
+                    grads.update({f"{name}.{k}": p.grad.float().cpu()
+                                  for k, p in state.named.items()})
+                    return apply()
+                state.apply_gradients = snap
+            n0 = (fa1.LAUNCHES, fw.LAUNCHES)
+            m = step(*states, {k: v.to(device) for k, v in batch.items()})
+            assert (fa1.LAUNCHES, fw.LAUNCHES) == n0
+            runs.append(({k: float(v) for k, v in m.items()}, grads))
+        (m_gpu, g_gpu), (m_cpu, g_cpu) = runs
+        for k in m_cpu:
+            assert abs(m_gpu[k] - m_cpu[k]) <= 1e-5 * abs(m_cpu[k]), (recipe, k)
+        big = max(g.abs().max() for g in g_cpu.values())
+        for k, g in g_cpu.items():
+            assert (g_gpu[k] - g).abs().max() <= 1e-3 * max(g.abs().max(), 1e-3 * big), k
+
+
+def test_nsf_serves_on_the_card(cuda):
+    """``build_vocoder("nsf")`` on the card: f0 estimated on the host, the
+    draws from the wrapper's generator on the card; the same waveform as the
+    same model on the CPU given the card's draws."""
+    from versband_tpu_torch.cli.generate import build_vocoder
+    from versband_tpu_torch.vocoder.nsf import estimate_f0_from_mel
+
+    kw = dict(upsample_initial_channel=32, upsample_rates=(5, 4, 4, 4),
+              upsample_kernel_sizes=(9, 8, 8, 8))
+    voc = build_vocoder("nsf", device="cuda")
+    assert voc.device.type == "cuda"
+    from versband_tpu_torch.vocoder.nsf import HifiGAN_NSF
+
+    voc = HifiGAN_NSF(device="cuda", **kw)
+    mel = (np.random.RandomState(2).randn(80, 40) - 2.0).astype(np.float32)
+    mel[12] += 3.0
+    wav = voc(mel)
+    assert wav.shape == (40 * 320,) and np.isfinite(wav).all()
+    g = torch.Generator(device="cuda").manual_seed(0)  # the wrapper's first draws
+    phase = torch.rand((1, 1, 9), generator=g, device="cuda").cpu()
+    noise = torch.randn((1, 40 * 320, 9), generator=g, device="cuda").cpu()
+    cpu = HifiGAN_NSF(device="cpu", **kw)
+    f0 = torch.from_numpy(estimate_f0_from_mel(mel))[None]
+    with torch.no_grad():
+        ref = cpu.model(torch.from_numpy(mel)[None], f0, init_phase=phase, noise=noise)
+    assert np.abs(wav - ref[0].numpy()).max() <= 1e-4 * max(1.0, np.abs(wav).max())

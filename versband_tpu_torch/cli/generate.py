@@ -51,8 +51,7 @@ def get_parser():
                    help="scale_by_std latent scale override (defaults to the value saved "
                         "beside the checkpoint)")
     p.add_argument("--vocoder", default="hifigan", choices=("hifigan", "nsf", "bigvgan", "pwg"),
-                   help="vocoder family (reference serves hifigan, test_final.py:420; nsf is "
-                        "not ported)")
+                   help="vocoder family (reference serves hifigan, test_final.py:420)")
     p.add_argument("--manifest", default=None, help="manifest dir (defaults to config data path)")
     p.add_argument("--other_condition", default=None, help="midi.npy path")
     p.add_argument("--save_dir", default="gen_out")
@@ -141,7 +140,7 @@ def build_vocoder(name: str, ckpt: Optional[str] = None, device: DeviceLike = No
     """The runtime wrapper of vocoder family ``name`` (``--vocoder``), on
     ``device`` (``None``: the card) in ``dtype``. Every wrapper serves
     ``wrapper(mel_2d) -> np.ndarray`` and ``wrapper.waveform(mel) ->`` a
-    device tensor. ``nsf`` is not ported yet (ROADMAP item 11)."""
+    device tensor (``nsf`` estimates each mel's f0 on the host)."""
     if name == "hifigan":
         from versband_tpu_torch.vocoder.hifigan import HifiGAN
         return HifiGAN(ckpt, device=device, dtype=dtype)
@@ -152,7 +151,8 @@ def build_vocoder(name: str, ckpt: Optional[str] = None, device: DeviceLike = No
         from versband_tpu_torch.vocoder.pwg import ParallelWaveGAN
         return ParallelWaveGAN(ckpt, device=device, dtype=dtype)
     if name == "nsf":
-        raise NotImplementedError("the nsf vocoder is not ported yet (ROADMAP item 11)")
+        from versband_tpu_torch.vocoder.nsf import HifiGAN_NSF
+        return HifiGAN_NSF(ckpt, device=device, dtype=dtype)
     raise ValueError(f"unknown vocoder family: {name}")
 
 

@@ -10,8 +10,10 @@ hidden-channel partitions, with the usage*log(usage) load-balancing loss).
 Parameter names are the reference checkpoint's (``layers.{i}.attention.wq``,
 ``feed_forward.caption_experts.{e}.w1``, ``feed_forward.cross_attention.in_proj_weight``,
 ...). Experts are evaluated densely and mixed by their gates, as the JAX
-package does at 4 experts; its ``ragged_dot`` routed path (off by default
-there) is not ported.
+package does at 4 experts. ``moe_eval_routed`` selects, at eval only, the
+routed path (JAX's ``ragged_dot`` one, off by default there too): each
+token runs only its argmax expert, the tokens sorted by expert and each
+expert's segment one ``torch.matmul`` per projection.
 
 Training routing (``train=True``) is soft. Its Gumbel noise comes from the
 ``gumbel`` argument of :meth:`BandMoeDiT.forward`: a ``torch.Generator`` to
@@ -94,6 +96,27 @@ class StackedSwiGLU(nn.ModuleList):
         """Every expert on the shared input ``[B, T, d]`` -> ``[E, B, T, d]``."""
         return torch.stack([expert(x) for expert in self])
 
+    def routed(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Token ``(b, t)`` through expert ``idx[b, t]`` only -> ``[B, T, d]``.
+
+        The tokens are sorted by expert (a stable argsort, ``jnp.argsort``'s
+        order), counted per expert (read on the host: the segments' sizes
+        slice the products), run segment by segment through w1 / w3, SiLU
+        gate, w2, and put back in their places."""
+        B, T, d = x.shape
+        xf, idf = x.reshape(B * T, d), idx.reshape(B * T)
+        order = torch.argsort(idf, stable=True)
+        counts = torch.bincount(idf, minlength=len(self)).tolist()
+        out = torch.empty_like(xf)
+        start = 0
+        for expert, n in zip(self, counts):
+            xs = xf[order[start: start + n]]
+            a = torch.matmul(xs, expert.w1.weight.t())
+            b = torch.matmul(xs, expert.w3.weight.t())
+            out[start: start + n] = torch.matmul(F.silu(a) * b, expert.w2.weight.t())
+            start += n
+        return out[torch.argsort(order)].reshape(B, T, d)
+
     def band_diagonal(self, x: torch.Tensor) -> torch.Tensor:
         """Expert e on channel band e only, its band-e outputs kept -> ``[B, T, d]``.
 
@@ -138,9 +161,11 @@ class BandMoE(nn.Module):
     """The Band-MoE FFN block; ``forward`` returns (output, load_balance_loss)."""
 
     def __init__(self, dim: int, hidden_dim: int, num_experts: int = 4,
-                 multiple_of: int = 256, temperature_init: float = 2.0):
+                 multiple_of: int = 256, temperature_init: float = 2.0,
+                 eval_routed: bool = False):
         super().__init__()
         self.num_experts = num_experts
+        self.eval_routed = eval_routed
         self.temperature_init = temperature_init
         self.cross_attention = CaptionCrossAttention(dim)
         self.high_level_gating_network = nn.Linear(dim, 2)
@@ -180,8 +205,16 @@ class BandMoE(nn.Module):
         ac_probs = gumbel_softmax(self.acoustic_gating_network(acoustic), temperature, hard,
                                   ac_g)
 
-        y = (torch.einsum("ebtd,bte->btd", self.caption_experts.dense(x), cap_probs) * cap_mask
-             + torch.einsum("ebtd,bte->btd", self.acoustic_experts.dense(x), ac_probs) * ac_mask)
+        if hard and self.eval_routed:  # each token through its argmax expert alone
+            cap_idx = self.caption_gating_network(cap_feat).argmax(dim=-1)
+            ac_idx = self.acoustic_gating_network(acoustic).argmax(dim=-1)
+            y = (self.caption_experts.routed(x, cap_idx) * cap_mask
+                 + self.acoustic_experts.routed(x, ac_idx) * ac_mask)
+        else:
+            y = (torch.einsum("ebtd,bte->btd", self.caption_experts.dense(x), cap_probs)
+                 * cap_mask
+                 + torch.einsum("ebtd,bte->btd", self.acoustic_experts.dense(x), ac_probs)
+                 * ac_mask)
         z = self.freq_experts.band_diagonal(y)
 
         cap_m = cap_mask.expand(B, T, 1).reshape(-1, 1)
@@ -215,7 +248,8 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim: int, n_heads: int, y_dim: int, num_experts: int = 4,
                  n_kv_heads: Optional[int] = None, multiple_of: int = 256,
-                 norm_eps: float = 1e-5, qk_norm: bool = False, use_flash: bool = False):
+                 norm_eps: float = 1e-5, qk_norm: bool = False, use_flash: bool = False,
+                 moe_eval_routed: bool = False):
         super().__init__()
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(dim, 6 * dim))
         nn.init.zeros_(self.adaLN_modulation[1].weight)
@@ -225,7 +259,8 @@ class TransformerBlock(nn.Module):
         self.ffn_norm = RMSNorm(dim, norm_eps)
         self.attention = JointAttention(dim, n_heads, n_kv_heads, qk_norm, y_dim,
                                         use_flash=use_flash)
-        self.feed_forward = BandMoE(dim, dim, num_experts, multiple_of)
+        self.feed_forward = BandMoE(dim, dim, num_experts, multiple_of,
+                                    eval_routed=moe_eval_routed)
 
     def forward(self, x, x_mask, y, y_mask, rope_cos, rope_sin, adaln_input,
                 t_emb, caption, acoustic, step: int = 0, train: bool = False, noise=None):
@@ -269,7 +304,7 @@ class BandMoeDiT(nn.Module):
                  norm_eps: float = 1e-5, qk_norm: bool = False,
                  rope_scaling_factor: float = 1.0, ntk_factor: float = 1.0,
                  midi_vocab: int = 130, beats_vocab: int = 3, use_flash: bool = False,
-                 remat: bool = False):
+                 moe_eval_routed: bool = False, remat: bool = False):
         super().__init__()
         self.in_channels = in_channels
         self.remat = remat
@@ -294,7 +329,8 @@ class BandMoeDiT(nn.Module):
         self.layers = nn.ModuleList([
             TransformerBlock(hidden_size, num_heads, hidden_size, num_experts=num_experts,
                              n_kv_heads=n_kv_heads, multiple_of=multiple_of,
-                             norm_eps=norm_eps, qk_norm=qk_norm, use_flash=use_flash)
+                             norm_eps=norm_eps, qk_norm=qk_norm, use_flash=use_flash,
+                         moe_eval_routed=moe_eval_routed)
             for _ in range(depth)])
         self.final_layer = FinalLayer(hidden_size, in_channels)
 

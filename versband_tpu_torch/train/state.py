@@ -18,6 +18,10 @@ JAX chain ``optax.MultiSteps(chain(clip_by_global_norm, adamw))``:
 
 The EMA shadow ticks once per applied update with the decay
 ``min(decay, (1 + n) / (10 + n))`` (LitEma's warm-up), not per micro-step.
+
+``make_radam`` configures ParallelWaveGAN's RAdam as the JAX
+``make_radam`` chains it: L2 decay added to the gradient before
+``optax.radam``'s update (:class:`RAdamOptimizer`).
 """
 
 from __future__ import annotations
@@ -82,6 +86,89 @@ class AdamW:
         lr = self.learning_rate
         return float(lr(count)) if callable(lr) else float(lr)
 
+    def make_optimizer(self, params: List[torch.Tensor]) -> torch.optim.Optimizer:
+        return torch.optim.AdamW(params, lr=self.lr_at(0), betas=self.betas, eps=self.eps,
+                                 weight_decay=self.weight_decay)
+
+
+@dataclasses.dataclass(frozen=True)
+class RAdam(AdamW):
+    """What ``make_radam`` configures: RAdam with L2 decay before it (no
+    clipping, no accumulation)."""
+
+    def make_optimizer(self, params: List[torch.Tensor]) -> torch.optim.Optimizer:
+        return RAdamOptimizer(params, lr=self.lr_at(0), betas=self.betas, eps=self.eps,
+                              weight_decay=self.weight_decay)
+
+
+def _pow_f32(b: float, t: int) -> np.float32:
+    """``b ** t`` in float32 by binary exponentiation (how XLA raises a float
+    to an integer power, rounding after every product)."""
+    r, x = np.float32(1), np.float32(b)
+    while t:
+        if t & 1:
+            r = np.float32(r * x)
+        x = np.float32(x * x)
+        t >>= 1
+    return r
+
+
+class RAdamOptimizer(torch.optim.Optimizer):
+    """``optax.chain(add_decayed_weights(wd), radam(lr, b1, b2, eps))``.
+
+    With ``g' = g + wd p``, ``m = b1 m + (1 - b1) g'``, ``v = b2 v + (1 - b2)
+    g'^2`` and at step t ``rho_t = rho_inf - 2 t b2^t / (1 - b2^t)``: the
+    update is ``r_t m_hat / (sqrt(v_hat) + eps)`` where ``rho_t >= 5``, else
+    ``m_hat`` alone (``optax.scale_by_radam``; torch's ``RAdam`` places eps
+    and the threshold otherwise). The step's scalars (``rho_t``, ``r_t``,
+    the bias corrections) are computed in float32 as optax computes them,
+    ``b^t`` by squaring: ``1 - b2^t`` cancels, and at t = 6, where the
+    rectification starts, an ulp of ``b2^t`` moves ``r_t`` by 0.6%."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, threshold: float = 5.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay, threshold=threshold))
+
+    @staticmethod
+    def scalars(t: int, b1: float, b2: float) -> tuple:
+        """(rectified, r_t, 1 - b1^t, 1 - b2^t) in float32."""
+        f = np.float32
+        b1t, b2t = _pow_f32(b1, t), _pow_f32(b2, t)
+        ro_inf = f(2.0 / (1.0 - b2) - 1.0)
+        ro = ro_inf - f(2 * t) * b2t / (f(1) - b2t)
+        with np.errstate(invalid="ignore"):  # rho_t < 4 before the switch: r unused
+            r = np.sqrt((ro - f(4)) * (ro - f(2)) * ro_inf
+                        / (f((2.0 / (1.0 - b2) - 5.0) * (2.0 / (1.0 - b2) - 3.0)) * ro))
+        return ro, f(r), f(1) - b1t, f(1) - b2t
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                st["step"] += 1
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                st["mu"].mul_(b1).add_(g, alpha=1 - b1)
+                st["nu"].mul_(b2).add_(g * g, alpha=1 - b2)
+                ro, r, c1, c2 = self.scalars(st["step"], b1, b2)
+                m_hat = st["mu"] / float(c1)
+                if ro >= group["threshold"]:
+                    upd = float(r) * m_hat / (torch.sqrt(st["nu"] / float(c2)) + group["eps"])
+                else:
+                    upd = m_hat
+                p.sub_(group["lr"] * upd)
+        return None
+
 
 def make_adamw(learning_rate: LearningRate, betas=(0.9, 0.999), weight_decay: float = 0.0,
                eps: float = 1e-8, grad_clip: Optional[float] = None,
@@ -104,6 +191,15 @@ def make_adam(learning_rate: LearningRate, betas=(0.5, 0.9), eps: float = 1e-8,
                  max(1, int(accumulate_grad_batches)))
 
 
+def make_radam(learning_rate: LearningRate, betas=(0.9, 0.999), eps: float = 1e-8,
+               weight_decay: float = 0.0) -> RAdam:
+    """RAdam, the ParallelWaveGAN trainer's optimizer
+    (``vocoder/parallel_wavegan/optimizers/radam.py``), with classic L2
+    decay: the decay term is added to the gradient before the adaptive
+    update, as the JAX ``make_radam`` chains it."""
+    return RAdam(learning_rate, tuple(betas), weight_decay, eps)
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``)."""
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
@@ -121,8 +217,7 @@ class TrainState:
         self.tx = tx
         self.named = {k: p for k, p in model.named_parameters() if p.requires_grad}
         self.params = list(self.named.values())
-        self.optimizer = torch.optim.AdamW(self.params, lr=tx.lr_at(0), betas=tx.betas,
-                                           eps=tx.eps, weight_decay=tx.weight_decay)
+        self.optimizer = tx.make_optimizer(self.params)
         self.step = 0
         self.updates = 0
         self.mini_step = 0

@@ -88,8 +88,6 @@ NOT_PORTED = {
     "versband_tpu.text.embedders.ClapFlanEmbedder": 13,
     "versband_tpu.text.embedders.ClassEmbedder": 13,
     "versband_tpu.text.embedders.SpatialRescaler": 13,
-    "versband_tpu.vocoder.nsf": 11,
-    "versband_tpu.vocoder.hifigan.CodeUpsampleHifiGanGenerator": 11,
 }
 
 

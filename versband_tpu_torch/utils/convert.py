@@ -2,9 +2,9 @@
 
 ``state_dict_from_jax(params, family)`` takes a flax param tree of
 ``versband_tpu`` (nested dicts of arrays, optionally under ``"params"``) for
-``family`` in ``{"dit", "vae", "hifigan", "bigvgan", "pwg", "t5", "vaegan_loss"}``
-and returns a state_dict that loads into the matching port module. It inverts the JAX
-package's torch -> flax converter without importing it:
+``family`` in :data:`FAMILIES` and returns a state_dict that loads into the
+matching port module. It inverts the JAX package's torch -> flax converter
+without importing it:
 
 * Dense kernels ``[in, out]`` -> ``[out, in]``; Conv ``[k, in, out]`` ->
   ``[out, in, k]``; ConvTranspose ``[k, in, out]`` -> ``[in, out, k]``;
@@ -23,7 +23,23 @@ package's torch -> flax converter without importing it:
 * T5 (``transformers``' Flax encoder tree, ``shared/embedding``,
   ``encoder/block/{i}/layer/{j}/...``): the paths are already Hugging Face's
   names, so only the kernels are transposed;
-* ``kernel_v``/``kernel_g`` folded with the JAX convention (per output channel);
+* ``kernel_v``/``kernel_g`` folded with the JAX convention (per output
+  channel), or, with ``weight_norm=True`` (the default of the discriminator
+  families), kept as ``weight_v``/``weight_g`` for the port's trainable form,
+  g shaped ``[C_out, 1, ...]`` (``[1, C_out, 1]`` for a transposed conv);
+* NSF: the HiFi-GAN names plus ``m_source.l_linear`` and ``noise_convs.{i}``;
+  ``code_hifigan``: ``code_embed`` and the HiFi-GAN names under
+  ``generator.``;
+* MPD / MSD / MRD: ``disc_{i}/convs_{n}`` -> ``discriminators.{i}.convs.{n}``;
+  MSD's spectral-normed ``disc_0`` kernels -> ``weight_orig``; ``mwd``:
+  ``tower{i}_conv{j}`` / ``tower{i}_out`` -> ``towers.{i}.convs.{j}`` /
+  ``towers.{i}.out`` (2-D kernels ``(kh, kw, in, out)`` -> ``[out, in, kh, kw]``);
+* ``pwg_disc``: ``conv_{i}`` -> ``conv_layers.{2i}``, ``conv_out`` -> the last;
+  ``melgan``: the reference's flat ``melgan.{n}`` indices (``stack_{i}_{j}``'s
+  ``conv_dilated`` / ``conv_1x1`` / ``shortcut`` -> ``stack.2`` / ``stack.4``
+  / ``skip_layer``); ``melgan_disc``: ``disc_{i}/conv_in``, ``down_{n}``,
+  ``conv_mid``, ``conv_out`` -> ``discriminators.{i}.layers.{0.1, n+1.0,
+  D+1.0, D+2}``;
 * the VAE-GAN loss module (``vaegan_loss``: ``logvar`` and the PatchGAN, its
   ``batch_stats`` beside its ``params``): NHWC conv kernels ``(kh, kw, in,
   out)`` -> ``[out, in, kh, kw]``; ``main_0`` -> ``discriminator.main.0``,
@@ -36,7 +52,7 @@ package's torch -> flax converter without importing it:
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -98,6 +114,49 @@ _PWG_RULES: List[Tuple[str, Repl]] = [
 ]
 
 
+def _msd_rules() -> List[Tuple[str, Repl]]:
+    return [(r"^disc_(\d+)/", r"discriminators.\1."), (r"\bconvs_(\d+)/", r"convs.\1.")]
+
+
+_MWD_RULES: List[Tuple[str, Repl]] = [
+    (r"^tower(\d+)_conv(\d+)/", r"towers.\1.convs.\2."),
+    (r"^tower(\d+)_out/", r"towers.\1.out."),
+]
+
+
+def _count(flat, pattern: str) -> int:
+    return len({m[1] for k in flat if (m := re.match(pattern, k))})
+
+
+def _pwg_disc_rules(flat) -> List[Tuple[str, Repl]]:
+    n = _count(flat, r"^conv_(\d+)/")
+    return [(r"^conv_(\d+)/", lambda m: f"conv_layers.{2 * int(m[1])}."),
+            (r"^conv_out/", f"conv_layers.{2 * n}.")]
+
+
+def _melgan_rules(flat) -> List[Tuple[str, Repl]]:
+    scales = _count(flat, r"^ups_(\d+)/")
+    stacks = _count(flat, r"^stack_\d+_(\d+)/")
+
+    def stack(m):
+        return f"melgan.{2 + int(m[1]) * (2 + stacks) + 2 + int(m[2])}."
+    return [(r"^conv_in/", "melgan.1."),
+            (r"^ups_(\d+)/", lambda m: f"melgan.{2 + int(m[1]) * (2 + stacks) + 1}."),
+            (r"^stack_(\d+)_(\d+)/", stack),
+            (r"\bconv_dilated/", "stack.2."), (r"\bconv_1x1/", "stack.4."),
+            (r"\bshortcut/", "skip_layer."),
+            (r"^conv_out/", f"melgan.{2 + scales * (2 + stacks) + 2}.")]
+
+
+def _melgan_disc_rules(flat) -> List[Tuple[str, Repl]]:
+    n = _count(flat, r"^disc_\d+/down_(\d+)/")
+    return [(r"^disc_(\d+)/", r"discriminators.\1.layers/"),
+            (r"layers/conv_in/", "layers.0.1."),
+            (r"layers/down_(\d+)/", lambda m: f"layers.{int(m[1]) + 1}.0."),
+            (r"layers/conv_mid/", f"layers.{n + 1}.0."),
+            (r"layers/conv_out/", f"layers.{n + 2}.")]
+
+
 def _pwg_special(flat: Dict[str, np.ndarray], sd: Dict[str, np.ndarray]) -> None:
     """The upsampler's ``(2s+1, fk, 1, 1)`` stencils -> the reference's
     ``Conv2d`` weights ``[1, 1, fk, 2s+1]`` after each ``Stretch2d``
@@ -127,6 +186,17 @@ def _fold(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+def _g_shape(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Each ``kernel_g (C_out,)`` reshaped to the rank of its ``kernel_v``
+    (``(1, ..., 1, C_out)``), so that it transposes as the kernel does."""
+    out = dict(flat)
+    for key in flat:
+        if key.endswith("kernel_g"):
+            v = flat[key[:-1] + "v"]
+            out[key] = flat[key].reshape((1,) * (v.ndim - 1) + (-1,))
+    return out
+
+
 def _rename(path: str, rules: List[Tuple[str, Repl]]) -> str:
     for pattern, repl in rules:
         path = re.sub(pattern, repl, path)
@@ -135,12 +205,14 @@ def _rename(path: str, rules: List[Tuple[str, Repl]]) -> str:
 
 def _leaf(key: str, w: np.ndarray, transposed: bool) -> Tuple[str, np.ndarray]:
     mod, _, leaf = key.rpartition(".")
-    if leaf == "kernel":
+    if leaf in ("kernel", "kernel_v", "kernel_g"):
         if w.ndim == 2:
             w = w.T
         elif w.ndim == 3:
             w = w.transpose(1, 2, 0) if transposed else w.transpose(2, 1, 0)
-        leaf = "weight"
+        elif w.ndim == 4:
+            w = w.transpose(3, 2, 0, 1)
+        leaf = "weight" + leaf[len("kernel"):]
     elif leaf in ("scale", "embedding"):
         leaf = "weight"
     return f"{mod}.{leaf}", w
@@ -192,15 +264,29 @@ def _vaegan_loss_state(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return sd
 
 
-def state_dict_from_jax(params: Dict[str, Any], family: str) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for a ``versband_tpu`` param tree of ``family``."""
-    if family not in ("dit", "vae", "hifigan", "bigvgan", "pwg", "t5", "vaegan_loss"):
-        raise ValueError(f"unknown family {family!r}; expected dit, vae, hifigan, bigvgan, "
-                         f"pwg, t5 or vaegan_loss")
+GENERATORS = ("hifigan", "bigvgan", "pwg", "nsf", "code_hifigan", "melgan")
+DISCRIMINATORS = ("mpd", "msd", "mrd", "mwd", "pwg_disc", "melgan_disc")
+FAMILIES = ("dit", "vae", "t5", "vaegan_loss") + GENERATORS + DISCRIMINATORS
+
+
+def _num_kernels(flat) -> int:
+    ks = [int(m[1]) for k in flat if (m := re.match(r"^(?:generator/)?resblocks_\d+_(\d+)/", k))]
+    return 1 + max(ks) if ks else 1
+
+
+def state_dict_from_jax(params: Dict[str, Any], family: str,
+                        weight_norm: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a ``versband_tpu`` param tree of ``family``.
+    ``weight_norm``: keep (v, g) pairs for the trainable form (default: only
+    for the discriminator families)."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown family {family!r}; expected one of {', '.join(FAMILIES)}")
     if family == "vaegan_loss":
         return {k: torch.from_numpy(np.array(v)) for k, v in _vaegan_loss_state(params).items()}
+    if weight_norm is None:
+        weight_norm = family in DISCRIMINATORS
     tree = params.get("params", params)
-    flat = _fold(_flatten(tree))
+    flat = _g_shape(_flatten(tree)) if weight_norm else _fold(_flatten(tree))
     sd: Dict[str, np.ndarray] = {}
     if family == "dit":
         _dit_special(flat, sd)
@@ -212,12 +298,30 @@ def state_dict_from_jax(params: Dict[str, Any], family: str) -> Dict[str, torch.
         rules = _PWG_RULES
     elif family == "t5":
         rules = []
-    else:
-        ks = [int(m[1]) for k in flat if (m := re.match(r"^resblocks_\d+_(\d+)/", k))]
-        num_kernels = 1 + max(ks) if ks else 1
-        rules = (_hifigan_rules if family == "hifigan" else _bigvgan_rules)(num_kernels)
+    elif family in ("mpd", "msd", "mrd"):
+        rules = _msd_rules()
+    elif family == "mwd":
+        rules = _MWD_RULES
+    elif family == "pwg_disc":
+        rules = _pwg_disc_rules(flat)
+    elif family == "melgan":
+        rules = _melgan_rules(flat)
+    elif family == "melgan_disc":
+        rules = _melgan_disc_rules(flat)
+    elif family == "bigvgan":
+        rules = _bigvgan_rules(_num_kernels(flat))
+    else:  # hifigan, nsf, code_hifigan
+        rules = _hifigan_rules(_num_kernels(flat)) + [
+            (r"^m_source/l_linear/", "m_source.l_linear."),
+            (r"^noise_convs_(\d+)/", r"noise_convs.\1.")]
     for path, w in flat.items():
-        transposed = family in ("hifigan", "bigvgan") and path.startswith("ups_")
-        key, w = _leaf(_rename(path, rules), w, transposed)
+        transposed = family in GENERATORS and bool(re.search(r"(^|/)ups_\d+/", path))
+        if family == "code_hifigan" and path.startswith("generator/"):
+            name = "generator." + _rename(path[len("generator/"):], rules)
+        else:
+            name = _rename(path, rules)
+        key, w = _leaf(name, w, transposed)
+        if family == "msd" and key.startswith("discriminators.0.") and key.endswith(".weight"):
+            key = key[: -len("weight")] + "weight_orig"  # the spectral-normed scale
         sd[key] = w
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}

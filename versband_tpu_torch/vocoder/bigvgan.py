@@ -5,7 +5,10 @@ with AMP residual blocks whose activations are the alias-free Snake(Beta)
 ``Activation1d``: with ``use_fused`` (the default) one launch of K4
 (``ops/fused_act1d.py``) per activation on the card; without it, the
 unfused ``UpSample1d -> snake -> DownSample1d`` modules on either device, as
-the JAX package runs them for training. Defaults are the 24 kHz / hop-320
+the JAX package runs them for training. ``use_weight_norm=True`` builds the
+trainable form (every conv as (``weight_v``, ``weight_g``) in the JAX
+package's convention, ``vocoder/conv.py``); with ``use_fused=False`` it is
+what ``train/vocoder_step.py`` trains. Defaults are the 24 kHz / hop-320
 generator: 512 initial channels, rates (5, 4, 4, 4), upsample kernels
 (9, 8, 8, 8), ``resblock "1"`` with kernels (3, 7, 11) at dilations
 (1, 3, 5), SnakeBeta with ``logscale``.
@@ -35,6 +38,7 @@ from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.ops.fused_act1d import (downsample1d, fused_alias_free_snake,
                                                 kaiser_sinc_filter1d, snake, upsample1d)
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
+from versband_tpu_torch.vocoder.conv import apply_weight_norm
 from versband_tpu_torch.vocoder.hifigan import _conv, load_generator_state_dict
 
 __all__ = ["kaiser_sinc_filter1d", "snake", "UpSample1d", "DownSample1d", "Activation1d",
@@ -150,9 +154,10 @@ class BigVGANGenerator(nn.Module):
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
                  resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
                  activation: str = "snakebeta", snake_logscale: bool = True,
-                 use_fused: bool = True):
+                 use_fused: bool = True, use_weight_norm: bool = False):
         super().__init__()
         self.num_mels = num_mels
+        self.use_fused = use_fused
         self.num_kernels = len(resblock_kernel_sizes)
         self.conv_pre = _conv(num_mels, upsample_initial_channel, 7, std=None)
         amp_cls = AMPBlock1 if str(resblock) == "1" else AMPBlock2
@@ -169,9 +174,11 @@ class BigVGANGenerator(nn.Module):
                                               use_fused))
         self.activation_post = Activation1d(ch, activation, snake_logscale, use_fused)
         self.conv_post = _conv(ch, 1, 7)
+        if use_weight_norm:
+            apply_weight_norm(self)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = self.conv_pre(mel.to(self.conv_pre.weight.dtype))
+        x = self.conv_pre(mel.to(self.conv_pre.bias.dtype))
         K = self.num_kernels
         for i, up in enumerate(self.ups):
             x = up[0](x)

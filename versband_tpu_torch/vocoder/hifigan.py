@@ -1,11 +1,16 @@
 """HiFi-GAN vocoder (port of ``versband_tpu/vocoder/hifigan.py``).
 
 ``HifiGanGenerator`` maps a mel ``[B, 80, T]`` to a waveform ``[B, T*hop]``
-with plain (weight-norm folded) ``nn.Conv1d`` / ``nn.ConvTranspose1d``;
-parameter names are the reference's (``conv_pre``, ``ups.{i}``,
+with plain (weight-norm folded) ``nn.Conv1d`` / ``nn.ConvTranspose1d``, or,
+with ``use_weight_norm=True``, the trainable form whose every conv holds
+(``weight_v``, ``weight_g``) in the JAX package's convention
+(``vocoder/conv.py``; ``fold_weight_norm_`` gives the serving form).
+Parameter names are the reference's (``conv_pre``, ``ups.{i}``,
 ``resblocks.{i*K+j}.convs1.{n}``, ``conv_post``). Defaults are the 24 kHz /
 hop-320 generator: upsample rates (5, 4, 4, 4), kernels (9, 8, 8, 8).
-``HifiGAN`` is the runtime wrapper that loads a checkpoint directory.
+``CodeUpsampleHifiGanGenerator`` is the codec-token variant (``code_embed``,
+then ``generator``). ``HifiGAN`` is the runtime wrapper that loads a
+checkpoint directory.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import torch.nn.functional as F
 
 from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
-from versband_tpu_torch.vocoder.conv import LRELU_SLOPE, fold_torch_weight_norm, get_padding
+from versband_tpu_torch.vocoder.conv import (LRELU_SLOPE, apply_weight_norm,
+                                             fold_torch_weight_norm, get_padding)
 
 
 def _conv(ch_in: int, ch_out: int, k: int, dilation: int = 1, std: Optional[float] = 0.01):
@@ -64,7 +70,8 @@ class HifiGanGenerator(nn.Module):
                  upsample_rates: Sequence[int] = (5, 4, 4, 4),
                  upsample_kernel_sizes: Sequence[int] = (9, 8, 8, 8), resblock: str = "1",
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
-                 resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3):
+                 resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+                 use_weight_norm: bool = False):
         super().__init__()
         self.in_channels = in_channels
         self.num_kernels = len(resblock_kernel_sizes)
@@ -81,17 +88,83 @@ class HifiGanGenerator(nn.Module):
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
                 self.resblocks.append(res_cls(ch, rk, tuple(rd)))
         self.conv_post = _conv(ch, 1, 7)
+        if use_weight_norm:
+            apply_weight_norm(self)
+
+    def upsample_stage(self, i: int, x: torch.Tensor,
+                       source: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Stage ``i``: leaky ReLU, upsample, ``+ source`` (NSF's excitation,
+        cut to x's length) and the mean of the stage's residual blocks."""
+        x = self.ups[i](F.leaky_relu(x, LRELU_SLOPE))
+        if source is not None:
+            x = x + source[..., : x.shape[-1]]
+        K = self.num_kernels
+        acc = self.resblocks[i * K](x)
+        for j in range(1, K):
+            acc = acc + self.resblocks[i * K + j](x)
+        return acc / K
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = self.conv_pre(mel.to(self.conv_pre.weight.dtype))
-        K = self.num_kernels
-        for i, up in enumerate(self.ups):
-            x = up(F.leaky_relu(x, LRELU_SLOPE))
-            acc = self.resblocks[i * K](x)
-            for j in range(1, K):
-                acc = acc + self.resblocks[i * K + j](x)
-            x = acc / K
+        x = self.conv_pre(mel.to(self.conv_pre.bias.dtype))
+        for i in range(len(self.ups)):
+            x = self.upsample_stage(i, x)
         return torch.tanh(self.conv_post(F.leaky_relu(x, 0.01)))[:, 0]
+
+
+def linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """``[n_in, n_out]`` weights of ``jax.image.resize(..., "linear")`` along
+    one axis. Growing, it is ``F.interpolate(mode="linear",
+    align_corners=False)``; shrinking, the triangle kernel widens by
+    ``n_in / n_out`` (JAX antialiases, ``F.interpolate`` does not)."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None]) / kernel_scale
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0).astype(np.float32)
+
+
+class CodeUpsampleHifiGanGenerator(nn.Module):
+    """Codec tokens ``[B, Q, T]`` -> waveform (``hifigan.py:155-195``): one
+    embedding table over all codebooks (ids offset by ``code_num`` per
+    codebook, clamped to the pad id), the Q embeddings concatenated per
+    frame, resized in time by ``unit_upsample_rate`` as ``jax.image.resize``
+    does, then the HiFi-GAN stack (``generator``). Names follow the JAX
+    package's module (``code_embed``, ``generator.*``)."""
+
+    def __init__(self, code_num: int = 1024, codebook_num: int = 3, code_emb_dim: int = 128,
+                 unit_upsample_rate: float = 1.0, upsample_initial_channel: int = 512,
+                 upsample_rates: Sequence[int] = (5, 4, 4, 4),
+                 upsample_kernel_sizes: Sequence[int] = (9, 8, 8, 8), resblock: str = "1",
+                 resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+                 resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+                 use_weight_norm: bool = False):
+        super().__init__()
+        self.code_num, self.codebook_num = code_num, codebook_num
+        self.unit_upsample_rate = unit_upsample_rate
+        self.code_embed = nn.Embedding(code_num * codebook_num + 5, code_emb_dim)
+        self.generator = HifiGanGenerator(
+            codebook_num * code_emb_dim, upsample_initial_channel, upsample_rates,
+            upsample_kernel_sizes, resblock, resblock_kernel_sizes, resblock_dilation_sizes,
+            use_weight_norm)
+
+    def forward(self, codes: torch.Tensor) -> torch.Tensor:
+        B, Q, T = codes.shape
+        if Q != self.codebook_num:
+            raise ValueError(f"{Q} codebooks, expected {self.codebook_num}")
+        pad_id = self.code_num * self.codebook_num
+        offsets = self.code_num * torch.arange(Q, device=codes.device, dtype=codes.dtype)
+        ids = torch.clamp_max(codes + offsets[None, :, None], pad_id).long()
+        x = self.code_embed(ids).transpose(1, 2).reshape(B, T, -1)  # [B, T, Q*e]
+        if self.unit_upsample_rate != 1.0:
+            resize = torch.from_numpy(linear_resize_matrix(
+                T, int(T * self.unit_upsample_rate))).to(x.device, x.dtype)
+            x = torch.einsum("btc,to->boc", x, resize)
+        return self.generator(x.transpose(1, 2))
 
 
 _CONFIG_KEYS = [("audio_num_mel_bins", "in_channels"),

@@ -1,4 +1,4 @@
-"""ParallelWaveGAN vocoder (port of the generator half of ``versband_tpu/vocoder/pwg.py``).
+"""ParallelWaveGAN, MelGAN and PQMF (port of ``versband_tpu/vocoder/pwg.py``).
 
 ``ParallelWaveGANGenerator`` maps (noise ``[B, 1, T]``, mel ``[B, 80, T']``)
 to a waveform ``[B, 1, T]`` through 30 gated WaveNet residual layers over the
@@ -7,6 +7,11 @@ noise, conditioned on the upsampled mel
 ``fused_inference`` each layer is one call of ``fused_wavenet_layer`` (K5 on
 the card, its plain version on the CPU), an fp32 skip accumulator threaded
 through the layers; otherwise the dense layers run as the reference's.
+``use_weight_norm=True`` builds the trainable form (every ``Conv1d`` as
+(``weight_v``, ``weight_g``) in the JAX package's convention,
+``vocoder/conv.py``; the upsampler's stencils stay plain, as in JAX), which
+``train/vocoder_step.py`` trains unfused; ``use_pitch_embed`` adds the
+pitch embedding (``Embed(300)``, concatenated, ``c_proj``).
 
 Parameter names are the reference's: ``first_conv``;
 ``upsample_net.conv_in``; ``upsample_net.upsample.up_layers.{2j+1}`` (the
@@ -14,16 +19,23 @@ Parameter names are the reference's: ``first_conv``;
 ``conv_layers.{i}.{conv,conv1x1_aux,conv1x1_skip,conv1x1_out}``;
 ``last_conv_layers.{1,3}``. The mel upsampler is the reference's
 nearest-stretch + ``(fk, 2s+1)`` conv, which computes the same function as
-the JAX package's 3-tap phase form. Not ported (no caller on the serving
-path): ``use_pitch_embed``, the discriminators, ``ResidualStack``, MelGAN
-and PQMF.
+the JAX package's 3-tap phase form.
+
+Also here: ``ParallelWaveGANDiscriminator`` (``conv_layers.{2i}``),
+``MelGANGenerator`` (the reference's flat ``melgan`` sequence, with
+``ResidualStack``'s ``stack.{2,4}`` and ``skip_layer``),
+``MelGANDiscriminator`` / ``MelGANMultiScaleDiscriminator``
+(``discriminators.{i}.layers.{n}``) and ``PQMF``. Two MelGAN choices follow
+the JAX package, not upstream (ROADMAP Queue 3): a discriminator's first conv
+pads with zeros (upstream reflects), and the multi-scale pool counts its
+padding (upstream ``count_include_pad=False``).
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +45,7 @@ import torch.nn.functional as F
 from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.ops.fused_wavenet import PackCache, fused_wavenet_layer
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
+from versband_tpu_torch.vocoder.conv import apply_weight_norm
 from versband_tpu_torch.vocoder.hifigan import load_generator_state_dict
 
 
@@ -131,7 +144,8 @@ class ParallelWaveGANGenerator(nn.Module):
                  layers: int = 30, stacks: int = 3, residual_channels: int = 64,
                  gate_channels: int = 128, skip_channels: int = 64, aux_channels: int = 80,
                  aux_context_window: int = 2, upsample_scales: Sequence[int] = (4, 4, 4, 5),
-                 use_upsample: bool = True, fused_inference: bool = False):
+                 use_upsample: bool = True, use_pitch_embed: bool = False,
+                 use_weight_norm: bool = False, fused_inference: bool = False):
         super().__init__()
         self.kernel_size, self.layers = kernel_size, layers
         self.skip_channels, self.aux_channels = skip_channels, aux_channels
@@ -148,12 +162,22 @@ class ParallelWaveGANGenerator(nn.Module):
         self.last_conv_layers = nn.ModuleList([
             nn.ReLU(), nn.Conv1d(skip_channels, skip_channels, 1), nn.ReLU(),
             nn.Conv1d(skip_channels, out_channels, 1)])
+        if use_pitch_embed:
+            self.pitch_embed = nn.Embedding(300, aux_channels)
+            self.c_proj = nn.Linear(2 * aux_channels, aux_channels)
+        self.use_pitch_embed = use_pitch_embed
+        if use_weight_norm:
+            apply_weight_norm(self, types=(nn.Conv1d,))
 
-    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None) -> torch.Tensor:
-        dtype = self.first_conv.weight.dtype
+    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None,
+                pitch: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype = self.first_conv.bias.dtype
         x = x.to(dtype)
         if c is not None:
             c = c.to(dtype)
+            if self.use_pitch_embed and pitch is not None:  # pitch [B, T'] ids < 300
+                c = self.c_proj(torch.cat([c.transpose(1, 2), self.pitch_embed(pitch.long())],
+                                          dim=-1)).transpose(1, 2)
             if self.upsample_net is not None:
                 c = self.upsample_net(c)
             if c.shape[-1] != x.shape[-1]:
@@ -240,3 +264,198 @@ class ParallelWaveGAN:
 
     def __call__(self, mel) -> np.ndarray:
         return self.spec2wav(mel)
+
+
+class ParallelWaveGANDiscriminator(nn.Module):
+    """Dilated non-causal conv stack (``models/parallel_wavegan.py:207-300``):
+    ``layers - 1`` convs at dilations 1, 1, 2, 3, ... (or
+    ``dilation_factor ** i``), each followed by LeakyReLU, then the output
+    conv. wav ``[B, 1, T]`` -> ``[B, 1, T]``."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1, kernel_size: int = 3,
+                 layers: int = 10, conv_channels: int = 64, dilation_factor: int = 1,
+                 negative_slope: float = 0.2, use_weight_norm: bool = True):
+        super().__init__()
+        mods, cin = [], in_channels
+        for i in range(layers - 1):
+            d = max(i if dilation_factor == 1 else dilation_factor ** i, 1)
+            mods += [nn.Conv1d(cin, conv_channels, kernel_size, dilation=d,
+                               padding=(kernel_size - 1) // 2 * d),
+                     nn.LeakyReLU(negative_slope)]
+            cin = conv_channels
+        mods.append(nn.Conv1d(cin, out_channels, kernel_size, padding=(kernel_size - 1) // 2))
+        self.conv_layers = nn.ModuleList(mods)
+        if use_weight_norm:
+            apply_weight_norm(self)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for f in self.conv_layers:
+            x = f(x)
+        return x
+
+
+class ResidualStack(nn.Module):
+    """MelGAN residual stack (``layers/residual_stack.py``): ``stack`` =
+    LeakyReLU, reflect pad, dilated conv, LeakyReLU, 1x1; plus a 1x1
+    ``skip_layer`` shortcut."""
+
+    def __init__(self, kernel_size: int = 3, channels: int = 32, dilation: int = 1,
+                 negative_slope: float = 0.2):
+        super().__init__()
+        self.stack = nn.Sequential(
+            nn.LeakyReLU(negative_slope),
+            nn.ReflectionPad1d((kernel_size - 1) // 2 * dilation),
+            nn.Conv1d(channels, channels, kernel_size, dilation=dilation),
+            nn.LeakyReLU(negative_slope),
+            nn.Conv1d(channels, channels, 1))
+        self.skip_layer = nn.Conv1d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.stack(x) + self.skip_layer(x)
+
+
+class MelGANGenerator(nn.Module):
+    """mel ``[B, 80, T']`` -> wav ``[B, out, T' * prod(scales)]``
+    (``models/melgan.py:18-192``), as the reference's flat ``melgan``
+    sequence: reflect pad + conv, per scale LeakyReLU + transposed conv +
+    ``stacks`` residual stacks (dilations k^j), LeakyReLU, reflect pad +
+    conv, tanh."""
+
+    def __init__(self, in_channels: int = 80, out_channels: int = 1, kernel_size: int = 7,
+                 channels: int = 512, upsample_scales: Sequence[int] = (8, 8, 5),
+                 stack_kernel_size: int = 3, stacks: int = 3, negative_slope: float = 0.2,
+                 use_final_nonlinear_activation: bool = True, use_weight_norm: bool = True):
+        super().__init__()
+        pad = (kernel_size - 1) // 2
+        layers = [nn.ReflectionPad1d(pad), nn.Conv1d(in_channels, channels, kernel_size)]
+        cin = channels
+        for i, scale in enumerate(upsample_scales):
+            ch = channels // 2 ** (i + 1)
+            layers += [nn.LeakyReLU(negative_slope),
+                       nn.ConvTranspose1d(cin, ch, scale * 2, scale,
+                                          padding=scale // 2 + scale % 2,
+                                          output_padding=scale % 2)]
+            layers += [ResidualStack(stack_kernel_size, ch, stack_kernel_size ** j,
+                                     negative_slope) for j in range(stacks)]
+            cin = ch
+        layers += [nn.LeakyReLU(negative_slope), nn.ReflectionPad1d(pad),
+                   nn.Conv1d(cin, out_channels, kernel_size)]
+        if use_final_nonlinear_activation:
+            layers.append(nn.Tanh())
+        self.melgan = nn.Sequential(*layers)
+        if use_weight_norm:
+            apply_weight_norm(self)
+
+    def forward(self, c: torch.Tensor) -> torch.Tensor:
+        return self.melgan(c)
+
+
+class MelGANDiscriminator(nn.Module):
+    """One MelGAN discriminator (``models/melgan.py:194-300``); returns every
+    layer's output, the last being the score. The first conv pads with zeros
+    (the JAX package; upstream reflects); groups of a downsampling conv are
+    ``max(in_channels // 4, 1)``."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 kernel_sizes: Sequence[int] = (5, 3), channels: int = 16,
+                 max_downsample_channels: int = 1024,
+                 downsample_scales: Sequence[int] = (4, 4, 4, 4), negative_slope: float = 0.2):
+        super().__init__()
+        k0 = int(np.prod(kernel_sizes))
+        act = nn.LeakyReLU(negative_slope)
+        layers = [nn.Sequential(nn.ConstantPad1d((k0 - 1) // 2, 0.0),
+                                nn.Conv1d(in_channels, channels, k0), act)]
+        ch = channels
+        for scale in downsample_scales:
+            out = min(ch * scale, max_downsample_channels)
+            layers.append(nn.Sequential(
+                nn.Conv1d(ch, out, scale * 10 + 1, scale, padding=scale * 5,
+                          groups=max(ch // 4, 1)), act))
+            ch = out
+        out = min(ch * 2, max_downsample_channels)
+        layers.append(nn.Sequential(nn.Conv1d(ch, out, kernel_sizes[0],
+                                              padding=(kernel_sizes[0] - 1) // 2), act))
+        layers.append(nn.Conv1d(out, out_channels, kernel_sizes[1],
+                                padding=(kernel_sizes[1] - 1) // 2))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        outs = []
+        for f in self.layers:
+            x = f(x)
+            outs.append(x)
+        return outs
+
+
+class MelGANMultiScaleDiscriminator(nn.Module):
+    """``scales`` MelGAN discriminators, average pools of 4 / 2 (padding 1,
+    counted in the mean, as the JAX package pools) between them
+    (``models/melgan.py:303-399``)."""
+
+    def __init__(self, scales: int = 3, use_weight_norm: bool = True, **disc_kwargs):
+        super().__init__()
+        self.discriminators = nn.ModuleList([MelGANDiscriminator(**disc_kwargs)
+                                             for _ in range(scales)])
+        self.pooling = nn.AvgPool1d(4, 2, padding=1)
+        if use_weight_norm:
+            apply_weight_norm(self)
+
+    def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
+        outs = []
+        for d in self.discriminators:
+            outs.append(d(x))
+            x = self.pooling(x)
+        return outs
+
+
+def design_prototype_filter(taps: int = 62, cutoff_ratio: float = 0.15,
+                            beta: float = 9.0) -> np.ndarray:
+    """Kaiser-window prototype low-pass (``layers/pqmf.py:16-49``)."""
+    if taps % 2:
+        raise ValueError("taps must be even")
+    omega_c = np.pi * cutoff_ratio
+    n = np.arange(taps + 1) - 0.5 * taps
+    with np.errstate(invalid="ignore"):
+        h_i = np.sin(omega_c * n) / (np.pi * n)
+    h_i[taps // 2] = cutoff_ratio
+    return h_i * np.kaiser(taps + 1, beta)
+
+
+class PQMF(nn.Module):
+    """Near-perfect-reconstruction pseudo-QMF bank (``layers/pqmf.py:51-129``).
+
+    No parameters: the cos-modulated filters are buffers kept out of the
+    state_dict. Analysis is the filter bank and the stride-M decimation as one
+    strided conv; synthesis zero-stuffs by M (gain M) and filters."""
+
+    def __init__(self, subbands: int = 4, taps: int = 62, cutoff_ratio: float = 0.15,
+                 beta: float = 9.0):
+        super().__init__()
+        h_proto = design_prototype_filter(taps, cutoff_ratio, beta)
+        n = np.arange(taps + 1)
+        h_analysis = np.zeros((subbands, taps + 1))
+        h_synthesis = np.zeros((subbands, taps + 1))
+        for k in range(subbands):
+            phase = (2 * k + 1) * (np.pi / (2 * subbands)) * (n - (taps - 1) / 2)
+            h_analysis[k] = 2 * h_proto * np.cos(phase + (-1) ** k * np.pi / 4)
+            h_synthesis[k] = 2 * h_proto * np.cos(phase - (-1) ** k * np.pi / 4)
+        self.subbands, self.taps = subbands, taps
+        self.register_buffer("analysis_filter", torch.from_numpy(
+            h_analysis[:, None, :].astype(np.float32)), persistent=False)   # [M, 1, taps+1]
+        self.register_buffer("synthesis_filter", torch.from_numpy(
+            h_synthesis[None].astype(np.float32)), persistent=False)        # [1, M, taps+1]
+
+    def analysis(self, x: torch.Tensor) -> torch.Tensor:
+        """``[B, 1, T]`` -> ``[B, M, T // M]``."""
+        p = self.taps // 2
+        return F.conv1d(F.pad(x, (p, p)), self.analysis_filter.to(x.dtype),
+                        stride=self.subbands)
+
+    def synthesis(self, x: torch.Tensor) -> torch.Tensor:
+        """``[B, M, T // M]`` -> ``[B, 1, T]``."""
+        M = self.subbands
+        B, _, Tm = x.shape
+        up = x.new_zeros(B, M, Tm * M)
+        up[:, :, ::M] = x * M
+        p = self.taps // 2
+        return F.conv1d(F.pad(up, (p, p)), self.synthesis_filter.to(x.dtype))
