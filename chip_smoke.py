@@ -17,7 +17,11 @@ plain PyTorch version on the card:
   VAE-GAN, with K4 in its BigVGAN audio logger);
 * the vocoders' GAN recipes -- HiFi-GAN (MPD + MSD), BigVGAN (MPD + MRD) and
   ParallelWaveGAN (MR-STFT, RAdam) at full width, each trained generator then
-  served through ``build_vocoder`` with K4 (BigVGAN) or K5 (PWG) live.
+  served through ``build_vocoder`` with K4 (BigVGAN) or K5 (PWG) live;
+* data preparation -- ``make_manifest``, ``mel_extract`` (the mel on the card)
+  and ``postprocess`` on synthetic songs, then training from their output;
+* data-parallel training -- ``cli.train`` under the torchrun environment over
+  NCCL at world size 1, in this process and through ``torch.distributed.run``.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -141,7 +145,27 @@ Phases (any failure raises and exits non-zero):
  18. [voc-step] one step of each recipe at full width (batch 1, 8,320
      samples) on the card and on the CPU from the same weights and batch:
      losses within 1e-4, gradients within 1e-3 of their parameter's scale;
- 19. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
+ 19. [prep-cli] (after phase 13, from phase 11's directory) 8 synthetic 20 s
+     vocal/accompaniment pairs (44.1 kHz stereo int16, tones and noise) and a
+     silent pair, a prompts TSV, note and beat dicts and a music-feature TSV:
+     ``make_manifest`` (18 rows), ``mel_extract`` extract on the card (the
+     silent pair skipped), ``addmel2tsv`` (16 rows kept, 2 dropped), the
+     ``vocal_mel_path`` join, ``postprocess`` (8 items, 1500-frame midi and
+     beats); one clip's mel on the card against the port's CPU mel (1e-4)
+     and timed (CUDA events, median); then ``cli.train`` on the shipped YAML
+     for 2 steps from ``total.tsv`` and ``midi.npy`` (300 copies of the rows
+     as the held-out set), 4/4/4 K1-K3 launches per step;
+ 20. [ddp] ``cli.train`` on the shipped YAML for 4 steps in this process,
+     without a process group and then under the torchrun environment
+     (NCCL, world size 1), each item's draws seeded by its index: losses
+     within 1e-6, K1-K3 launches per step as phase 12, the DiT's gradient
+     all-reduce timed per step; ``python -m torch.distributed.run
+     --standalone --nproc_per_node 1 -m versband_tpu_torch.cli.train`` for 2
+     steps: exit 0, one run directory, one ``last.pt`` at step 2;
+     ``--devices 2`` (one more than the host's cards) raises naming the
+     host's card count;
+ 21. prints the whole run's wall time, the kernel table as JSON, then
+     ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
@@ -157,6 +181,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 import types
 from pathlib import Path
@@ -1482,7 +1507,7 @@ class _TrainCliProbe(_CliProbe):
         super().__init__()
         self.tmod, self.cmod = tmod, cmod
         self.steps, self.vals, self.logs, self.writes, self.towers = [], [], [], [], []
-        self.pngs, self.saves = [], []
+        self.pngs, self.saves, self.metrics = [], [], []
 
     def n_steps(self) -> int:
         return sum(n for n, _, _ in self.steps)
@@ -1501,6 +1526,7 @@ class _TrainCliProbe(_CliProbe):
                     ev[1].record()
                     n = batch["image"].shape[0] if batch["image"].ndim == 4 else 1
                     probe.steps.append((n, tuple(b - a for a, b in zip(n0, launches())), ev))
+                    probe.metrics.append(out)
                     return out
                 return timed
             return made
@@ -1520,12 +1546,13 @@ class _TrainCliProbe(_CliProbe):
         return self
 
 
-def _train_cli_run(dev, tag: str, argv: list, expect_steps: int, check=None) -> dict:
+def _train_cli_run(dev, tag: str, argv: list, expect_steps: int, check=None,
+                   phase: str = "train-cli") -> dict:
     """One ``cli.train.main`` in this process under a probe: checks the
     launches per step, per validation batch and per ``log_images``, and that
     the tower's output lies on ``dev``; runs ``check(run)`` on the CLI's run
-    dict, then drops the run's models; prints the run's figures and returns
-    them."""
+    dict, then drops the run's models; prints the run's figures (as
+    ``[phase]``) and returns them."""
     import gc
 
     from versband_tpu_torch.cli import train as cli
@@ -1550,7 +1577,7 @@ def _train_cli_run(dev, tag: str, argv: list, expect_steps: int, check=None) -> 
     want = (depth * (n_steps + sum(v["batches"] for v in probe.vals))
             + LAUNCHES_PER_LOG * len(probe.logs), depth * n_steps, depth * n_steps)
     off_card = sorted({str(t["device"]) for t in probe.towers if t["device"].type != dev.type})
-    print(f"[train-cli] {tag}: main() returned {rc} in {wall:.2f} s host wall; "
+    print(f"[{phase}] {tag}: main() returned {rc} in {wall:.2f} s host wall; "
           f"{trainer.global_step} steps in {len(probe.steps)} calls of "
           f"{[n for n, _, _ in probe.steps]}; {len(probe.vals)} validations of "
           f"{[v['batches'] for v in probe.vals]} batches; {len(probe.logs)} log_images; "
@@ -1558,15 +1585,15 @@ def _train_cli_run(dev, tag: str, argv: list, expect_steps: int, check=None) -> 
           f"times on {sorted({str(t['device']) for t in probe.towers})}")
     if (rc != 0 or trainer.global_step != expect_steps or bad or total != want or off_card
             or not probe.towers):
-        raise AssertionError(f"[train-cli] {tag}: rc {rc}, step {trainer.global_step}, "
+        raise AssertionError(f"[{phase}] {tag}: rc {rc}, step {trainer.global_step}, "
                              f"launches off per call {bad}, total {total} != {want}, "
                              f"tower devices {off_card}")
     for v in probe.vals:
         loss = v["metrics"].get("val/loss_simple")
-        print(f"[train-cli] {tag}: validation over {v['batches']} batches: val/loss_simple "
+        print(f"[{phase}] {tag}: validation over {v['batches']} batches: val/loss_simple "
               f"{loss}, {v['ms']:.1f} ms host wall (synchronised)")
         if loss is None or not math.isfinite(loss):
-            raise AssertionError(f"[train-cli] {tag}: validation gave {v['metrics']}")
+            raise AssertionError(f"[{phase}] {tag}: validation gave {v['metrics']}")
     if check is not None:
         check(run)
     per_step = [ev[0].elapsed_time(ev[1]) / n for n, _, ev in probe.steps]
@@ -1574,7 +1601,7 @@ def _train_cli_run(dev, tag: str, argv: list, expect_steps: int, check=None) -> 
     epoch_ms = [e["ms"] - e["side_ms"] for e in probe.epochs]
     host_ms = sum(epoch_ms) / sum(e["steps"] for e in probe.epochs)
     tower = [t for t in probe.towers if t["captions"] == TRAIN_CLI_K * TRAIN_B]
-    print(f"[train-cli] {tag}: event time per train step {dev_ms:.2f} ms (median over the "
+    print(f"[{phase}] {tag}: event time per train step {dev_ms:.2f} ms (median over the "
           f"calls after the first, {['%.2f' % x for x in per_step]}), "
           f"{1e3 / dev_ms:.3f} steps/s on the card; host wall per step {host_ms:.2f} ms "
           f"({1e3 / host_ms:.3f} steps/s): epochs {['%.1f' % e['ms'] for e in probe.epochs]} ms "
@@ -2533,7 +2560,285 @@ def phase_voc_step_parity(dev) -> None:
                                      f"CPU's float64 step")
 
 
+# [prep-cli]: 8 synthetic 20 s vocal/accompaniment pairs as a user's songs
+# come (44.1 kHz, stereo, int16) and one silent pair, through the port's
+# make_manifest -> mel_extract (extract on the card, addmel2tsv) -> the
+# vocal_mel_path join that no JAX CLI writes (ROADMAP) -> postprocess, then
+# 2 cli.train steps of the shipped YAML from what they wrote. The dataset
+# holds out its first 300 rows, so the train manifest directory also holds
+# 300 copies of the prepared rows as the held-out set.
+PREP_ITEMS, PREP_SEC, PREP_SR = 8, 20.0, 44100
+PREP_TEMPLATE = "{root}/{ds}_sp_demix_24k/{sub}/[{idx}]{name}.accomp.wav"
+PREP_NOTE_SEC = 0.4  # 30 frames a note at 75 fps: 50 notes fill the 1500 frames
+PREP_STEPS = 2
+MEL_TOL = 1e-4  # the card's fp32 log-mel against the CPU's (tests/test_torch_port_mel.py's bar)
+# [ddp]: cli.train under the torchrun environment at world size 1 (NCCL)
+# against the same run without a process group. The CLI's --seed does not
+# reach the datasets' crop and caption draws (OS entropy, as in the JAX
+# package), so for these two runs each item draws from a generator seeded by
+# (SEED, its index), and both runs see the same batches.
+DDP_STEPS, DDP_LOSS_TOL = 4, 1e-6
+
+
+def write_prep_inputs(root: Path, seed: int) -> list:
+    """The songs, a prompts TSV, note and beat dicts and a music-feature TSV
+    under ``root``; returns the item names (the accompaniment rows')."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(PREP_SEC * PREP_SR)) / PREP_SR
+    prompts, names, notes, beats, feats = [], [], {}, {}, []
+    for i in range(PREP_ITEMS + 1):
+        name = f"crawl<sep>set{i % 2}<sep>song{i}<sep>{i}"
+        path = PREP_TEMPLATE.format(root=root, ds="crawl", sub=f"set{i % 2}", idx=i,
+                                    name=f"song{i}")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        for stem, path_i in (("accomp", path), ("vocal", path.replace("accomp", "vocal"))):
+            freqs = rng.uniform(110.0, 880.0, 3 if stem == "accomp" else 1)
+            x = sum(0.15 * np.sin(2 * np.pi * f * t + rng.uniform(0, 6.3)) for f in freqs)
+            x = x + 0.02 * rng.standard_normal(t.shape)
+            stereo = np.stack([x, 0.8 * x + 0.01 * rng.standard_normal(t.shape)], axis=1)
+            if i == PREP_ITEMS:
+                stereo = np.zeros_like(stereo)  # silent: extract skips it
+            wavfile.write(path_i, PREP_SR, (np.clip(stereo, -1, 1) * 32767).astype(np.int16))
+        prompts.append({"item_name": name, "caption": "['piano', 'a calm song with soft drums']"})
+        names.append(name)
+        n_notes = int(PREP_SEC / PREP_NOTE_SEC)
+        notes[name] = {"pitches": rng.integers(40, 90, n_notes),
+                       "note_durs": [PREP_NOTE_SEC] * n_notes}
+        beats[name] = [[b, 1] for b in np.arange(0.0, PREP_SEC, 0.5)]
+        feats.append({"item_name": name, "key": "C major", "key_confidence": 0.9,
+                      "tempo": 120, "tempo_confidence": 0.8, "avg_pitch": 64.5,
+                      "emotion": "['calm']"})
+    write_tsv(str(root / "prompts.tsv"), list(prompts[0]), prompts)
+    write_tsv(str(root / "feat.tsv"), list(feats[0]), feats)
+    np.save(root / "notes.npy", notes, allow_pickle=True)
+    np.save(root / "beats.npy", beats, allow_pickle=True)
+    return names[:PREP_ITEMS]
+
+
+def phase_prep_cli(dev) -> dict:
+    """The data-preparation CLIs on the card, then 2 training steps from
+    their output (from ``CLI_WORK``: the T5 directory and the VAE of phase
+    11). Returns the training run's K1/K2/K3 launches and the mel figures."""
+    from versband_tpu_torch.cli import make_manifest, mel_extract, postprocess
+    from versband_tpu_torch.data.manifests import read_tsv
+    from versband_tpu_torch.dsp.audio_io import load_wav
+    from versband_tpu_torch.dsp.loudness import normalize_loudness
+    from versband_tpu_torch.dsp.mel import MelSpectrogram
+
+    work = CLI_WORK.resolve()
+    root = work / "prep"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    names = write_prep_inputs(root, SEED + 40)
+    print(f"[prep-cli] {PREP_ITEMS + 1} pairs of {PREP_SEC:.0f} s stereo int16 wavs at "
+          f"{PREP_SR} Hz (the last silent) written in {time.perf_counter() - t0:.1f} s")
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)
+        rcs = [make_manifest.main(["--prompts", "prompts.tsv", "--data_root", str(root),
+                                   "--out", "music.tsv", "--path_template", PREP_TEMPLATE])]
+        listed = len(read_tsv("music.tsv"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rcs.append(mel_extract.main(["--tsv_path", "music.tsv"]))  # on the card
+        extract_s = time.perf_counter() - t0
+        rcs.append(mel_extract.main(["--tsv_path", "music.tsv", "--mode", "addmel2tsv"]))
+        table = read_tsv("music.tsv")
+        by_name = {r["name"]: r for r in table.rows}
+        joined = [{**r, "vocal_mel_path": by_name[f"{r['name']}vocal"]["mel_path"]}
+                  for r in table.rows if f"{r['name']}vocal" in by_name]
+        write_tsv("joined.tsv", table.columns + ["vocal_mel_path"], joined)
+        rcs.append(postprocess.main(["--manifest", "joined.tsv", "--notes", "notes.npy",
+                                     "--beats", "beats.npy", "--music_feat", "feat.tsv",
+                                     "--out_dir", "out"]))
+        total = read_tsv("out/total.tsv")
+        midi = np.load("out/midi.npy", allow_pickle=True).item()
+        beats = np.load("out/beats.npy", allow_pickle=True).item()
+    finally:
+        os.chdir(cwd)
+    mels = [np.load(r["mel_path"]) for r in table.rows]
+    print(f"[prep-cli] make_manifest listed {listed} rows; extract on the card took "
+          f"{extract_s:.2f} s host wall for {listed} clips; addmel2tsv kept {len(table)} and "
+          f"dropped {listed - len(table)}; postprocess wrote {len(total)} items "
+          f"({len(joined)} joined), midi/beats of {sorted({m.shape for m in midi.values()})}")
+    if (any(rcs) or listed != 2 * (PREP_ITEMS + 1) or len(table) != 2 * PREP_ITEMS
+            or len(total) != PREP_ITEMS or list(midi) != names or list(beats) != names
+            or any(m.shape != (CLI_T_MEL,) or m.dtype != np.int64 for m in midi.values())
+            or any(m.shape != (80, CLI_T_MEL) or m.dtype != np.float32
+                   or not np.isfinite(m).all() for m in mels)):
+        raise AssertionError(f"[prep-cli] rcs {rcs}, rows {listed}/{len(table)}/{len(total)}")
+
+    # one clip's mel as extract computes it: on the card (timed) and on the CPU
+    wav, _ = load_wav(table.rows[0]["audio_path"], SR)
+    wav = normalize_loudness(wav, -14.0, SR, max_gain_db=20.0)[: int(PREP_SEC * SR)]
+    y = torch.from_numpy(np.ascontiguousarray(wav[None], np.float32))
+    melnet = MelSpectrogram()
+    with torch.no_grad():
+        ref = melnet(y)[0].numpy()
+        y_dev = y.to(dev)
+        times = []
+        for _ in range(12):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            ev[0].record()
+            out = melnet(y_dev)
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        got = out[0].cpu().numpy()
+    d_card = float(np.abs(got - ref).max())
+    d_file = float(np.abs(mels[0] - ref).max())
+    mel_ms = statistics.median(times[2:])
+    print(f"[prep-cli] mel of one {PREP_SEC:.0f} s clip on the card: {mel_ms:.3f} ms (CUDA "
+          f"events, median of 10 after 2 warm-up); max|d| against the port's CPU mel "
+          f"{d_card:.3e} (the file extract wrote: {d_file:.3e}), bar {MEL_TOL}")
+    if not (d_card <= MEL_TOL and d_file <= MEL_TOL):
+        raise AssertionError(f"[prep-cli] card mel off the CPU's by {d_card}, file {d_file}")
+
+    train = root / "train"
+    train.mkdir()
+    write_tsv(str(train / "a_heldout.tsv"), total.columns,
+              [total.rows[j % len(total)] for j in range(TRAIN_CLI_VALID)])
+    shutil.copy(root / "out" / "total.tsv", train / "b_total.tsv")
+    argv = ["-b", str(CLI_CONFIG.resolve()), "-t", "-l", "logs", "-s", str(SEED), "-n", "prep",
+            "--max_steps", str(PREP_STEPS), "--max_epochs", str(PREP_STEPS), "--no-test",
+            f"data.params.main_spec_dir_path={train}",
+            f"data.params.other_condition={root / 'out' / 'midi.npy'}",
+            f"model.params.first_stage_config.params.ckpt_path={work / 'vae.pt'}"]
+    try:
+        os.chdir(work)  # the YAML's relative useful_ckpts/
+        run = _train_cli_run(dev, "cli.train from the prepared manifest", argv, PREP_STEPS,
+                             phase="prep-cli")
+    finally:
+        os.chdir(cwd)
+    return {"launches": run["launches"], "mel_ms": mel_ms, "mel_err": d_card,
+            "kept": len(table), "dropped": listed - len(table)}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_ddp(dev) -> dict:
+    """Data-parallel training at world size 1 on the card (from ``CLI_WORK``
+    as phase 12 left it): cli.train in this process under the torchrun
+    environment (NCCL) against the same run without a process group; cli.train
+    under ``torch.distributed.run``; ``--devices`` above the host's cards
+    (2 on one card) raises.
+    Returns the in-process runs' K1/K2/K3 launches and the all-reduce
+    figures."""
+    from versband_tpu_torch import parallel
+    from versband_tpu_torch.cli import train as cli
+    from versband_tpu_torch.data.vocal2accomp import JoinManifestSpecs
+    from versband_tpu_torch.train.state import TrainState
+
+    work = CLI_WORK.resolve()
+    data = work / "train_data"  # phase 12's manifest: 300 held out, 16 train rows
+    base = ["-b", str(CLI_CONFIG.resolve()), "-t", "-l", "logs", "-s", str(SEED), "--no-test",
+            f"data.params.main_spec_dir_path={data / 'manifests'}",
+            f"data.params.other_condition={data / 'midi.npy'}",
+            f"model.params.first_stage_config.params.ckpt_path={work / 'vae.pt'}"]
+    steps = ["--max_steps", str(DDP_STEPS), "--max_epochs", "2"]
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    reduce_calls = []
+    real_reduce = TrainState.reduce_gradients
+
+    def timed_reduce(state):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+        ev[0].record()
+        real_reduce(state)
+        ev[1].record()
+        reduce_calls.append((ev, sum(p.numel() * p.element_size() for p in state.params)))
+
+    # the datasets' draws are not seeded by --seed (ROADMAP Queue 3): each
+    # item's stream restarts from [SEED, index], so the two runs see one batch
+    real_item = JoinManifestSpecs.__getitem__
+
+    def seeded_item(ds, idx):
+        ds.rng.reseed([SEED, int(idx)])  # the item's draws whatever thread serves it
+        return real_item(ds, idx)
+
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        JoinManifestSpecs.__getitem__ = seeded_item
+        plain = _train_cli_run(dev, "no process group", base + steps + ["-n", "ddp_plain"],
+                               DDP_STEPS, phase="ddp")
+        os.environ.update(env)
+        TrainState.reduce_gradients = timed_reduce
+        nccl = _train_cli_run(dev, "torchrun environment, NCCL, world size 1",
+                              base + steps + ["-n", "ddp_nccl"], DDP_STEPS, phase="ddp")
+    finally:
+        JoinManifestSpecs.__getitem__ = real_item
+        TrainState.reduce_gradients = real_reduce
+        for k in env:
+            os.environ.pop(k, None)
+        os.chdir(cwd)
+    if parallel.active():
+        raise AssertionError("[ddp] cli.train left its process group behind")
+    loss = [torch.cat([m["loss"].reshape(-1).double().cpu() for m in r["probe"].metrics])
+            for r in (plain, nccl)]
+    diff = float((loss[0] - loss[1]).abs().max())
+    torch.cuda.synchronize()
+    ar_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in reduce_calls]
+    nbytes = reduce_calls[0][1] if reduce_calls else 0
+    print(f"[ddp] losses per step without a group {loss[0].tolist()}, under NCCL at world size "
+          f"1 {loss[1].tolist()}: max|d| {diff:.3e} (bar {DDP_LOSS_TOL}); the DiT's gradient "
+          f"all-reduce: {nbytes} bytes in one buffer, {statistics.median(ar_ms):.3f} ms a step "
+          f"(CUDA events, median of {len(ar_ms)}: {['%.3f' % x for x in ar_ms]})")
+    if len(ar_ms) != DDP_STEPS or not diff <= DDP_LOSS_TOL * max(1.0, float(loss[0].abs().max())):
+        raise AssertionError(f"[ddp] losses off by {diff} or {len(ar_ms)} all-reduces")
+
+    # a torchrun launch of the CLI, as a user runs it
+    argv = base + ["--max_steps", "2", "--max_epochs", "1", "-n", "torchrun"]
+    repo = str(Path(__file__).resolve().parent)
+    sub_env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", "-m", "versband_tpu_torch.cli.train",
+                           *argv], cwd=work, env=sub_env, capture_output=True, text=True,
+                          timeout=600)
+    sub_s = time.perf_counter() - t0
+    logdirs = sorted((work / "logs").glob("*_torchrun"))
+    ckpts = sorted(p.name for d in logdirs for p in (d / "checkpoints").iterdir()) \
+        if logdirs else []
+    meta = json.loads((logdirs[0] / "checkpoints" / "last_step.json").read_text()) \
+        if len(logdirs) == 1 and "last_step.json" in ckpts else {}
+    lr_lines = [line for line in proc.stdout.splitlines() if "learning rate" in line]
+    print(f"[ddp] torch.distributed.run --standalone --nproc_per_node 1 -m "
+          f"versband_tpu_torch.cli.train: exit {proc.returncode} in {sub_s:.1f} s; run "
+          f"directories {[d.name for d in logdirs]}, checkpoints {ckpts}, last_step.json "
+          f"{meta}; {lr_lines}")
+    if proc.returncode != 0 or len(logdirs) != 1 or ckpts.count("last.pt") != 1 \
+            or meta.get("step") != 2:
+        raise AssertionError(f"[ddp] torchrun run failed:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+
+    n_cards = torch.cuda.device_count()  # one: --devices 2
+    try:
+        cli.main(["-b", str(CLI_CONFIG.resolve()), "-t", "--devices", str(n_cards + 1)])
+    except ValueError as e:
+        print(f"[ddp] --devices {n_cards + 1} on this host raises: {e}")
+        if f"({n_cards})" not in str(e) or f"--devices {n_cards + 1}" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"[ddp] --devices {n_cards + 1} on {n_cards} card(s) did not raise")
+    counts = [plain["launches"], nccl["launches"]]
+    return {"launches": tuple(sum(c[i] for c in counts) for i in range(3)),
+            "allreduce_ms": statistics.median(ar_ms), "allreduce_bytes": nbytes,
+            "loss_diff": diff}
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     smi = phase_card()
     dev = torch.device("cuda")
     parents = phase_build()
@@ -2548,6 +2853,12 @@ def main() -> None:
     n_cli = phase_cli(dev)
     n_train_cli = phase_train_cli(dev)
     n_vae_cli, n_vae_gen = phase_vae_train_cli(dev)
+    t_phase = time.perf_counter()
+    prep = phase_prep_cli(dev)
+    prep["wall_s"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    ddp = phase_ddp(dev)
+    ddp["wall_s"] = time.perf_counter() - t_phase
     shutil.rmtree(CLI_WORK, ignore_errors=True)
     phase_vae_step_parity(dev)
     voc_hifigan = phase_voc_train_hifigan(dev)
@@ -2559,7 +2870,8 @@ def main() -> None:
           f"({voc_bigvgan['peak_gib']:.2f} GiB), pwg {voc_pwg['ms']:.2f} ms "
           f"({voc_pwg['peak_gib']:.2f} GiB); on the trained generators K4 "
           f"{voc_bigvgan['k4_ms']:.3f} ms and K5 {voc_pwg['k5_ms']:.3f} ms per launch")
-    n_train = tuple(a + b for a, b in zip(trained["launches"], n_train_cli))
+    n_train = tuple(a + b + c + d for a, b, c, d in zip(trained["launches"], n_train_cli,
+                                                       prep["launches"], ddp["launches"]))
     n_serve = {k: sum(f[k] for f in served.values()) for k in ("k1", "k4", "k5")}
     bwd_src = "versband_tpu_torch/ops/csrc/flash_attn_bwd.cu"
     table = [
@@ -2585,12 +2897,21 @@ def main() -> None:
     if not all(k["launches"] > 0 for k in table):
         raise AssertionError(f"a kernel did not run on the main path: "
                              f"{[(k['name'], k['launches']) for k in table]}")
+    print(f"[prep-cli] mel per {PREP_SEC:.0f} s clip {prep['mel_ms']:.3f} ms, max|d| card vs "
+          f"CPU {prep['mel_err']:.3e}; rows kept {prep['kept']}, dropped {prep['dropped']}; "
+          f"K1/K2/K3 {prep['launches']}. [ddp] NCCL world size 1: losses within "
+          f"{ddp['loss_diff']:.3e} of the run without a group, all-reduce of "
+          f"{ddp['allreduce_bytes']} bytes {ddp['allreduce_ms']:.3f} ms a step, K1/K2/K3 "
+          f"{ddp['launches']} (both in-process runs); the phases took {prep['wall_s']:.1f} s "
+          f"and {ddp['wall_s']:.1f} s")
     print(f"kernels: {[k['name'] for k in table]}; K1 launches: serving {n_serve['k1']}, "
           f"training {trained['launches'][0]}, cli {n_cli}, train-cli {n_train_cli[0]}, "
+          f"prep-cli {prep['launches'][0]}, ddp {ddp['launches'][0]}, "
           f"vae-train-cli's cli.generate {n_vae_gen} "
           f"(its K2/K3 {n_train_cli[1]}/{n_train_cli[2]}); K4 {n_serve['k4']} (bigvgan) + "
           f"{n_vae_cli} (vae-train-cli audio logs) + {voc_bigvgan['k4']} (the trained "
           f"BigVGAN), K5 {n_serve['k5']} (pwg) + {voc_pwg['k5']} (the trained PWG)")
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s wall, kernel builds included")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

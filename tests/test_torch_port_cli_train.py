@@ -7,8 +7,9 @@ logging, writes ``last`` with ``scale_factor`` and archives the merged
 config; ``-r <logdir>`` resumes at step 4 and ends at step 6; the port's
 ``cli.generate`` then serves the archived config and that checkpoint. Also:
 the LR line is the JAX CLI's formula and text, the archived YAML reads (under
-``yaml.safe_load``) as the JAX writer's text of the same config, more than
-one card raises naming its ROADMAP item, and the logged PNGs hold
+``yaml.safe_load``) as the JAX writer's text of the same config, the model
+axis (``--n_model``) raises naming its ROADMAP item (data parallelism is in
+tests/test_torch_port_ddp.py), and the logged PNGs hold
 ``matplotlib.cm.magma``'s pixels. (Stage 1's CLI runs are in
 tests/test_torch_port_vae_gan_trainer.py.)
 """
@@ -142,7 +143,9 @@ def test_lr_line_is_the_jax_formula(capsys):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["-b", "configs/vocal2music.yaml", "-t", "--devices", "2"], "item 12"),
+    # data parallelism is ported (tests/test_torch_port_ddp.py); the model
+    # axis is refused before any rank starts
+    (["-b", "configs/vocal2music.yaml", "-t", "--devices", "2", "--n_model", "2"], "item 12"),
     (["-b", "configs/vocal2music.yaml", "-t", "--n_model", "2"], "item 12"),
 ])
 def test_what_is_not_ported_raises(args, item, tmp_path):

@@ -113,6 +113,29 @@ def test_thread_local_rng_first_use_order():
     assert ThreadLocalRNG(None)._seed != ThreadLocalRNG(None)._seed
 
 
+def test_thread_local_rng_reseed_is_per_thread():
+    import threading
+
+    rng = ThreadLocalRNG(9)
+    rng.integers(1 << 30)
+    rng.reseed([23, 5])
+    first = rng.integers(1 << 30, size=3)
+    got = []
+
+    def other():
+        rng.reseed([23, 5])
+        got.append(rng.integers(1 << 30, size=3))
+
+    t = threading.Thread(target=other)
+    t.start()
+    t.join()
+    want = np.random.default_rng([23, 5]).integers(1 << 30, size=3)
+    np.testing.assert_array_equal(first, want)
+    np.testing.assert_array_equal(got[0], want)
+    np.testing.assert_array_equal(rng.integers(1 << 30, size=3),
+                                  np.random.default_rng([23, 5]).integers(1 << 30, size=6)[3:])
+
+
 SAMPLER_CASES = [
     dict(indices=list(range(20)), batch_size=2, num_replicas=2, rank=1, shuffle=False),
     dict(indices=list(range(23)), batch_size=4, num_replicas=3, rank=2, shuffle=True, seed=4),

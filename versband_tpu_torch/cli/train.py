@@ -20,8 +20,22 @@ Runs on the card unless ``--platform cpu`` is given:
 A stage-1 config (an ``AutoencoderKL`` target, ``configs/ae_accomp.yaml``)
 trains the VAE-GAN with ``VAETrainer``: the VAE and its ``lossconfig``
 (``VAEGANLoss``) are built from ``--seed`` on the card; any other config
-trains the CFM with ``CFMTrainer``. One card only: ``--devices`` or
-``--n_model`` above 1 raise (ROADMAP Queue 1 item 12).
+trains the CFM with ``CFMTrainer``.
+
+Data parallelism, one rank per card over NCCL (``--platform cpu``: one
+process per rank over gloo), as Lightning's DDP trained the reference:
+
+* under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
+  -m versband_tpu_torch.cli.train ...``) each process joins the group its
+  environment describes and trains on ``cuda:LOCAL_RANK``;
+* ``--devices N`` without that environment starts the N ranks itself
+  (``torch.multiprocessing``, a ``file://`` rendezvous in a temporary
+  directory); more cards than the host has raises;
+* each rank loads ``batch_size`` from its shard, so the global batch and the
+  LR's ``devices`` factor are the world size; rank 0 writes the run's files.
+
+``--n_model`` above 1 (tensor and expert parallelism) raises: ROADMAP Queue 1
+item 12's later part.
 """
 
 from __future__ import annotations
@@ -30,12 +44,15 @@ import argparse
 import datetime
 import glob
 import os
+import shutil
 import sys
+import tempfile
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from versband_tpu_torch import parallel
 from versband_tpu_torch.utils.config import (
     Config, apply_dot_overrides, instantiate_from_config, load_config, merge_configs)
 
@@ -50,9 +67,11 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--seed", type=int, default=23)
     p.add_argument("-l", "--logdir", type=str, default="logs")
     p.add_argument("--devices", type=int, default=None,
-                   help="number of cards (one card only; more is ROADMAP item 12)")
+                   help="data-parallel ranks, one per card (CPU processes with "
+                        "--platform cpu); under torchrun, its world size")
     p.add_argument("--n_model", type=int, default=1,
-                   help="model-parallel axis size (1 only; more is ROADMAP item 12)")
+                   help="model-parallel axis size (1 only; more is ROADMAP item 12's "
+                        "later part)")
     p.add_argument("--scale_lr", type=str, default="true")
     p.add_argument("--max_steps", type=int, default=10 ** 9)
     p.add_argument("--max_epochs", type=int, default=1000)
@@ -97,13 +116,36 @@ def main(argv: Optional[List[str]] = None, run: Optional[Dict[str, Any]] = None)
     """Run the CLI on ``argv``. ``run``, when given, receives the run's
     ``trainer``, ``config`` and ``logdir``."""
     opt, unknown = get_parser().parse_known_args(argv)
-    if (opt.devices or 1) > 1 or opt.n_model > 1:
-        raise NotImplementedError("training on more than one card is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
+    if opt.n_model > 1:
+        raise NotImplementedError("tensor and expert parallelism (--n_model > 1) are not "
+                                  "ported yet (ROADMAP Queue 1 item 12's later part)")
     from versband_tpu_torch.device import resolve_device
 
-    device = resolve_device(opt.platform)
-    now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+    device_type = "cpu" if opt.platform == "cpu" else "cuda"
+    joined = False
+    if parallel.launched():
+        joined = not parallel.active()
+        device = resolve_device(parallel.init_from_env(device_type))
+        if opt.devices not in (None, parallel.world()[0]):
+            raise ValueError(f"--devices {opt.devices} differs from the launcher's world "
+                             f"size {parallel.world()[0]}")
+    elif (opt.devices or 1) > 1:
+        return launch_ranks(sys.argv[1:] if argv is None else list(argv), opt.devices,
+                           device_type)
+    else:
+        device = resolve_device(opt.platform)
+    try:
+        return _train(opt, unknown, device, run)
+    finally:
+        if joined:
+            parallel.leave()
+
+
+def _train(opt, unknown: List[str], device: torch.device,
+           run: Optional[Dict[str, Any]]) -> int:
+    ndev, rank = parallel.world()
+    # one run directory for every rank: rank 0's clock names it
+    now = parallel.broadcast_object(datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S"))
 
     bases = list(opt.base)
     if opt.resume:
@@ -126,20 +168,22 @@ def main(argv: Optional[List[str]] = None, run: Optional[Dict[str, Any]] = None)
 
     datamodule = instantiate_from_config(data_cfg)
     datamodule.setup()
-    lr = scaled_lr(opt, opt.devices or 1, data_cfg["params"]["batch_size"],
+    lr = scaled_lr(opt, ndev, data_cfg["params"]["batch_size"],
                    float(model_cfg.get("base_learning_rate", 1e-4)))
 
     from versband_tpu_torch.train.callbacks import DeviceStatsCallback, SetupCallback
     from versband_tpu_torch.train.checkpoints import CheckpointManager
     from versband_tpu_torch.train.trainer import CFMTrainer, VAETrainer
 
-    callbacks = [SetupCallback(bool(opt.resume), now, logdir, ckptdir, cfgdir, config,
-                               lightning_cfg), DeviceStatsCallback()]
-    for name, cb_cfg in (lightning_cfg.get("callbacks") or {}).items():
-        try:
-            callbacks.append(instantiate_from_config(cb_cfg, device=device))
-        except Exception as e:
-            print(f"callback {name} unavailable: {e}")
+    callbacks = []
+    if rank == 0:  # the run's directory, configs and logs are rank 0's to write
+        callbacks = [SetupCallback(bool(opt.resume), now, logdir, ckptdir, cfgdir, config,
+                                   lightning_cfg), DeviceStatsCallback()]
+        for name, cb_cfg in (lightning_cfg.get("callbacks") or {}).items():
+            try:
+                callbacks.append(instantiate_from_config(cb_cfg, device=device))
+            except Exception as e:
+                print(f"callback {name} unavailable: {e}")
 
     ckpt = CheckpointManager(ckptdir, monitor=model_cfg.get("params", {}).get("monitor"),
                              every_n_train_steps=10000)
@@ -172,6 +216,38 @@ def main(argv: Optional[List[str]] = None, run: Optional[Dict[str, Any]] = None)
                 trainer.test(datamodule)
             except Exception as e:
                 print(f"test pass skipped: {e}")
+    return 0
+
+
+def _spawned_rank(index: int, argv: List[str], world: int, device_type: str,
+                  rendezvous: str) -> None:
+    """Rank ``index`` of a run that ``--devices`` started: the environment a
+    launcher would give it, the group joined through ``rendezvous``, then
+    the CLI."""
+    os.environ.update(RANK=str(index), LOCAL_RANK=str(index), WORLD_SIZE=str(world))
+    parallel.init_from_env(device_type, init_method=f"file://{rendezvous}")
+    try:
+        rc = main(argv)
+    finally:
+        parallel.leave()
+    if rc:
+        raise SystemExit(rc)
+
+
+def launch_ranks(argv: List[str], world: int, device_type: str) -> int:
+    """Train with ``world`` ranks started here (Lightning's DDP launch), each
+    running this CLI on ``argv``; returns 0 when every rank did."""
+    import torch.multiprocessing as mp
+
+    if device_type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(f"--devices {world} asks for more cards than this host has "
+                         f"({torch.cuda.device_count()})")
+    tmp = tempfile.mkdtemp(prefix="versband_ddp_")
+    try:
+        mp.spawn(_spawned_rank, args=(argv, world, device_type, os.path.join(tmp, "rdzv")),
+                 nprocs=world, join=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return 0
 
 

@@ -34,5 +34,11 @@ class ThreadLocalRNG:
             self._local.rng = rng
         return rng
 
+    def reseed(self, entropy) -> None:
+        """Restart the calling thread's stream as ``default_rng(entropy)``:
+        reseeded from the item's index before each item, the draws no longer
+        depend on which loader thread serves it."""
+        self._local.rng = np.random.default_rng(entropy)
+
     def __getattr__(self, name):
         return getattr(self._generator(), name)

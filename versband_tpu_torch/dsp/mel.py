@@ -12,6 +12,11 @@ JAX package's path), or ``torch.fft.rfft`` with ``use_fft=True``. Both run on
 the tensors' device: ``MelSpectrogram`` moves its constants to the input's
 device, so it serves as the HiFi-GAN recipe's ``mel_fn`` on the card. The
 numpy pieces (``mel_filterbank``, ``hann_window``) are the port's own copies.
+
+:func:`reflect_pad` is the reflect pad of ``jnp.pad``/``numpy.pad``, which
+keeps folding when the pad is as long as the signal or longer, where torch's
+``F.pad(mode="reflect")`` raises; the mel, the MR-STFT loss and the MPD and
+MRD discriminators pad through it.
 """
 
 from __future__ import annotations
@@ -21,7 +26,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 MAX_WAV_VALUE = 32768.0
 
@@ -95,6 +99,26 @@ def hann_window(win_size: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_size)).astype(np.float32)
 
 
+def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """``x`` padded on its last axis by reflection without the edge sample,
+    ``numpy.pad(mode="reflect")``'s folding for any pad length: the signal
+    repeats with period ``2 (n - 1)`` (a one-sample signal repeats itself).
+    A gather on ``x``'s device, so autograd goes through it."""
+    n = x.shape[-1]
+    if left == right == 0:
+        return x
+    if n == 0:
+        raise ValueError("cannot reflect-pad an empty signal")
+    idx = torch.arange(-left, n + right, device=x.device)
+    if n == 1:
+        idx = torch.zeros_like(idx)
+    else:
+        period = 2 * (n - 1)
+        idx = torch.remainder(idx, period)
+        idx = torch.where(idx >= n, period - idx, idx)
+    return x.index_select(-1, idx)
+
+
 def dynamic_range_compression(x: torch.Tensor, C: float = 1.0,
                               clip_val: float = 1e-5) -> torch.Tensor:
     return torch.log10(torch.clamp(x, min=clip_val) * C)
@@ -164,7 +188,7 @@ class MelSpectrogram:
             y = y[None]
         cfg = self.config
         c = self.constants(y.device, y.dtype)
-        y = F.pad(torch.clamp(y, -1.0, 1.0)[:, None], (cfg.pad, cfg.pad), mode="reflect")[:, 0]
+        y = reflect_pad(torch.clamp(y, -1.0, 1.0), cfg.pad, cfg.pad)
         mag = stft_magnitude(y, c["window"], cfg.n_fft, cfg.hop_size, self.use_fft,
                              (c["cos"], c["sin"]))
         mel = torch.matmul(c["mel"], mag)  # [M, F] @ [B, F, T]

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from versband_tpu_torch import parallel
 from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.models.dit import BandMoeDiT, GumbelSource
 from versband_tpu_torch.models.schedules import (
@@ -189,9 +190,14 @@ class LatentDiffusion:
     def compute_scale_factor(self, mel: torch.Tensor,
                              generator: Optional[torch.Generator] = None,
                              noise: Optional[torch.Tensor] = None) -> float:
-        """scale_by_std: 1/std(z) of a posterior sample of ``mel`` (population std)."""
-        z = self.first_stage.encode(mel).sample(generator, noise)
-        self.scale_factor = float(1.0 / z.float().std(unbiased=False).item())
+        """scale_by_std: 1/std(z) of a posterior sample of ``mel`` (population
+        std), over every rank's ``mel`` under a process group: the sums of z
+        and z^2 in float64, summed over the ranks."""
+        z = self.first_stage.encode(mel).sample(generator, noise).double()
+        n, s1, s2 = parallel.global_sum(torch.stack(
+            [z.new_tensor(float(z.numel())), z.sum(), (z * z).sum()]))
+        std = torch.sqrt(s2 / n - (s1 / n) ** 2)
+        self.scale_factor = float(1.0 / std.item())
         return self.scale_factor
 
     def latent_length(self, cond_length: int) -> int:

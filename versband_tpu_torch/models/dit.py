@@ -22,7 +22,9 @@ the JAX order (high-level gate ``[B, 2]``, caption gate ``[B, T, E]``,
 acoustic gate ``[B, T, E]``). Without it, training routing is soft with no
 noise, as in JAX without a ``gumbel`` rng. The noise of a block is drawn
 before the block runs, so ``remat`` (``torch.utils.checkpoint`` per block)
-recomputes the block with the same noise.
+recomputes the block with the same noise. In a training forward under a
+process group the load-balancing loss takes each expert's usage over the
+global batch (``parallel.global_sum`` of its numerator and denominator).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from versband_tpu_torch.nn.core import (
     ConditionEmbedder, FeedForward, JointAttention, RMSNorm, TimestepEmbedder,
     modulate, precompute_rope, sdpa,
 )
+from versband_tpu_torch.parallel import global_sum
 
 
 def anneal_temperature(step: int, init: float = 2.0, decay: float = 0.9999,
@@ -221,7 +224,14 @@ class BandMoE(nn.Module):
         ac_m = ac_mask.expand(B, T, 1).reshape(-1, 1)
         probs_all = torch.cat([cap_probs.reshape(-1, E), ac_probs.reshape(-1, E)], dim=1)
         masks_all = torch.cat([cap_m.expand(-1, E), ac_m.expand(-1, E)], dim=1)
-        usage = (probs_all * masks_all).sum(0) / (masks_all.sum() + 1e-10)
+        num, den = (probs_all * masks_all).sum(0), masks_all.sum()
+        if train and torch.is_grad_enabled():
+            # usage over the global batch, as JAX's global program takes it:
+            # the loss is not linear in the batch, so a per-rank usage would
+            # give another gradient than the full batch's
+            num, den = global_sum(torch.cat([num, den[None]])).split([2 * E, 1])
+            den = den[0]
+        usage = num / (den + 1e-10)
         lb_loss = torch.mean(usage * torch.log(usage + 1e-10))
         return z, lb_loss
 

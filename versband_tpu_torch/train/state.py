@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from versband_tpu_torch.parallel import active as parallel_active, all_reduce_grads
+
 LearningRate = Union[float, Callable[[int], float]]
 
 
@@ -207,7 +209,9 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 class TrainState:
     """Single-optimizer train state of a module whose trainable parameters
-    (``requires_grad``) the optimizer updates in place.
+    (``requires_grad``) the optimizer updates in place. Under a process group
+    the ``.grad`` it consumes is the global batch's (:meth:`reduce_gradients`),
+    so every rank applies the same update.
 
     ``step`` counts micro-steps; ``updates`` counts applied optimizer updates.
     """
@@ -223,6 +227,18 @@ class TrainState:
         self.mini_step = 0
         self.acc_grads: Optional[List[torch.Tensor]] = None
         self.ema = EmaState(self.named, ema_decay) if ema_decay is not None else None
+
+    def reduce_gradients(self) -> None:
+        """Average ``.grad`` over the ranks of a process group (nothing
+        without one); the train steps call it once per micro-step, after the
+        backward and before :meth:`apply_gradients`. A parameter without a
+        gradient reduces :meth:`grads`'s zeros, so every rank reduces the
+        same buffer."""
+        if not parallel_active():
+            return
+        for p, g in zip(self.params, self.grads()):
+            p.grad = g
+        all_reduce_grads(self.params)
 
     def grads(self) -> List[torch.Tensor]:
         """The gradients in ``.grad`` (zeros where a parameter got none)."""

@@ -10,6 +10,11 @@ Randomness comes from a ``torch.Generator`` in the order posterior, t, noise,
 Gumbel; any of them can be handed in instead (``given``), which is how the
 tests feed the JAX step and this one the same draws.
 
+Under a process group (``versband_tpu_torch.parallel``) each rank's
+gradient is averaged over the ranks right after the backward, so the norm,
+the clip and AdamW see the global batch's gradient, as JAX's global program
+does; the metrics are averaged too, so the logged loss is the global batch's.
+
 ``make_cfm_multi_step`` runs K steps in one call over a ``[K, ...]``-stacked
 batch and returns the metrics as ``[K]`` tensors on the device, so a caller
 reads them back once per K steps. Its steps take the generator's draws in
@@ -23,6 +28,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from versband_tpu_torch.models.cfm import CFM
+from versband_tpu_torch.parallel import mean_metrics
 from versband_tpu_torch.train.state import TrainState, global_norm
 
 
@@ -73,10 +79,11 @@ def make_cfm_train_step(cfm: CFM, accumulate_grad_batches: int = 1
         loss, metrics = cfm.p_losses(x_start, cond, t, generator, step=state.step // accum,
                                      noise=given.get("noise"), gumbel=given.get("gumbel"))
         loss.backward()
+        state.reduce_gradients()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(state.grads())
         state.apply_gradients()
-        return metrics
+        return mean_metrics(metrics)
 
     return step_fn
 

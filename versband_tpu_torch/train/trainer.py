@@ -37,6 +37,17 @@ each test item's reconstruction.
 * ``last`` (with ``scale_factor`` in ``last_step.json``) is saved at every
   epoch end and on SIGUSR1; ``log_images`` samples and decodes for the
   logging callbacks, and ``test`` saves a sample per test item.
+
+Under a process group (``versband_tpu_torch.parallel``, one rank per card)
+both trainers start every rank from rank 0's weights, draw from a generator
+seeded ``seed + rank``, and step on the gradients averaged over the ranks;
+rank 0 alone writes checkpoints, metric logs and TensorBoard (the CLI gives
+the logging callbacks to rank 0 only), and every rank reads the checkpoint on
+resume. Validation runs each rank's shard, validation batch i of rank r
+seeded as global batch ``r + i x world``, and the sums of the losses and
+counts are all-reduced, so the logged value is the one-rank value when the
+batches divide evenly. ``scale_by_std`` takes the std over the global first
+batch.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from versband_tpu_torch import parallel
 from versband_tpu_torch.data.collate import pad_or_cut_xd
 from versband_tpu_torch.models.cfm import CFM, cfm_p_losses
 from versband_tpu_torch.train.callbacks import Callback
@@ -66,6 +78,7 @@ from versband_tpu_torch.utils.config import instantiate_from_config
 
 MIDI_PAD, BEATS_PAD = 128, 2
 VAL_SEED = 17  # validation batch i draws from a generator seeded VAL_SEED * 2**32 + i
+# (i counts the global batches: rank r's j-th is r + j x world)
 
 
 def pad_batch_time(batch: Dict[str, np.ndarray], multiple: int = 128,
@@ -104,8 +117,10 @@ class BaseTrainer:
         self.seed = seed
         self.time_bucket = time_bucket
         self.global_step = 0
+        self.world, self.rank = parallel.world()
+        self.is_main = self.rank == 0  # the rank that writes logs and checkpoints
         self.writer = None
-        if use_tensorboard:
+        if use_tensorboard and self.is_main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -146,7 +161,7 @@ class BaseTrainer:
         """Write scalar metrics every ``log_every_n_steps`` (val/test always);
         device tensors are read only on the steps that log."""
         eval_call = any(str(k).startswith(("val", "test")) for k in [prefix, *metrics])
-        if step % self.log_every_n_steps and not eval_call:
+        if not self.is_main or (step % self.log_every_n_steps and not eval_call):
             return
         scal = {f"{prefix}{k}": float(v) for k, v in metrics.items() if np.ndim(v) == 0}
         if self.writer is not None:
@@ -158,6 +173,22 @@ class BaseTrainer:
 
     def save_checkpoint(self, name: str):
         raise NotImplementedError
+
+    def _val_generator(self, i: int) -> torch.Generator:
+        """The generator of this rank's validation batch ``i``."""
+        return torch.Generator(device=self.device).manual_seed(
+            VAL_SEED * 2 ** 32 + self.rank + i * self.world)
+
+    def _global_means(self, values: Dict[str, List[float]]) -> Dict[str, float]:
+        """Each list's mean over the batches of every rank (one all-reduce of
+        the sums and the count)."""
+        if not parallel.active():
+            return {k: float(np.mean(v)) for k, v in values.items()}
+        n = len(next(iter(values.values()), []))
+        sums = torch.tensor([sum(v) for v in values.values()] + [n], dtype=torch.float64,
+                            device=self.device)
+        sums = parallel.global_sum(sums)
+        return {k: float(sums[j] / sums[-1]) for j, k in enumerate(values)}
 
     def _dispatch(self, fn_name: str, *args):
         for cb in self.callbacks:
@@ -198,7 +229,9 @@ class VAETrainer(BaseTrainer):
                             accumulate_grad_batches=self.accumulate_grad_batches)
         self.train_step = make_vae_train_step(vae, loss)
         self.eval_step = make_vae_eval_step(vae, loss)
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed + self.rank)
+        parallel.broadcast_params(vae)
+        parallel.broadcast_params(loss)
         self.gen_state = TrainState(vae, self.tx)
         self.disc_state = TrainState(loss, self.tx)
         self._pair = _StatePair(self)
@@ -210,7 +243,8 @@ class VAETrainer(BaseTrainer):
         return t
 
     def save_checkpoint(self, name: str = "last"):
-        self.ckpt.save_last(self._pair, self.global_step)
+        if self.is_main:
+            self.ckpt.save_last(self._pair, self.global_step)
 
     def _restore(self):
         if self.ckpt.restore_last(self._pair) is None:
@@ -259,12 +293,12 @@ class VAETrainer(BaseTrainer):
         vals = []
         for i, vb in enumerate(val_loader):
             mel = self._put(pad_batch_time(vb, self.time_bucket)["image"])
-            gen = torch.Generator(device=self.device).manual_seed(VAL_SEED * 2 ** 32 + i)
-            vals.append(self.eval_step({"image": mel}, gen))
-        agg = {k: float(np.mean(torch.stack([v[k] for v in vals]).cpu().tolist()))
-               for k in vals[0]} if vals else {}
+            vals.append(self.eval_step({"image": mel}, self._val_generator(i)))
+        agg = self._global_means({k: torch.stack([v[k] for v in vals]).cpu().tolist()
+                                  for k in vals[0]}) if vals else {}
         self.log_metrics(agg, self.global_step, "")
-        self.ckpt.save_monitored(self._pair, self.global_step, agg)
+        if self.is_main:
+            self.ckpt.save_monitored(self._pair, self.global_step, agg)
         return agg
 
     def test(self, datamodule):
@@ -292,7 +326,7 @@ class VAETrainer(BaseTrainer):
                     base = s[: s.rfind("_")] if "_" in s else s
                     np.save(os.path.join(savedir, f"{base}.npy"), recon[b])
                     count += 1
-        metrics = {"test/mse_loss": float(np.mean(mses)) if mses else 0.0}
+        metrics = self._global_means({"test/mse_loss": mses}) if mses else {"test/mse_loss": 0.0}
         self.log_metrics(metrics, self.global_step, "")
         print(f"test: {count} reconstructions -> {savedir}, "
               f"mse={metrics['test/mse_loss']:.5f}")
@@ -344,7 +378,7 @@ class CFMTrainer(BaseTrainer):
         self.multi_step = (make_cfm_multi_step(
             cfm, accumulate_grad_batches=self.accumulate_grad_batches)
             if self.steps_per_call > 1 else None)
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed + self.rank)
         self.state: Optional[TrainState] = None
         self._group: list = []
         self._prefetch = max(0, int(prefetch_groups))
@@ -510,6 +544,7 @@ class CFMTrainer(BaseTrainer):
         """The train state around the backbone (the tower and the VAE stay
         frozen), and scale_by_std from the first batch (when the factor is
         still the default 1.0)."""
+        parallel.broadcast_params(self.cfm.model)
         self.state = TrainState(self.cfm.model, self.tx,
                                 ema_decay=0.9999 if self.use_ema else None)
         if self.cfm.scale_by_std and self.cfm.scale_factor == 1.0:
@@ -518,8 +553,9 @@ class CFMTrainer(BaseTrainer):
             print(f"setting scale_factor to {self.cfm.scale_factor:.5f}")
 
     def save_checkpoint(self, name: str = "last"):
-        self.ckpt.save_last(self.state, self.global_step,
-                            extra={"scale_factor": self.cfm.scale_factor})
+        if self.is_main:
+            self.ckpt.save_last(self.state, self.global_step,
+                                extra={"scale_factor": self.cfm.scale_factor})
 
     def _restore(self):
         if self.ckpt.restore_last(self.state) is None:
@@ -575,7 +611,8 @@ class CFMTrainer(BaseTrainer):
                     if val_loader and (epoch + 1) % self.val_every_n_epochs == 0:
                         self._validate(val_loader)  # the first after N epochs
                     self.save_checkpoint("last")
-                    self.ckpt.save_step_archive(self.state, self.global_step)
+                    if self.is_main:
+                        self.ckpt.save_step_archive(self.state, self.global_step)
                 if self.global_step >= self.max_steps:
                     break
         except KeyboardInterrupt:
@@ -674,7 +711,9 @@ class CFMTrainer(BaseTrainer):
         for batch in loader:
             images = self.log_images(batch)
             for b in range(images["samples"].shape[0]):
-                np.save(os.path.join(savedir, f"sample_{count:05d}.npy"), images["samples"][b])
+                tag = f"sample_{count:05d}" if self.world == 1 else \
+                    f"rank{self.rank}_sample_{count:05d}"  # each rank samples its shard
+                np.save(os.path.join(savedir, f"{tag}.npy"), images["samples"][b])
                 count += 1
         print(f"test: {count} samples -> {savedir}")
         return {"test/num_samples": count}
@@ -711,10 +750,11 @@ class CFMTrainer(BaseTrainer):
         with scope:
             for i, vb in enumerate(val_loader):
                 db = _decompress_batch(self._device_batch(self._pad(vb)))
-                gen = torch.Generator(device=self.device).manual_seed(VAL_SEED * 2 ** 32 + i)
-                losses.append(self._val_loss(db, gen)["loss_simple"])
+                losses.append(self._val_loss(db, self._val_generator(i))["loss_simple"])
         suffix = "_ema" if self.use_ema else ""
-        agg = {f"val/loss_simple{suffix}": float(np.mean(torch.stack(losses).cpu().tolist()))}
+        key = f"val/loss_simple{suffix}"
+        agg = self._global_means({key: torch.stack(losses).cpu().tolist()})
         self.log_metrics(agg, self.global_step, "")
-        self.ckpt.save_monitored(self.state, self.global_step, agg)
+        if self.is_main:
+            self.ckpt.save_monitored(self.state, self.global_step, agg)
         return agg

@@ -23,6 +23,12 @@ still steps, on the R1 term alone.
 
 The posterior's standard-normal draw comes from a ``torch.Generator``, or is
 handed in as ``given["posterior"]`` (how the tests feed the JAX step's draw).
+
+Under a process group the two gradients at the last conv are averaged over
+the ranks before their norms, so ``d_weight`` is the global batch's, and each
+backward's gradients are averaged before Adam; the metrics are averaged too. Every other term is a mean of
+per-item terms (the PatchGAN normalises by its trained running statistics,
+not by the batch's), so the averaged gradient is the global batch's.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from versband_tpu_torch.models.autoencoder import AutoencoderKL
+from versband_tpu_torch.parallel import average_, mean_metrics
 from versband_tpu_torch.train.gan_losses import VAEGANLoss, adaptive_d_weight, adopt_weight
 from versband_tpu_torch.train.state import TrainState
 
@@ -65,11 +72,13 @@ def make_vae_train_step(vae: AutoencoderKL, loss: VAEGANLoss) -> Callable[..., D
         g = loss.g_loss(recon)
         nll_grad, = torch.autograd.grad(stats["nll_loss"], last, retain_graph=True)
         g_grad, = torch.autograd.grad(g, last, retain_graph=True)
+        average_([nll_grad, g_grad])
         d_weight = adaptive_d_weight(torch.linalg.vector_norm(nll_grad),
                                      torch.linalg.vector_norm(g_grad), loss.disc_weight)
         aeloss = (stats["weighted_nll_loss"] + loss.kl_weight * stats["kl_loss"]
                   + d_weight * disc_factor * g)
         aeloss.backward(inputs=gen_state.params)  # no gradient reaches the discriminator
+        gen_state.reduce_gradients()
         gen_state.apply_gradients()
 
         # discriminator update, on the detached reconstruction
@@ -81,15 +90,19 @@ def make_vae_train_step(vae: AutoencoderKL, loss: VAEGANLoss) -> Callable[..., D
         discloss = (disc_factor * loss.d_loss(logits_real, logits_fake)
                     + loss.r1_reg_weight * r1)
         discloss.backward(inputs=disc_state.params)
+        disc_state.reduce_gradients()
         disc_state.apply_gradients()
 
-        return {"aeloss": aeloss.detach(), "discloss": discloss.detach(),
-                "rec_loss": stats["rec_loss"].detach(), "nll_loss": stats["nll_loss"].detach(),
-                "kl_loss": stats["kl_loss"].detach(), "g_loss": g.detach(),
-                "d_weight": d_weight, "disc_factor": disc_factor,
-                "disc_loss": discloss.detach(), "r1_penalty": r1.detach(),
-                "logits_real": logits_real.detach().mean(),
-                "logits_fake": logits_fake.detach().mean()}
+        metrics = {"aeloss": aeloss.detach(), "discloss": discloss.detach(),
+                   "rec_loss": stats["rec_loss"].detach(),
+                   "nll_loss": stats["nll_loss"].detach(),
+                   "kl_loss": stats["kl_loss"].detach(), "g_loss": g.detach(),
+                   "d_weight": d_weight, "disc_factor": disc_factor,
+                   "disc_loss": discloss.detach(), "r1_penalty": r1.detach(),
+                   "logits_real": logits_real.detach().mean(),
+                   "logits_fake": logits_fake.detach().mean()}
+        means = mean_metrics({k: v for k, v in metrics.items() if torch.is_tensor(v)})
+        return {k: means.get(k, v) for k, v in metrics.items()}
 
     return step
 

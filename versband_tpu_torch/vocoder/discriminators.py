@@ -46,6 +46,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from versband_tpu_torch.dsp.mel import reflect_pad
 from versband_tpu_torch.vocoder.conv import LRELU_SLOPE, get_padding, spectral_norm, weight_norm
 from versband_tpu_torch.vocoder.losses import padded_hann
 
@@ -162,7 +163,7 @@ class DiscriminatorP(nn.Module):
         B, C, T = x.shape
         p = self.period
         if T % p:  # reflect padding excludes the edge sample (hifigan.py:228)
-            x = F.pad(x, (0, p - T % p), mode="reflect")
+            x = reflect_pad(x, 0, p - T % p)
             T = x.shape[-1]
         h = x.view(B, C, T // p, p)
         fmap = []
@@ -231,7 +232,7 @@ def _stft_mag(x: torch.Tensor, n_fft: int, hop: int, win: int) -> torch.Tensor:
     """|STFT| of ``[B, T]`` after a reflect pad of ``(n_fft - hop) // 2``
     (``center=False``, periodic Hann) -> ``[B, n_fft // 2 + 1, frames]``."""
     pad = (n_fft - hop) // 2
-    x = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    x = reflect_pad(x, pad, pad)
     frames = x.unfold(-1, n_fft, hop)
     spec = torch.fft.rfft(frames * padded_hann(win, n_fft, x.device), n=n_fft, dim=-1)
     return torch.abs(spec).transpose(1, 2)

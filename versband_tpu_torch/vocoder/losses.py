@@ -9,7 +9,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from versband_tpu_torch.dsp.mel import reflect_pad
 
 
 def padded_hann(win: int, n_fft: int, device=None) -> torch.Tensor:
@@ -27,7 +28,7 @@ def stft_magnitude(x: torch.Tensor, fft_size: int, hop: int, win: int) -> torch.
     of ``fft_size // 2`` (``center=True``), Hann window, ``sqrt(clamp(power,
     1e-7))``."""
     pad = fft_size // 2
-    x = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    x = reflect_pad(x, pad, pad)
     frames = x.unfold(-1, fft_size, hop)
     spec = torch.fft.rfft(frames * padded_hann(win, fft_size, x.device), n=fft_size, dim=-1)
     return torch.sqrt(torch.clamp(spec.real ** 2 + spec.imag ** 2, min=1e-7))

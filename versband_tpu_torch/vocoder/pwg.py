@@ -43,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from versband_tpu_torch.device import DeviceLike, resolve_device
+from versband_tpu_torch.dsp.mel import reflect_pad
 from versband_tpu_torch.ops.fused_wavenet import PackCache, fused_wavenet_layer
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
 from versband_tpu_torch.vocoder.conv import apply_weight_norm
@@ -294,6 +295,19 @@ class ParallelWaveGANDiscriminator(nn.Module):
         return x
 
 
+class ReflectPad1d(nn.Module):
+    """``nn.ReflectionPad1d`` with ``jnp.pad``'s folding past the signal's
+    edge (:func:`reflect_pad`), where torch's pad raises on a pad as long as
+    the signal."""
+
+    def __init__(self, pad: int):
+        super().__init__()
+        self.pad = pad
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return reflect_pad(x, self.pad, self.pad)
+
+
 class ResidualStack(nn.Module):
     """MelGAN residual stack (``layers/residual_stack.py``): ``stack`` =
     LeakyReLU, reflect pad, dilated conv, LeakyReLU, 1x1; plus a 1x1
@@ -304,7 +318,7 @@ class ResidualStack(nn.Module):
         super().__init__()
         self.stack = nn.Sequential(
             nn.LeakyReLU(negative_slope),
-            nn.ReflectionPad1d((kernel_size - 1) // 2 * dilation),
+            ReflectPad1d((kernel_size - 1) // 2 * dilation),
             nn.Conv1d(channels, channels, kernel_size, dilation=dilation),
             nn.LeakyReLU(negative_slope),
             nn.Conv1d(channels, channels, 1))
@@ -327,7 +341,7 @@ class MelGANGenerator(nn.Module):
                  use_final_nonlinear_activation: bool = True, use_weight_norm: bool = True):
         super().__init__()
         pad = (kernel_size - 1) // 2
-        layers = [nn.ReflectionPad1d(pad), nn.Conv1d(in_channels, channels, kernel_size)]
+        layers = [ReflectPad1d(pad), nn.Conv1d(in_channels, channels, kernel_size)]
         cin = channels
         for i, scale in enumerate(upsample_scales):
             ch = channels // 2 ** (i + 1)
@@ -338,7 +352,7 @@ class MelGANGenerator(nn.Module):
             layers += [ResidualStack(stack_kernel_size, ch, stack_kernel_size ** j,
                                      negative_slope) for j in range(stacks)]
             cin = ch
-        layers += [nn.LeakyReLU(negative_slope), nn.ReflectionPad1d(pad),
+        layers += [nn.LeakyReLU(negative_slope), ReflectPad1d(pad),
                    nn.Conv1d(cin, out_channels, kernel_size)]
         if use_final_nonlinear_activation:
             layers.append(nn.Tanh())
