@@ -21,7 +21,10 @@ plain PyTorch version on the card:
 * data preparation -- ``make_manifest``, ``mel_extract`` (the mel on the card)
   and ``postprocess`` on synthetic songs, then training from their output;
 * data-parallel training -- ``cli.train`` under the torchrun environment over
-  NCCL at world size 1, in this process and through ``torch.distributed.run``.
+  NCCL at world size 1, in this process and through ``torch.distributed.run``;
+* AudioLDM's best-of-N generation -- the classic samplers (DDIM, PLMS, the
+  ancestral loop) over the shipped DiT, decode, HiFi-GAN and the CLAP rerank
+  (Cnn14 and a BERT caption tower at their published geometry).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -164,7 +167,24 @@ Phases (any failure raises and exits non-zero):
      steps: exit 0, one run directory, one ``last.pt`` at step 2;
      ``--devices 2`` (one more than the host's cards) raises naming the
      host's card count;
- 21. prints the whole run's wall time, the kernel table as JSON, then
+ 21. [audioldm] ``AudioLDM`` built through the resolver from the shipped
+     YAML's ``model.params`` (target ``ldm.models.diffusion.audioldm.
+     LatentDiffusion``, random fp32 weights from SEED), ``[serve]``'s
+     conditioning, HiFi-GAN as ``build_vocoder`` builds it, and CLAP at
+     ``text/clap.py``'s defaults over a bert-base-uncased-shaped directory
+     written under ``build/`` (random weights, a WordPiece ``tokenizer.json``
+     over the caption words): ``generate_batch`` with DDIM (3 candidates,
+     S 200, eta 1, CFG 2.0) and with PLMS (S 50), then ``ddpm_sample_loop`` at
+     B 1 without CFG over 500 timesteps (the schedule's 1000 cut to half, the
+     same linear range); exactly 4 K1 launches per model
+     call (4 S, 4 (S + 1), 4 T); every candidate 481,280 finite samples; K1
+     at ``[6, 752, 8, 96]`` fp32 against its plain version and timed with
+     its bound and SDPA; card against CPU at 5 steps over 256 mel frames
+     (latents after DDIM and PLMS, the candidates' CLAP embeddings, the BERT
+     states: 2e-3; the same chosen row); ms per step of each sampler, the
+     ``generate_batch`` wall, Cnn14 per candidate, BERT per call and the
+     rerank's share;
+ 22. prints the whole run's wall time, the kernel table as JSON, then
      ``{"ok": true, ...}`` last.
 """
 
@@ -2837,6 +2857,308 @@ def phase_ddp(dev) -> dict:
             "loss_diff": diff}
 
 
+# [audioldm]: AudioLDM's best-of-N generation over the shipped DiT
+# (configs/vocal2music.yaml's model.params, target swapped), reranked by CLAP at
+# its published geometry (text/clap.py's Cnn14 defaults, bert-base-uncased's
+# config.json), fp32 with TF32 off.
+LDM_TARGET = "ldm.models.diffusion.audioldm.LatentDiffusion"
+LDM_N, LDM_DDIM_S, LDM_PLMS_S, LDM_ETA, LDM_SCALE = 3, 200, 50, 1.0, 2.0
+# the ancestral loop's timesteps: the schedule's 1000 took 20.87 s at 20.82 ms a
+# step (H100/700 W), past the phase's ~20 s for it, so half of them over the
+# same linear range
+LDM_ANCESTRAL_T = 500
+LDM_PARITY_S, LDM_PARITY_T_MEL = 5, 256  # card against CPU: 5 steps over 5.3 s of mel
+BERT_DIR = Path("build") / "chip_smoke_bert"
+BERT_BASE_UNCASED = dict(model_type="bert", hidden_size=768, num_hidden_layers=12,
+                         num_attention_heads=12, intermediate_size=3072, vocab_size=30522,
+                         max_position_embeddings=512, type_vocab_size=2, hidden_act="gelu",
+                         layer_norm_eps=1e-12, pad_token_id=0)
+LDM_CAPTIONS = ["Style: pop ballad with piano Musical: a calm melody in C major"]
+
+
+def write_wordpiece_json(path: Path, words) -> None:
+    """A bert-base-uncased style ``tokenizer.json`` written by hand: [PAD] 0,
+    [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103 (bert-base-uncased's ids),
+    then each character seen with its ``##`` form and each lowercased word;
+    BertNormalizer (lowercase), BertPreTokenizer, ``[CLS] $A [SEP]``."""
+    words = sorted({w.lower() for w in words if w})
+    chars = sorted({c for w in words for c in w} | set("0123456789.,:;!?'-"))
+    vocab = {f"[unused{i}]": i for i in range(100)}
+    vocab.update({"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103})
+    for tok in chars + ["##" + c for c in chars] + words:
+        vocab.setdefault(tok, len(vocab) + 4 if len(vocab) >= 100 else len(vocab))
+    vocab = {t: i for i, (t, _) in enumerate(sorted(vocab.items(), key=lambda kv: kv[1]))}
+    special = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+                "rstrip": False, "normalized": False, "special": True}
+               for t in ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")]
+    doc = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": special,
+           "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                          "handle_chinese_chars": True, "strip_accents": None,
+                          "lowercase": True},
+           "pre_tokenizer": {"type": "BertPreTokenizer"},
+           "post_processor": {"type": "TemplateProcessing",
+                              "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                                         {"Sequence": {"id": "A", "type_id": 0}},
+                                         {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+                              "pair": [],
+                              "special_tokens": {t: {"id": t, "ids": [vocab[t]], "tokens": [t]}
+                                                 for t in ("[CLS]", "[SEP]")}},
+           "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                     "continuing_subword_prefix": "##", "max_input_chars_per_word": 100,
+                     "vocab": vocab}}
+    path.write_text(json.dumps(doc, ensure_ascii=False))
+
+
+def write_bert_dir(path: Path, config: dict, seed: int) -> None:
+    """A Hugging Face BERT directory: ``config.json``, random weights (BERT's
+    init from ``seed``) as ``model.safetensors``, and a WordPiece
+    ``tokenizer.json`` over :func:`caption_words`."""
+    from versband_tpu_torch.text.bert import BertModel, save_bert_dir
+
+    save_bert_dir(BertModel(config).init_weights(torch.Generator().manual_seed(seed)), str(path))
+    write_wordpiece_json(path / "tokenizer.json", caption_words() + LDM_CAPTIONS[0].split())
+
+
+@torch.no_grad()
+def build_audioldm(dev):
+    """AudioLDM through the resolver from the shipped YAML's model.params
+    (target swapped; the VAE's ckpt_path and the caption tower dropped: the
+    weights are random from SEED and the conditioning comes encoded), the
+    DiT's adaLN-zero layers perturbed; HiFi-GAN as ``build_vocoder`` builds
+    it; CLAP over :data:`BERT_DIR`, its conv weights N(0, 2/fan_in) so
+    activations keep their size through Cnn14's ReLUs."""
+    from versband_tpu_torch.text.clap import CLAP
+    from versband_tpu_torch.utils.config import instantiate_from_config, load_config
+
+    params = copy.deepcopy(dict(load_config(str(CLI_CONFIG)).model.params))
+    params["first_stage_config"]["params"].pop("ckpt_path", None)
+    params["cond_stage_config"] = None
+    torch.manual_seed(SEED)
+    ldm = instantiate_from_config({"target": LDM_TARGET, "params": params}, device=dev,
+                                  dtype=torch.float32)
+    perturb_zero_init(ldm.model, SEED)
+    voc = build_vocoder("hifigan", device=dev)
+    if not BERT_DIR.exists():
+        write_bert_dir(BERT_DIR, BERT_BASE_UNCASED, SEED + 40)
+    clap = CLAP(text_model=str(BERT_DIR), device=dev, seed=SEED + 41)
+    g = torch.Generator().manual_seed(SEED + 42)
+    for p in clap.audio_encoder.parameters():  # He-scaled convs: Cnn14's 12 ReLU layers
+        if p.ndim == 4:
+            p.copy_((torch.randn(p.shape, generator=g) * math.sqrt(2 / p[0].numel())).to(dev))
+    return ldm, voc, clap
+
+
+def ldm_context(dev, t_mel: int, seed: int) -> tuple:
+    """([serve]'s) conditioning and the unconditional branch as DiT contexts:
+    caption [1, 80, 1024], midi and beats of ``t_mel`` frames."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cond = {"c_crossattn": torch.randn(1, 80, 1024, generator=gen, device=dev),
+            "c_concat": {"midi": torch.randint(0, 128, (1, 1, t_mel), generator=gen, device=dev),
+                         "beats": torch.randint(0, 2, (1, 1, t_mel), generator=gen,
+                                                device=dev)}}
+    uncond = {"c_crossattn": torch.zeros(1, 80, 1024, device=dev),
+              "c_concat": {"midi": torch.full((1, 1, t_mel), 128, device=dev),
+                           "beats": torch.full((1, 1, t_mel), 2, device=dev)}}
+    return cond, uncond
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@torch.no_grad()
+def phase_audioldm_parity(ldm, voc, clap, dev) -> None:
+    """Card against CPU at a cut length and step count, same weights and
+    draws: DDIM and PLMS latents, the candidates' CLAP audio embeddings, the
+    BERT hidden states and the rerank's chosen rows."""
+    from versband_tpu_torch.models.samplers import PLMSSampler
+
+    cpu = copy.deepcopy(ldm)
+    cpu.device = torch.device("cpu")
+    cpu.model, cpu.first_stage = cpu.model.cpu(), cpu.first_stage.cpu()
+    cpu_voc, cpu_clap = copy.deepcopy(voc.model).cpu(), copy.deepcopy(clap).cpu()
+    cpu_clap.device = torch.device("cpu")
+    t_lat = LDM_PARITY_T_MEL // 2
+    cond, uncond = ldm_context(torch.device("cpu"), LDM_PARITY_T_MEL, SEED + 50)
+    shape = (LDM_N, 20, t_lat)
+    g = torch.Generator().manual_seed(SEED + 51)
+    x_T = torch.randn(shape, generator=g)
+    draws = [torch.randn(shape, generator=g) for _ in range(LDM_PARITY_S)]
+    out = {}
+    for side, m, vf, c, d in (("card", ldm, voc.waveform, clap, dev),
+                              ("cpu", cpu, cpu_voc, cpu_clap, torch.device("cpu"))):
+        trace = {}
+        m.generate_batch(_to(cond, d), LDM_CAPTIONS, vf, c, uncond=_to(uncond, d),
+                         guidance_scale=LDM_SCALE, n_candidates=LDM_N, ddim_steps=LDM_PARITY_S,
+                         eta=LDM_ETA, shape=(1, 20, t_lat), x_T=x_T.to(d),
+                         noise=lambda i, d=d: draws[i].to(d), trace=trace)
+        ctx = {k: _tree_tile(v, LDM_N) for k, v in _to(cond, d).items()}
+        uctx = {k: _tree_tile(v, LDM_N) for k, v in _to(uncond, d).items()}
+        plms = PLMSSampler(lambda x, t, cc, m=m: m.model(x, t, cc), m.schedule).sample(
+            shape, ctx, S=LDM_PARITY_S, unconditional_guidance_scale=LDM_SCALE,
+            unconditional_conditioning=uctx, x_T=x_T.to(d))
+        ids = torch.from_numpy(np.asarray(c.tokenize(LDM_CAPTIONS), np.int64)).to(d)
+        out[side] = dict(ddim=trace["samples"], plms=plms, audio=trace["audio_emb"],
+                         bert=c.caption_encoder.base(ids), best=trace["best_index"],
+                         sims=trace["sims"])
+    for key in ("ddim", "plms", "audio", "bert"):
+        a, b = out["card"][key], out["cpu"][key]
+        err = _max_diff(a, b)
+        print(f"[audioldm] card vs CPU {key} {tuple(b.shape)} fp32 (S {LDM_PARITY_S}, T_mel "
+              f"{LDM_PARITY_T_MEL}): max|d| {err:.3e} (tol {MODULE_TOL:g}), "
+              f"|cpu|max {b.abs().max():.3f}")
+        if not (err <= MODULE_TOL and torch.isfinite(a).all()):
+            raise AssertionError(f"[audioldm] {key} on the card disagrees with the CPU: {err}")
+    sims = out["cpu"]["sims"][:, 0]
+    top = np.sort(sims)[::-1]
+    sims_err = np.abs(out["card"]["sims"] - out["cpu"]["sims"]).max()
+    print(f"[audioldm] rerank rows card {out['card']['best']} cpu {out['cpu']['best']}; CPU "
+          f"similarities {np.round(sims, 5).tolist()} (margin of the best "
+          f"{top[0] - top[1]:.3e}), max|d| of the similarities {sims_err:.3e}")
+    if out["card"]["best"] != out["cpu"]["best"]:
+        raise AssertionError(f"[audioldm] the rerank picked {out['card']['best']} on the card, "
+                             f"{out['cpu']['best']} on the CPU")
+
+
+def _tree_tile(c, n: int):
+    if isinstance(c, dict):
+        return {k: _tree_tile(v, n) for k, v in c.items()}
+    return torch.cat([c] * n, dim=0)
+
+
+@torch.no_grad()
+def phase_audioldm(dev) -> dict:
+    """[audioldm]: ``AudioLDM.generate_batch`` (DDIM S 200, eta 1, CFG 2.0, 3
+    candidates; then PLMS S 50) and ``ddpm_sample_loop`` (B 1, no CFG) at full
+    width, with exact K1 launch counts; K1 at the new shape against its plain
+    version; card against CPU; timings."""
+    from versband_tpu_torch.models.samplers import ddpm_sample_loop
+    from versband_tpu_torch.models.schedules import DiffusionSchedule
+
+    t0 = time.perf_counter()
+    ldm, voc, clap = build_audioldm(dev)
+    print(f"[audioldm] built {type(ldm).__name__} from {CLI_CONFIG} with target {LDM_TARGET} "
+          f"(DiT {sum(p.numel() for p in ldm.model.parameters()) / 1e6:.1f} M, VAE, "
+          f"{ldm.num_timesteps} timesteps linear {ldm.schedule.betas[0]:.5f}-"
+          f"{ldm.schedule.betas[-1]:.5f}), HiFi-GAN, CLAP (Cnn14 "
+          f"{sum(p.numel() for p in clap.audio_encoder.parameters()) / 1e6:.1f} M, BERT "
+          f"{sum(p.numel() for p in clap.caption_encoder.base.parameters()) / 1e6:.1f} M from "
+          f"{BERT_DIR}) in {time.perf_counter() - t0:.1f} s")
+    cond, uncond = ldm_context(dev, T_MEL, SEED + 10)
+    counts, res = {}, {}
+    n = T_MEL * HOP
+    for name, plms, S in (("ddim", False, LDM_DDIM_S), ("plms", True, LDM_PLMS_S)):
+        events, trace = [], {}
+        model = ldm.model
+        ldm.model = _CallThrough(model, events)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+        torch.cuda.synchronize()
+        reset_launches()  # count only the main path's launches
+        t1 = time.perf_counter()
+        wav = ldm.generate_batch(cond, LDM_CAPTIONS, voc.waveform, clap, gen, uncond=uncond,
+                                 guidance_scale=LDM_SCALE, n_candidates=LDM_N, ddim_steps=S,
+                                 eta=LDM_ETA, use_plms=plms, shape=(1, 20, T_LAT), trace=trace)
+        wall = time.perf_counter() - t1
+        counts[name] = fa.LAUNCHES
+        ldm.model = model
+        calls = len(events)
+        want_calls = S + int(plms)
+        if calls != want_calls or counts[name] != DIT["depth"] * want_calls:
+            raise AssertionError(f"[audioldm] {name}: {calls} model calls, {counts[name]} K1 "
+                                 f"launches; expected {want_calls} and "
+                                 f"{DIT['depth'] * want_calls}")
+        w = trace["waveform"]
+        if tuple(w.shape) != (LDM_N, n) or not torch.isfinite(w).all() or not w.std() > 0:
+            raise AssertionError(f"[audioldm] {name}: candidates {tuple(w.shape)}, finite "
+                                 f"{bool(torch.isfinite(w).all())}")
+        if wav.shape != (1, n) or not np.isfinite(wav).all():
+            raise AssertionError(f"[audioldm] {name}: the chosen waveform {wav.shape}")
+        step_ms = events[0].elapsed_time(events[-1]) / (calls - 1)
+        res[name] = dict(step_ms=step_ms, wall=wall, best=trace["best_index"])
+        print(f"[audioldm] {name} S {S}: {calls} DiT calls at batch {2 * LDM_N} (CFG), K1 "
+              f"launches {counts[name]} (= 4 x {want_calls}); {step_ms:.2f} ms per step (device, "
+              f"between the calls' ends); generate_batch host wall {wall * 1e3:.1f} ms; "
+              f"candidates {tuple(w.shape)} finite, chosen row {trace['best_index']}, "
+              f"similarities {np.round(trace['sims'][:, 0], 4).tolist()}")
+
+    # the ancestral loop, B 1 without CFG
+    sched = ldm.schedule if LDM_ANCESTRAL_T == ldm.num_timesteps else DiffusionSchedule.create(
+        LDM_ANCESTRAL_T, "linear", 0.00085, 0.012)
+    if LDM_ANCESTRAL_T != ldm.num_timesteps:
+        print(f"[audioldm] ancestral loop cut to {LDM_ANCESTRAL_T} of {ldm.num_timesteps} "
+              f"timesteps (the same linear range)")
+    events = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    z = ddpm_sample_loop(_CallThrough(ldm.model, events), sched, (1, 20, T_LAT), cond, gen,
+                         device=dev)
+    torch.cuda.synchronize()
+    anc_wall = time.perf_counter() - t1
+    counts["ancestral"] = fa.LAUNCHES
+    if counts["ancestral"] != DIT["depth"] * LDM_ANCESTRAL_T or not torch.isfinite(z).all():
+        raise AssertionError(f"[audioldm] ancestral: {counts['ancestral']} K1 launches "
+                             f"(expected {DIT['depth'] * LDM_ANCESTRAL_T}), finite "
+                             f"{bool(torch.isfinite(z).all())}")
+    anc_ms = events[0].elapsed_time(events[-1]) / (len(events) - 1)
+    print(f"[audioldm] ancestral T {LDM_ANCESTRAL_T} at B 1: K1 launches {counts['ancestral']} "
+          f"(= 4 x {LDM_ANCESTRAL_T}); {anc_ms:.2f} ms per step (device); host wall "
+          f"{anc_wall:.2f} s; latents {tuple(z.shape)} finite, |z|max {z.abs().max():.3f}")
+
+    # the rerank's parts, timed on the card
+    wav3 = torch.randn(LDM_N, n, generator=torch.Generator(device=dev).manual_seed(SEED + 62),
+                       device=dev) * 0.1
+    cnn_ms = cuda_ms(lambda: clap.audio_encoder(wav3), 5) / LDM_N
+    ids = torch.from_numpy(np.asarray(clap.tokenize(LDM_CAPTIONS), np.int64)).to(dev)
+    bert_ms = cuda_ms(lambda: clap.caption_encoder.base(ids), 20)
+    rerank_ms = LDM_N * cnn_ms + bert_ms
+    print(f"[audioldm] CLAP: Cnn14 {cnn_ms:.2f} ms per 20 s candidate, BERT "
+          f"{tuple(ids.shape)} {bert_ms:.2f} ms per call (device); the rerank ~{rerank_ms:.1f} ms "
+          f"is {rerank_ms / (res['ddim']['wall'] * 1e3):.2%} of DDIM's generate_batch wall and "
+          f"{rerank_ms / (res['plms']['wall'] * 1e3):.2%} of PLMS's")
+
+    # K1 at the new shape: DDIM/PLMS with CFG over 3 candidates, fp32
+    g = torch.Generator(device=dev).manual_seed(SEED + 63)
+    q, k, v = (torch.randn(2 * LDM_N, T_LAT, 8, 96, generator=g, device=dev) for _ in range(3))
+    got, _ = fa.flash_attention_fwd(q, k, v)
+    ref, _ = fa._reference_fwd(q, k, v, None, 1.0 / math.sqrt(96))
+    err = _max_diff(got, ref)
+    if not err <= K1_TOL[torch.float32]:
+        raise AssertionError(f"[audioldm] K1 at q{tuple(q.shape)} fp32 disagrees: {err}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 50)
+    plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), 10)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 50)
+    bound, by = k1_bound_ms(q, k, v, None)
+    print(f"[audioldm] K1 q{tuple(q.shape)} fp32: max|kernel-plain| {err:.3e} (tol "
+          f"{K1_TOL[torch.float32]:g}); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"scaled_dot_product_attention {lib:.4f} ms, bound {bound:.4f} ms ({by}), kernel at "
+          f"{bound / ms:.1%} of bound")
+
+    phase_audioldm_parity(ldm, voc, clap, dev)
+    shutil.rmtree(BERT_DIR, ignore_errors=True)
+    print(f"[audioldm] phase wall {time.perf_counter() - t0:.1f} s")
+    return {"k1": sum(counts.values())}
+
+
+class _CallThrough:
+    """A backbone that records a CUDA event after each call (to time the
+    sampler's steps on the card) and otherwise is the backbone."""
+
+    def __init__(self, model, events: list):
+        self.model, self.events = model, events
+
+    def __call__(self, *args, **kw):
+        out = self.model(*args, **kw)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_card()
@@ -2865,6 +3187,7 @@ def main() -> None:
     voc_bigvgan = phase_voc_train_bigvgan(dev)
     voc_pwg = phase_voc_train_pwg(dev)
     phase_voc_step_parity(dev)
+    audioldm = phase_audioldm(dev)
     print(f"[voc-train] per step (device, median): hifigan {voc_hifigan['ms']:.2f} ms "
           f"({voc_hifigan['peak_gib']:.2f} GiB), bigvgan {voc_bigvgan['ms']:.2f} ms "
           f"({voc_bigvgan['peak_gib']:.2f} GiB), pwg {voc_pwg['ms']:.2f} ms "
@@ -2878,7 +3201,7 @@ def main() -> None:
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/flash_attn_fwd.cu",
          "replaces": "versband_tpu/ops/flash_attention.py:57",
-         "launches": n_serve["k1"] + n_train[0] + n_cli + n_vae_gen, **k1},
+         "launches": n_serve["k1"] + n_train[0] + n_cli + n_vae_gen + audioldm["k1"], **k1},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": bwd_src,
          "replaces": "versband_tpu/ops/flash_attention.py:162", "launches": n_train[1],
          **k23["dq"]},
@@ -2908,7 +3231,8 @@ def main() -> None:
           f"training {trained['launches'][0]}, cli {n_cli}, train-cli {n_train_cli[0]}, "
           f"prep-cli {prep['launches'][0]}, ddp {ddp['launches'][0]}, "
           f"vae-train-cli's cli.generate {n_vae_gen} "
-          f"(its K2/K3 {n_train_cli[1]}/{n_train_cli[2]}); K4 {n_serve['k4']} (bigvgan) + "
+          f"(train-cli's K2/K3 {n_train_cli[1]}/{n_train_cli[2]}), audioldm {audioldm['k1']}; "
+          f"K4 {n_serve['k4']} (bigvgan) + "
           f"{n_vae_cli} (vae-train-cli audio logs) + {voc_bigvgan['k4']} (the trained "
           f"BigVGAN), K5 {n_serve['k5']} (pwg) + {voc_pwg['k5']} (the trained PWG)")
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s wall, kernel builds included")

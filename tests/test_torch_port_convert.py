@@ -2,7 +2,11 @@
 
 * Round trip: the port's state_dict -> the JAX package's converter ->
   ``state_dict_from_jax`` gives back the same keys and bit-identical values,
-  for every family of the port (DiT, VAE, HiFi-GAN, BigVGAN, PWG).
+  for every family of the port (DiT, VAE, HiFi-GAN, BigVGAN, PWG, CLAP).
+  CLAP's BatchNorms come back in the canonical form (running statistics 0
+  and 1, the folded scale times sqrt(1 + eps)), so the test starts from
+  that form; those weights agree to 1 ulp, everything else bit for bit. Its
+  BERT tower travels as a directory, not through the converter.
 * No file of ``versband_tpu_torch/`` and not ``chip_smoke.py`` imports
   ``jax``, ``flax`` or ``versband_tpu``, nor a package the card's machine
   lacks (``yaml``, ``pandas``, ``transformers``, ``tokenizers``,
@@ -10,6 +14,7 @@
 """
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -18,12 +23,13 @@ import torch
 
 from versband_tpu_torch.models.autoencoder import AutoencoderKL
 from versband_tpu_torch.models.dit import BandMoeDiT
+from versband_tpu_torch.text.clap import CLAP
 from versband_tpu_torch.utils.convert import state_dict_from_jax
 from versband_tpu_torch.vocoder.bigvgan import BigVGANGenerator
 from versband_tpu_torch.vocoder.hifigan import HifiGanGenerator
 from versband_tpu_torch.vocoder.pwg import ParallelWaveGANGenerator
-from torch_port_helpers import (BIGVGAN_TINY, DIT_TINY, PWG_TINY, VAE_TINY, VOC_TINY,
-                                randomize_, to_jax)
+from torch_port_helpers import (BERT_TINY, BIGVGAN_TINY, CLAP_TINY, DIT_TINY, PWG_TINY,
+                                VAE_TINY, VOC_TINY, randomize_, to_jax)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "flax", "versband_tpu", "yaml", "pandas", "transformers", "tokenizers",
@@ -39,22 +45,41 @@ FORBIDDEN = {"jax", "flax", "versband_tpu", "yaml", "pandas", "transformers", "t
     ("bigvgan", lambda: randomize_(BigVGANGenerator(**BIGVGAN_TINY), 1),
      {"num_resblock_kernels": 2}),
     ("pwg", lambda: ParallelWaveGANGenerator(**PWG_TINY), {}),
+    ("clap", lambda: _clap(), {}),
 ])
 def test_state_dict_round_trip(family, build, kw):
     torch.manual_seed(0)
     module = build()
     sd = module.state_dict()
+    if family == "clap":  # the BERT tower travels as a directory
+        sd = {k: v for k, v in sd.items() if not k.startswith("caption_encoder.base.")}
     back = state_dict_from_jax(to_jax(module, family, **kw), family)
     assert set(back) == set(sd)
     for k, v in sd.items():
-        assert back[k].shape == v.shape, k
-        np.testing.assert_array_equal(back[k].numpy(), v.numpy(), err_msg=k)
-    module.load_state_dict(back)  # strict
+        assert back[k].shape == v.shape and back[k].dtype == v.dtype, k
+        if family == "clap" and re.search(r"bn\d\.weight$", k):
+            np.testing.assert_allclose(back[k].numpy(), v.numpy(), rtol=1.2e-7, err_msg=k)
+        else:
+            np.testing.assert_array_equal(back[k].numpy(), v.numpy(), err_msg=k)
+    module.load_state_dict(back, strict=family != "clap")
+
+
+def _clap():
+    """A tiny CLAP whose BatchNorms are in the canonical form the converter
+    gives back, their weights and biases off their init."""
+    clap = CLAP(text_model="missing", fallback_config=BERT_TINY, device="cpu", **CLAP_TINY)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in clap.named_parameters():
+            if re.search(r"bn\d\.(weight|bias)$", name):
+                p.add_(torch.randn(p.shape, generator=g) * 0.3)
+    return clap
+
 
 
 def test_unknown_family_raises():
     with pytest.raises(ValueError, match="family"):
-        state_dict_from_jax({}, "clap")
+        state_dict_from_jax({}, "no_such_family")
 
 
 def _imported_roots(path: Path):

@@ -37,6 +37,13 @@ backward) at tiny widths, card against CPU: losses 1e-5 relative, each
 parameter's gradient 1e-4 of its own largest, floored at 1e-3 of the largest
 of all (fp32, TF32 off, summed in another order), no kernel of K1-K4
 launched.
+
+The classic samplers over a small DiT (depth 4, head dim 32) on the card:
+4 K1 launches per model call (one per block; CFG is one batch-doubled
+call), the latents within 2e-3 of the CPU's from the same draws (fp32,
+TF32 off, summation order through 4 blocks over 10 steps). CLAP (Cnn14 and the BERT
+caption tower, plain PyTorch) on the card against the CPU: 1e-4 of the
+embeddings' scale.
 """
 
 import math
@@ -794,3 +801,90 @@ def test_nsf_serves_on_the_card(cuda):
     with torch.no_grad():
         ref = cpu.model(torch.from_numpy(mel)[None], f0, init_phase=phase, noise=noise)
     assert np.abs(wav - ref[0].numpy()).max() <= 1e-4 * max(1.0, np.abs(wav).max())
+
+
+def _small_dit(cuda):
+    import copy
+
+    from versband_tpu_torch.models.dit import BandMoeDiT
+
+    torch.manual_seed(0)
+    cpu = BandMoeDiT(in_channels=4, context_dim=64, hidden_size=64, depth=4, num_heads=2,
+                     max_len=128, num_experts=2, ori_dim=12, multiple_of=8, use_flash=True).eval()
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "adaLN" in name or "final_layer" in name or name.endswith("gate"):
+                p.normal_(0, 0.2)
+    return cpu, copy.deepcopy(cpu).to(cuda)
+
+
+def _dit_ctx(rng, B, t_mel, dev):
+    return {"c_concat": {"midi": torch.from_numpy(rng.randint(0, 130, (B, 1, t_mel))).to(dev),
+                         "beats": torch.from_numpy(rng.randint(0, 3, (B, 1, t_mel))).to(dev)},
+            "c_crossattn": torch.from_numpy(rng.randn(B, 5, 12).astype(np.float32)).to(dev)}
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "plms"])
+def test_samplers_over_a_dit_launch_k1_per_block_and_match_the_cpu(cuda, sampler):
+    """DDIM (eta 1, CFG 2) and PLMS over 10 of 1000 timesteps: 4 K1 launches
+    per model call (10 calls for DDIM, 11 for PLMS), the latents within 2e-3
+    of the CPU's plain path from the same draws."""
+    from versband_tpu_torch.models.samplers import DDIMSampler, PLMSSampler
+    from versband_tpu_torch.models.schedules import DiffusionSchedule
+
+    cpu, gpu = _small_dit(cuda)
+    sched = DiffusionSchedule.create(1000, "linear", 0.00085, 0.012)
+    rng = np.random.RandomState(2)
+    shape = (2, 4, 40)
+    x_T = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    draws = [torch.from_numpy(rng.randn(*shape).astype(np.float32)) for _ in range(10)]
+    out = {}
+    for model, dev in ((gpu, cuda), (cpu, torch.device("cpu"))):
+        rng = np.random.RandomState(4)
+        ctx, uctx = _dit_ctx(rng, 2, 80, dev), _dit_ctx(rng, 2, 80, dev)
+        kw = dict(S=10, unconditional_guidance_scale=2.0, unconditional_conditioning=uctx,
+                  x_T=x_T.to(dev))
+        n = fa.LAUNCHES
+        if sampler == "ddim":
+            z = DDIMSampler(model, sched).sample(shape, ctx, eta=1.0,
+                                                 noise=lambda i: draws[i].to(dev), **kw)
+        else:
+            z = PLMSSampler(model, sched).sample(shape, ctx, **kw)
+        torch.cuda.synchronize()
+        out[dev.type] = (z, fa.LAUNCHES - n)
+    calls = 10 + (sampler == "plms")
+    assert out["cuda"][1] == 4 * calls and out["cpu"][1] == 0
+    z, ref = out["cuda"][0].cpu(), out["cpu"][0]
+    assert torch.isfinite(z).all() and (z - x_T).abs().max() > 1e-2
+    assert (z - ref).abs().max().item() <= 2e-3
+
+
+def test_clap_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Cnn14 (BatchNorm statistics off their defaults) and the BERT tower
+    read from a directory, card against CPU, fp32."""
+    import chip_smoke
+    from versband_tpu_torch.text.clap import CLAP
+
+    bert = dict(chip_smoke.BERT_BASE_UNCASED, hidden_size=64, num_hidden_layers=2,
+                num_attention_heads=4, intermediate_size=96)
+    chip_smoke.write_bert_dir(tmp_path / "bert", bert, seed=0)
+    kw = dict(d_proj=32, cnn_kwargs=dict(channels=(8, 16, 16, 32, 32, 64), out_emb=32),
+              text_model=str(tmp_path / "bert"))
+    cpu = CLAP(device="cpu", **kw)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(1)
+        for name, b in cpu.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(torch.randn(b.shape, generator=g) * 0.3)
+            elif name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=g) + 0.5)
+    gpu = CLAP(device=cuda, **kw)
+    gpu.load_state_dict(cpu.state_dict())
+    wav = np.random.RandomState(0).randn(2, 44100 * 2).astype(np.float32) * 0.1
+    texts = ["Style: soft piano Musical: a calm melody", "loud drums"]
+    a, t = cpu.get_audio_embeddings(wav), cpu.get_text_embeddings(texts)
+    ga, gt = gpu.get_audio_embeddings(wav), gpu.get_text_embeddings(texts)
+    assert ga.device.type == "cuda" and ga.shape == (2, 32) and gt.shape == (2, 32)
+    sims = (gpu.compute_similarity(ga, gt), cpu.compute_similarity(a, t))
+    for got, ref in ((ga, a), (gt, t), sims):
+        assert (got.cpu() - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())

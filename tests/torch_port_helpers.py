@@ -404,3 +404,60 @@ def write_stage1_manifest(root, n_rows: int, lengths=(25, 40, 57, 71), seed: int
     where.mkdir(parents=True, exist_ok=True)
     pd.DataFrame(rows).to_csv(where / "a.tsv", sep="\t", index=False)
     return str(root / "manifests")
+
+
+# -- BERT / CLAP fixtures ------------------------------------------------------
+# tests/test_clap_conversion.py's tiny CLAP geometry (4 conv blocks, so a
+# clip of 512 samples at 8 kHz keeps a frame after its three pools)
+BERT_TINY = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+                 intermediate_size=48, vocab_size=211)
+CLAP_TINY = dict(d_proj=12, cnn_kwargs=dict(
+    sample_rate=8000, window_size=256, hop_size=64, mel_bins=64, fmin=50.0, fmax=3800.0,
+    classes_num=5, out_emb=16, channels=(4, 8, 8, 16)))
+SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+WORDPIECE_CORPUS = [
+    "A calm piano ballad in C major, slow tempo.", "Heavy drums; loud guitars!",
+    "Crème brûlée à la café: naïve façade", "中文 歌曲 with 鋼琴 and strings",
+    "punctuation (brackets) [x] {y} $100 #tag @me 50% a+b=c ~tilde", "ÀÉÎÕÜ ΟΔΟΣ straße",
+    "soft jazz with saxophone and double bass", "electronic dance music at 128 bpm"]
+
+
+def train_wordpiece_tokenizer(corpus=WORDPIECE_CORPUS, vocab_size: int = 211,
+                              lowercase: bool = True, strip_accents=None,
+                              max_input_chars_per_word: int = 100):
+    """A bert-base-uncased style ``tokenizers.Tokenizer`` trained on ``corpus``:
+    BertNormalizer, BertPreTokenizer, WordPiece with [UNK] and ``##``,
+    ``[CLS] $A [SEP]``."""
+    from tokenizers import Tokenizer, models, normalizers, pre_tokenizers, processors, trainers
+
+    tok = Tokenizer(models.WordPiece(unk_token="[UNK]",
+                                     max_input_chars_per_word=max_input_chars_per_word))
+    tok.normalizer = normalizers.BertNormalizer(lowercase=lowercase, strip_accents=strip_accents)
+    tok.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    tok.train_from_iterator(list(corpus) * 3, trainers.WordPieceTrainer(
+        vocab_size=vocab_size, special_tokens=SPECIALS))
+    cls, sep = tok.token_to_id("[CLS]"), tok.token_to_id("[SEP]")
+    tok.post_processor = processors.TemplateProcessing(
+        single="[CLS] $A [SEP]", special_tokens=[("[CLS]", cls), ("[SEP]", sep)])
+    return tok
+
+
+def write_bert_dir(path, config: dict = BERT_TINY, seed: int = 0, tokenizer="train",
+                   safe_serialization: bool = True):
+    """A Hugging Face BERT checkpoint directory (``config.json``, random
+    ``transformers.BertModel`` weights from ``seed``) and, unless
+    ``tokenizer`` is None, a WordPiece tokenizer saved through
+    ``BertTokenizerFast`` (``tokenizer.json``, ``vocab.txt``)."""
+    from transformers import BertConfig, BertModel, BertTokenizerFast
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = BertModel(BertConfig(**config)).eval()
+    model.save_pretrained(str(path), safe_serialization=safe_serialization)
+    if tokenizer is not None:
+        tok = train_wordpiece_tokenizer(vocab_size=config["vocab_size"]) \
+            if tokenizer == "train" else tokenizer
+        BertTokenizerFast(tokenizer_object=tok, unk_token="[UNK]", pad_token="[PAD]",
+                          cls_token="[CLS]", sep_token="[SEP]",
+                          mask_token="[MASK]").save_pretrained(str(path))
+    return path

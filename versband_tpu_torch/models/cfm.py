@@ -144,7 +144,9 @@ class LatentDiffusion:
                  timesteps: int = 1000,
                  beta_schedule: str = "linear", linear_start: float = 0.00085,
                  linear_end: float = 0.012, cosine_s: float = 8e-3,
-                 mel_dim: int = 20, scale_by_std: bool = True, scale_factor: float = 1.0,
+                 mel_dim: int = 20, mel_length: int = 750, first_stage_key: str = "image",
+                 cond_stage_key: str = "caption", conditioning_key: str = "hybrid",
+                 scale_by_std: bool = True, scale_factor: float = 1.0,
                  use_ema: bool = False, scheduler_config=None, l_simple_weight: float = 1.0,
                  device: DeviceLike = None, dtype: torch.dtype = torch.float32, **kwargs):
         self.device = resolve_device(device)
@@ -153,6 +155,10 @@ class LatentDiffusion:
                                                  linear_end, cosine_s)
         self.num_timesteps = timesteps
         self.mel_dim = mel_dim
+        self.mel_length = mel_length
+        self.first_stage_key = first_stage_key
+        self.cond_stage_key = cond_stage_key
+        self.conditioning_key = conditioning_key
         self.scale_by_std = scale_by_std
         self.scale_factor = float(scale_factor)
         self.use_ema = use_ema
@@ -204,12 +210,15 @@ class LatentDiffusion:
         """ceil(T_cond / 2): latent frames for a conditioning of T mel frames."""
         return math.ceil(cond_length / 2)
 
-    def get_learned_conditioning(self, cond: Dict[str, Any]) -> Dict[str, Any]:
-        """The cond dict with its captions encoded by the cond stage, cast to
-        the model's dtype; as it is without a cond stage."""
+    def get_learned_conditioning(self, cond: Any) -> Any:
+        """The cond dict with its captions encoded by the cond stage (or, for
+        a text cond stage, the encoded texts), cast to the model's dtype; as
+        it is without a cond stage."""
         if self.cond_stage is None:
             return cond
         out = self.cond_stage(cond)
+        if not isinstance(out, dict):
+            return out.to(self.dtype)
         return {**out, "caption": out["caption"].to(self.dtype)}
 
 

@@ -1,5 +1,5 @@
-"""Caption tokenizers in pure Python: the hashing fallback and a reader of
-T5's ``tokenizer.json``.
+"""Caption tokenizers in pure Python: the hashing fallback and readers of
+T5's and BERT's ``tokenizer.json``.
 
 ``HashTokenizer`` is a byte-exact copy of the JAX package's fallback
 (``versband_tpu/text/embedders.py:39-59``): md5 of the lowercased words,
@@ -19,7 +19,24 @@ tokenizes as the ``tokenizers`` library does, with no package:
   scored ``min_score - 10`` and runs of them fused into one ``unk_id``;
 * ``TemplateProcessing`` (``$A </s>``).
 
-It serves the call the JAX tower makes (``:127-130``): truncation to
+``WordPieceTokenizer`` reads BERT's file (bert-base-uncased's pipeline):
+
+* the ``BertNormalizer``: clean_text (NUL, U+FFFD and control characters
+  dropped, whitespace made a space), spaces around CJK ideographs, accents
+  stripped (NFD, nonspacing marks dropped; by default when lowercasing),
+  lowercase character by character;
+* the ``BertPreTokenizer``: split on whitespace, punctuation isolated (ASCII
+  punctuation and the Unicode P categories);
+* a ``WordPiece`` model: greedy longest match from the word's start, later
+  pieces with the ``##`` prefix; a word with no match, or longer than
+  ``max_input_chars_per_word`` characters, becomes the unknown token;
+* ``TemplateProcessing`` (``[CLS] $A [SEP]``) or ``BertProcessing``.
+
+It also builds that pipeline from a bare ``vocab.txt``, as ``transformers``
+converts a slow BERT tokenizer. The Bert components are read for a
+WordPiece model only; a T5 file has none.
+
+Both serve the call the JAX towers make (``:127-130``): truncation to
 ``max_length`` keeping room for the template's special tokens, padding to
 ``max_length`` with the pad id, int64 ids ``[B, max_length]``. A component of
 another kind raises ``NotImplementedError`` naming it; none is dropped.
@@ -220,13 +237,71 @@ def _pattern(spec: dict) -> Tuple[str, bool]:
     raise NotImplementedError(f"pattern {spec}")
 
 
-def build_normalizer(spec: Optional[dict]):
-    """A ``str -> str`` function for a ``tokenizer.json`` normalizer."""
+def _is_cjk(cp: int) -> bool:
+    return (0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF or 0x20000 <= cp <= 0x2A6DF
+            or 0x2A700 <= cp <= 0x2B73F or 0x2B740 <= cp <= 0x2B81F or 0x2B920 <= cp <= 0x2CEAF
+            or 0xF900 <= cp <= 0xFAFF or 0x2F800 <= cp <= 0x2FA1F)
+
+
+def bert_normalizer(clean_text: bool = True, handle_chinese_chars: bool = True,
+                    strip_accents: Optional[bool] = None, lowercase: bool = True):
+    """The ``tokenizers`` ``BertNormalizer`` as a ``str -> str`` function."""
+    if strip_accents is None:
+        strip_accents = lowercase
+
+    def run(text: str) -> str:
+        if clean_text:
+            text = "".join(" " if (c in "\t\n\r" or c in WHITESPACE) else c for c in text
+                           if not (c in "\0\ufffd" or (c not in "\t\n\r"
+                                                       and unicodedata.category(c)[0] == "C")))
+        if handle_chinese_chars:
+            text = "".join(f" {c} " if _is_cjk(ord(c)) else c for c in text)
+        if strip_accents:
+            text = "".join(c for c in unicodedata.normalize("NFD", text)
+                           if unicodedata.category(c) != "Mn")
+        if lowercase:
+            text = "".join(c.lower() for c in text)  # per character, as Rust's to_lowercase
+        return text
+    return run
+
+
+def _is_bert_punct(c: str) -> bool:
+    return (c.isascii() and not c.isalnum() and 0x21 <= ord(c) <= 0x7E) \
+        or unicodedata.category(c).startswith("P")
+
+
+def bert_pre_tokenize(pieces):
+    """The ``BertPreTokenizer``: whitespace removed, each punctuation
+    character a piece of its own."""
+    out = []
+    for text, first in pieces:
+        word, start = [], first
+        for c in text:
+            if c in WHITESPACE or _is_bert_punct(c):
+                if word:
+                    out.append(("".join(word), start))
+                    word = []
+                if c not in WHITESPACE:
+                    out.append((c, start))
+                start = False
+            else:
+                word.append(c)
+        if word:
+            out.append(("".join(word), start))
+    return out
+
+
+def build_normalizer(spec: Optional[dict], bert: bool = False):
+    """A ``str -> str`` function for a ``tokenizer.json`` normalizer
+    (``BertNormalizer`` only with ``bert``)."""
     if spec is None:
         return lambda s: s
     kind = spec["type"]
+    if kind == "BertNormalizer" and bert:
+        return bert_normalizer(spec.get("clean_text", True), spec.get("handle_chinese_chars", True),
+                               spec.get("strip_accents"), spec.get("lowercase", True))
     if kind == "Sequence":
-        steps = [build_normalizer(s) for s in spec["normalizers"]]
+        steps = [build_normalizer(s, bert) for s in spec["normalizers"]]
 
         def run(s):
             for step in steps:
@@ -256,14 +331,17 @@ def build_normalizer(spec: Optional[dict]):
     raise NotImplementedError(f"tokenizer.json normalizer {kind!r}")
 
 
-def build_pre_tokenizer(spec: Optional[dict]):
+def build_pre_tokenizer(spec: Optional[dict], bert: bool = False):
     """A ``(pieces) -> pieces`` function; each piece is ``(text, first)``,
-    ``first`` saying the piece starts at offset 0 of the text."""
+    ``first`` saying the piece starts at offset 0 of the text
+    (``BertPreTokenizer`` only with ``bert``)."""
     if spec is None:
         return lambda pieces: pieces
     kind = spec["type"]
+    if kind == "BertPreTokenizer" and bert:
+        return bert_pre_tokenize
     if kind == "Sequence":
-        steps = [build_pre_tokenizer(s) for s in spec["pretokenizers"]]
+        steps = [build_pre_tokenizer(s, bert) for s in spec["pretokenizers"]]
 
         def run(pieces):
             for step in steps:
@@ -376,18 +454,53 @@ class Unigram:
         return [self.ids.get(t, self.unk_id) for t in self.tokenize(text)]
 
 
-class UnigramTokenizer:
-    """A T5 ``tokenizer.json`` (see the module docstring)."""
+class WordPiece:
+    """The ``tokenizers`` WordPiece model."""
+
+    def __init__(self, vocab: Dict[str, int], unk_token: str = "[UNK]",
+                 continuing_subword_prefix: str = "##", max_input_chars_per_word: int = 100):
+        self.ids = dict(vocab)
+        self.unk_token = unk_token
+        self.prefix = continuing_subword_prefix
+        self.max_chars = max_input_chars_per_word
+
+    def tokenize(self, word: str) -> List[str]:
+        if len(word) > self.max_chars:
+            return [self.unk_token]
+        out, start = [], 0
+        while start < len(word):
+            end = len(word)
+            while end > start:
+                piece = word[start:end] if start == 0 else self.prefix + word[start:end]
+                if piece in self.ids:
+                    break
+                end -= 1
+            else:
+                return [self.unk_token]
+            out.append(piece)
+            start = end
+        return out
+
+    def encode(self, word: str) -> List[int]:
+        return [self.ids[t] for t in self.tokenize(word)]
+
+
+class _JsonTokenizer:
+    """A ``tokenizer.json``: added tokens, normalizer, pre-tokenizer, the
+    model of type ``MODEL``, post-processor; called as the JAX towers call
+    ``transformers`` (see the module docstring)."""
+
+    MODEL = ""
+    PAD = ""
+    BERT = False  # read the Bert normalizer, pre-tokenizer and post-processor
 
     def __init__(self, spec: Dict):
         model = spec["model"]
-        if model.get("type") != "Unigram":
+        if model.get("type") != self.MODEL:
             raise NotImplementedError(f"tokenizer.json model {model.get('type')!r}")
-        if model.get("byte_fallback"):
-            raise NotImplementedError("Unigram byte_fallback")
-        self.model = Unigram([tuple(v) for v in model["vocab"]], model.get("unk_id"))
-        self.normalize = build_normalizer(spec.get("normalizer"))
-        self.pre_tokenize = build_pre_tokenizer(spec.get("pre_tokenizer"))
+        self.model = self._build_model(model)
+        self.normalize = build_normalizer(spec.get("normalizer"), self.BERT)
+        self.pre_tokenize = build_pre_tokenizer(spec.get("pre_tokenizer"), self.BERT)
         self.added = {}
         for tok in spec.get("added_tokens") or []:
             if tok.get("normalized") or tok.get("lstrip") or tok.get("rstrip") \
@@ -400,15 +513,19 @@ class UnigramTokenizer:
                           if self.added else None)
         self.template, self.n_special = self._template(spec.get("post_processor"))
         pad = spec.get("padding") or {}
-        self.pad_id = pad.get("pad_id", self.token_id("<pad>", 0))
+        self.pad_id = pad.get("pad_id", self.token_id(self.PAD, 0))
+
+    def _build_model(self, spec: Dict):
+        raise NotImplementedError
 
     def token_id(self, token: str, default: Optional[int] = None) -> Optional[int]:
         return self.added.get(token, self.model.ids.get(token, default))
 
-    @staticmethod
-    def _template(spec: Optional[dict]) -> Tuple[List, int]:
+    def _template(self, spec: Optional[dict]) -> Tuple[List, int]:
         if spec is None:
             return [("A", None)], 0
+        if spec["type"] == "BertProcessing" and self.BERT:
+            return [("S", [spec["cls"][1]]), ("A", None), ("S", [spec["sep"][1]])], 2
         if spec["type"] != "TemplateProcessing":
             raise NotImplementedError(f"tokenizer.json post_processor {spec['type']!r}")
         out, n = [], 0
@@ -424,7 +541,7 @@ class UnigramTokenizer:
         return out, n
 
     @classmethod
-    def from_file(cls, path: str) -> "UnigramTokenizer":
+    def from_file(cls, path: str):
         with open(path, encoding="utf-8") as f:
             return cls(json.load(f))
 
@@ -465,3 +582,48 @@ class UnigramTokenizer:
             row = row[:max_length] if truncation else row
             rows.append(row + [self.pad_id] * (max_length - len(row)))
         return {"input_ids": np.asarray(rows, np.int64).reshape(len(rows), max_length)}
+
+
+class UnigramTokenizer(_JsonTokenizer):
+    """A T5 ``tokenizer.json`` (see the module docstring)."""
+
+    MODEL = "Unigram"
+    PAD = "<pad>"
+
+    def _build_model(self, model: Dict) -> Unigram:
+        if model.get("byte_fallback"):
+            raise NotImplementedError("Unigram byte_fallback")
+        return Unigram([tuple(v) for v in model["vocab"]], model.get("unk_id"))
+
+
+class WordPieceTokenizer(_JsonTokenizer):
+    """A BERT ``tokenizer.json`` (see the module docstring)."""
+
+    MODEL = "WordPiece"
+    PAD = "[PAD]"
+    BERT = True
+
+    def _build_model(self, model: Dict) -> WordPiece:
+        return WordPiece(model["vocab"], model.get("unk_token", "[UNK]"),
+                         model.get("continuing_subword_prefix", "##"),
+                         model.get("max_input_chars_per_word", 100))
+
+    @classmethod
+    def from_vocab_file(cls, path: str, do_lower_case: bool = True,
+                        strip_accents: Optional[bool] = None,
+                        tokenize_chinese_chars: bool = True) -> "WordPieceTokenizer":
+        """The pipeline ``transformers`` builds from a bare ``vocab.txt``
+        (one token per line, ids by line), with the special tokens
+        ``[PAD] [UNK] [CLS] [SEP] [MASK]`` that it holds."""
+        with open(path, encoding="utf-8") as f:
+            vocab = {line.rstrip("\n"): i for i, line in enumerate(f)}
+        specials = [t for t in ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]") if t in vocab]
+        return cls({
+            "model": {"type": "WordPiece", "vocab": vocab, "unk_token": "[UNK]"},
+            "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                           "handle_chinese_chars": tokenize_chinese_chars,
+                           "strip_accents": strip_accents, "lowercase": do_lower_case},
+            "pre_tokenizer": {"type": "BertPreTokenizer"},
+            "post_processor": {"type": "BertProcessing", "cls": ["[CLS]", vocab["[CLS]"]],
+                               "sep": ["[SEP]", vocab["[SEP]"]]},
+            "added_tokens": [{"id": vocab[t], "content": t} for t in specials]})

@@ -80,14 +80,9 @@ TARGET_ALIASES = {
 # JAX-package targets the port does not have yet -> the ROADMAP Queue 1 item
 # that ports them (a module, or one class of a module the port has in part).
 NOT_PORTED = {
-    "versband_tpu.models.ldm_variants": 13,
     "versband_tpu.models.dit_timefreq": 13,
     "versband_tpu.models.concat_dit": 13,
     "versband_tpu.models.autoencoder2d": 13,
-    "versband_tpu.text.embedders.ClapTextEmbedder": 13,
-    "versband_tpu.text.embedders.ClapFlanEmbedder": 13,
-    "versband_tpu.text.embedders.ClassEmbedder": 13,
-    "versband_tpu.text.embedders.SpatialRescaler": 13,
 }
 
 

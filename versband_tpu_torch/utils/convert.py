@@ -46,7 +46,14 @@ without importing it:
   ``main_n`` -> ``main.{3n-1}``, ``norm_n`` -> ``main.{3n}`` (BatchNorm
   ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/``running_mean``/
   ``running_var``; ActNorm ``loc``/``scale`` ``(C,)`` -> ``[1, C, 1, 1]``),
-  ``main_out`` -> ``main.{3 n_layers + 2}``.
+  ``main_out`` -> ``main.{3 n_layers + 2}``;
+* CLAP (``clap``: the audio tower, both projections and ``logit_scale``;
+  the BERT caption tower travels as a Hugging Face directory, see
+  :func:`export_clap_bert`): each folded BatchNorm ``bn*_scale``/``bn*_bias``
+  -> ``bn*.weight = scale * sqrt(1 + eps)``, ``bias``, ``running_mean`` 0,
+  ``running_var`` 1, so that the eval-mode ``BatchNorm2d`` (eps 1e-5)
+  computes the same affine; 2-D conv kernels ``(kh, kw, in, out)`` ->
+  ``[out, in, kh, kw]``.
 """
 
 from __future__ import annotations
@@ -264,9 +271,27 @@ def _vaegan_loss_state(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return sd
 
 
+BN_EPS = 1e-5  # nn.BatchNorm2d's, which the JAX converter folds with
+
+
+def _clap_special(flat: Dict[str, np.ndarray], sd: Dict[str, np.ndarray]) -> None:
+    """Unfold the BatchNorms and take ``logit_scale`` (popped from ``flat``)."""
+    for key in [k for k in flat if re.search(r"bn\d_scale$", k)]:
+        pre = key[: -len("_scale")].replace("/", ".")
+        scale, bias = flat.pop(key), flat.pop(key[: -len("scale")] + "bias")
+        sd[f"{pre}.weight"] = (scale * np.sqrt(np.float32(1) + np.float32(BN_EPS))).astype(
+            scale.dtype)
+        sd[f"{pre}.bias"] = bias
+        sd[f"{pre}.running_mean"] = np.zeros_like(scale)
+        sd[f"{pre}.running_var"] = np.ones_like(scale)
+        sd[f"{pre}.num_batches_tracked"] = np.zeros((), np.int64)
+    if "logit_scale" in flat:
+        sd["logit_scale"] = np.asarray(flat.pop("logit_scale"), np.float32).reshape(())
+
+
 GENERATORS = ("hifigan", "bigvgan", "pwg", "nsf", "code_hifigan", "melgan")
 DISCRIMINATORS = ("mpd", "msd", "mrd", "mwd", "pwg_disc", "melgan_disc")
-FAMILIES = ("dit", "vae", "t5", "vaegan_loss") + GENERATORS + DISCRIMINATORS
+FAMILIES = ("dit", "vae", "t5", "vaegan_loss", "clap") + GENERATORS + DISCRIMINATORS
 
 
 def _num_kernels(flat) -> int:
@@ -296,7 +321,9 @@ def state_dict_from_jax(params: Dict[str, Any], family: str,
     elif family == "pwg":
         _pwg_special(flat, sd)
         rules = _PWG_RULES
-    elif family == "t5":
+    elif family in ("t5", "clap"):
+        if family == "clap":
+            _clap_special(flat, sd)
         rules = []
     elif family in ("mpd", "msd", "mrd"):
         rules = _msd_rules()
@@ -325,3 +352,50 @@ def state_dict_from_jax(params: Dict[str, Any], family: str,
             key = key[: -len("weight")] + "weight_orig"  # the spectral-normed scale
         sd[key] = w
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def export_clap_bert(sd: Dict[str, Any], out_dir: str, tokenizer_src: Optional[str] = None
+                     ) -> str:
+    """The BERT caption tower of a reference CLAP state_dict
+    (``caption_encoder.base.*``) as a Hugging Face directory: ``config.json``
+    with the geometry read off the shapes (64-wide heads where the width
+    allows, as JAX ``utils/torch_convert.py::export_clap_bert`` infers them)
+    and ``model.safetensors``. The checkpoint holds no tokenizer: the
+    ``tokenizer.json``/``vocab.txt`` of ``tokenizer_src`` is copied beside
+    it, else a warning says the tower will hash words."""
+    import json
+    import os
+    import shutil
+    import warnings
+
+    from versband_tpu_torch.utils.safetensors_io import save_safetensors
+
+    prefix = "caption_encoder.base."
+    tower = {k[len(prefix):]: torch.as_tensor(np.asarray(v)) for k, v in sd.items()
+             if k.startswith(prefix) and not k.endswith(("position_ids", "token_type_ids"))}
+    if not tower:
+        raise ValueError("no caption_encoder.base.* keys in state dict")
+    emb = tower["embeddings.word_embeddings.weight"]
+    hidden = emb.shape[1]
+    layers = 1 + max(int(m[1]) for k in tower if (m := re.match(r"encoder\.layer\.(\d+)\.", k)))
+    heads = hidden // 64 if hidden % 64 == 0 else \
+        (12 if hidden % 12 == 0 else max(1, hidden // 64))
+    cfg = dict(architectures=["BertModel"], model_type="bert", hidden_size=int(hidden),
+               vocab_size=int(emb.shape[0]), num_hidden_layers=int(layers),
+               num_attention_heads=int(heads),
+               intermediate_size=int(tower["encoder.layer.0.intermediate.dense.weight"].shape[0]),
+               max_position_embeddings=int(tower["embeddings.position_embeddings.weight"].shape[0]),
+               type_vocab_size=int(tower["embeddings.token_type_embeddings.weight"].shape[0]))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    save_safetensors(tower, os.path.join(out_dir, "model.safetensors"), {"format": "pt"})
+    copied = [n for n in ("tokenizer.json", "vocab.txt", "tokenizer_config.json")
+              if tokenizer_src and os.path.exists(os.path.join(tokenizer_src, n))]
+    for n in copied:
+        shutil.copy(os.path.join(tokenizer_src, n), os.path.join(out_dir, n))
+    if not copied:
+        warnings.warn(f"no tokenizer files exported to {out_dir}; place tokenizer.json or "
+                      "vocab.txt there or caption tokenization will fall back to hashing",
+                      stacklevel=2)
+    return out_dir
