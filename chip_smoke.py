@@ -24,7 +24,11 @@ plain PyTorch version on the card:
   NCCL at world size 1, in this process and through ``torch.distributed.run``;
 * AudioLDM's best-of-N generation -- the classic samplers (DDIM, PLMS, the
   ancestral loop) over the shipped DiT, decode, HiFi-GAN and the CLAP rerank
-  (Cnn14 and a BERT caption tower at their published geometry).
+  (Cnn14 and a BERT caption tower at their published geometry);
+* the legacy backbones at their published widths -- the Time/Freq-MoE DiT
+  served through ``cli.generate`` with BigVGAN (K4 live), the order-
+  conditioned LDM over ``ConcatOrderDiT`` with DDIM, the 2-D KL first stage,
+  and every new module card against CPU at a small width.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -184,7 +188,32 @@ Phases (any failure raises and exits non-zero):
      states: 2e-3; the same chosen row); ms per step of each sampler, the
      ``generate_batch`` wall, Cnn14 per candidate, BERT per call and the
      rerank's share;
- 22. prints the whole run's wall time, the kernel table as JSON, then
+ 22. [timefreq-cli] (after phase 20, from phase 11's directory)
+     ``cli.generate.main`` on configs/vocal2music.yaml with ``unet_config``
+     swapped for ``VideoFlagLargeDiT`` (``TimeFreqMoeDiT``) at its published
+     widths (hidden 1152, depth 28, 16 heads, 8 time and 8 frequency experts;
+     ~5.2 B parameters, built on the card), its zero-init layers from a
+     partial checkpoint, 1 item at scale 2 (CFG, 24 Euler steps at B 2 x T
+     752), BigVGAN: exactly 73 K4 and 0 K1 launches, the wav 481,280 samples
+     at -23 +/- 0.5 LUFS; parameter count, ms and TFLOP/s per Euler step,
+     host wall and device time per stage, the builds' wall, peak memory;
+ 23. [legacy-modules] (after phase 18) the six ConcatDiT variants
+     (``HybridDiT2MLP2`` in both fuse modes), ``TimeFreqMoeDiT``,
+     ``SpatialTransformer`` with and without context, ``VQModel`` and
+     ``VQModelInterface`` at hidden 64-128, depth 2, zero-init weights drawn:
+     card against CPU within 2e-3 of scale, VQ indices equal, no K1;
+ 24. [ae2d] AudioLDM's first stage (``AutoencoderKL2D``, ch 128, ch_mult
+     1-2-4, z 8) on a [2, 1, 1024, 64] log-mel image: ``encode().mode()`` and
+     ``decode`` timed on the card, card against CPU within 2e-3 of scale;
+ 25. [concat-order] ``LatentDiffusionOrder`` (through the resolver) over
+     ``ConcatOrderDiT`` at its class defaults (hidden 1152, depth 28, 16
+     heads; ~4.4 B parameters) and the shipped VAE; two ``|``-separated
+     instrument captions through the WordPiece tokenizer (bert-base-uncased's
+     ids) and a BERT of bert-base-uncased's geometry (random) at 64 tokens,
+     random orders; DDIM S 25, eta 0, batch 2, no CFG, decode, HiFi-GAN:
+     2 x 481,280 finite samples, no K1; ms and TFLOP/s per DDIM step, wall,
+     peak memory;
+ 26. prints the whole run's wall time, the kernel table as JSON, then
      ``{"ok": true, ...}`` last.
 """
 
@@ -1312,12 +1341,28 @@ def write_cli_inputs(root: Path, n_items: int, t_mel: int, dit: dict, vae: dict,
                 vocoder=str(root / HIFIGAN_DIR))
 
 
+def _check_wav(tag: str, path: Path, n: int) -> float:
+    """A written wav: ``n`` finite, non-silent samples at -23 +/- 0.5 LUFS."""
+    from scipy.io import wavfile
+
+    from versband_tpu_torch.dsp.loudness import integrated_loudness
+
+    sr, pcm = wavfile.read(path)
+    wav = pcm.astype(np.float32) / 32768.0
+    lufs = integrated_loudness(wav, sr)
+    print(f"{tag} {path.name}: {wav.shape[0]} samples at {sr} Hz, finite "
+          f"{np.isfinite(wav).all()}, std {wav.std():.4f}, {lufs:.3f} LUFS")
+    if not (sr == SR and wav.shape == (n,) and np.isfinite(wav).all() and wav.std() > 0
+            and abs(lufs - CLI_LUFS) <= CLI_LUFS_TOL):
+        raise AssertionError(f"{tag} {path}: {wav.shape} samples, {lufs} LUFS")
+    return lufs
+
+
 def phase_cli(dev) -> int:
     """The inference CLI on the shipped YAML (phase 11); returns its K1
     launches. Leaves ``CLI_WORK`` (the T5 directory, HiFi-GAN, VAE) for
     phase 12."""
     from versband_tpu_torch.cli import generate as cli
-    from versband_tpu_torch.dsp.loudness import integrated_loudness
     from versband_tpu_torch.text.embedders import TextVocalEmbedder
 
     config = CLI_CONFIG.resolve()
@@ -1371,18 +1416,8 @@ def phase_cli(dev) -> int:
     if len(rows) != n_runs or len(wavs) != n_runs:
         raise AssertionError(f"[cli] clap.csv has {len(rows)} rows and {len(wavs)} wavs, "
                              f"want {n_runs}")
-    from scipy.io import wavfile
-
-    n = (CLI_T_MEL + 7) // 8 * 8 * HOP
     for path in wavs:
-        sr, pcm = wavfile.read(path)
-        wav = pcm.astype(np.float32) / 32768.0
-        lufs = integrated_loudness(wav, sr)
-        print(f"[cli] {path.relative_to(root)}: {wav.shape[0]} samples at {sr} Hz, "
-              f"finite {np.isfinite(wav).all()}, std {wav.std():.4f}, {lufs:.3f} LUFS")
-        if not (sr == SR and wav.shape == (n,) and np.isfinite(wav).all() and wav.std() > 0
-                and abs(lufs - CLI_LUFS) <= CLI_LUFS_TOL):
-            raise AssertionError(f"[cli] {path}: {wav.shape} samples, {lufs} LUFS")
+        _check_wav(f"[cli] {path.parent.name}", path, (CLI_T_MEL + 7) // 8 * 8 * HOP)
 
     with torch.inference_mode():
         texts = captions[:1] + [""]
@@ -1649,7 +1684,6 @@ def phase_train_cli(dev) -> tuple:
     phase 11 left it; returns the K1/K2/K3 launches of its runs and of the
     ``cli.generate`` that serves its checkpoint."""
     from versband_tpu_torch.cli import generate as gen_cli
-    from versband_tpu_torch.dsp.loudness import integrated_loudness
     from versband_tpu_torch.utils.config import load_config
 
     config = CLI_CONFIG.resolve()
@@ -1736,19 +1770,11 @@ def phase_train_cli(dev) -> tuple:
     if rc != 0 or len(gen_wavs) != 1 or n_gen != (LAUNCHES_PER_CLIP, 0, 0):
         raise AssertionError(f"[train-cli] cli.generate: rc {rc}, {len(gen_wavs)} wavs, "
                              f"launches {n_gen}")
-    from scipy.io import wavfile
-
-    sr, pcm = wavfile.read(gen_wavs[0])
-    wav = pcm.astype(np.float32) / 32768.0
-    lufs = integrated_loudness(wav, sr)
     print(f"[train-cli] cli.generate from the trained checkpoint ({T_MEL} frames, scale 1): "
-          f"{wav.shape[0]} samples at {sr} Hz, finite {np.isfinite(wav).all()}, std "
-          f"{wav.std():.4f}, {lufs:.3f} LUFS; K1 {n_gen[0]}; stages " + ", ".join(
+          f"K1 {n_gen[0]}; stages " + ", ".join(
               f"{st} {gen_stats[0][st + '_ms']:.1f} ms" for st in gen_cli.STAGES
               if st + "_ms" in gen_stats[0]))
-    if not (sr == SR and wav.shape == (T_MEL * HOP,) and np.isfinite(wav).all()
-            and wav.std() > 0 and abs(lufs - CLI_LUFS) <= CLI_LUFS_TOL):
-        raise AssertionError(f"[train-cli] generated {wav.shape} samples at {lufs} LUFS")
+    _check_wav("[train-cli] cli.generate", gen_wavs[0], T_MEL * HOP)
     counts = [r["launches"] for r in (first, again, resumed)] + [n_gen]
     return tuple(sum(c[i] for c in counts) for i in range(3))
 
@@ -1990,7 +2016,6 @@ def phase_vae_train_cli(dev) -> tuple:
     launches of that ``cli.generate``."""
     from versband_tpu_torch.cli import generate as gen_cli
     from versband_tpu_torch.cli import train as cli
-    from versband_tpu_torch.dsp.loudness import integrated_loudness
     from versband_tpu_torch.train import checkpoints as ckmod
     from versband_tpu_torch.utils.config import load_config
 
@@ -2096,19 +2121,9 @@ def phase_vae_train_cli(dev) -> tuple:
     if rc != 0 or len(gen_wavs) != 1 or n_gen != (LAUNCHES_PER_CLIP, 0, 0) or not dec_equal:
         raise AssertionError(f"[vae-train-cli] cli.generate: rc {rc}, {len(gen_wavs)} wavs, "
                              f"launches {n_gen}, decoder equal to last.pt {dec_equal}")
-    from scipy.io import wavfile
-
-    sr, pcm = wavfile.read(gen_wavs[0])
-    wav = pcm.astype(np.float32) / 32768.0
-    lufs = integrated_loudness(wav, sr)
-    n = (CLI_T_MEL + 7) // 8 * 8 * HOP
     print(f"[vae-train-cli] cli.generate --vae_ckpt {last.name} (step {VAE_RESUME_STEPS}): "
-          f"decoder weights equal to the checkpoint's {dec_equal}; {wav.shape[0]} samples at "
-          f"{sr} Hz, finite {np.isfinite(wav).all()}, std {wav.std():.4f}, {lufs:.3f} LUFS; "
-          f"K1 {n_gen[0]}")
-    if not (sr == SR and wav.shape == (n,) and np.isfinite(wav).all() and wav.std() > 0
-            and abs(lufs - CLI_LUFS) <= CLI_LUFS_TOL):
-        raise AssertionError(f"[vae-train-cli] generated {wav.shape} samples at {lufs} LUFS")
+          f"decoder weights equal to the checkpoint's {dec_equal}; K1 {n_gen[0]}")
+    _check_wav("[vae-train-cli] cli.generate", gen_wavs[0], (CLI_T_MEL + 7) // 8 * 8 * HOP)
     print(f"[vae-train-cli] per run (run 1 / run 2 resumed): event time per step "
           f"{first['device_ms']:.2f} / {resumed['device_ms']:.2f} ms, host wall per step "
           f"{first['host_ms']:.2f} / {resumed['host_ms']:.2f} ms, K4 device ms per log event "
@@ -2876,18 +2891,28 @@ BERT_BASE_UNCASED = dict(model_type="bert", hidden_size=768, num_hidden_layers=1
 LDM_CAPTIONS = ["Style: pop ballad with piano Musical: a calm melody in C major"]
 
 
-def write_wordpiece_json(path: Path, words) -> None:
+def write_wordpiece_json(path: Path, words, pinned: dict = None) -> None:
     """A bert-base-uncased style ``tokenizer.json`` written by hand: [PAD] 0,
-    [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103 (bert-base-uncased's ids),
-    then each character seen with its ``##`` form and each lowercased word;
+    [unused0-98] 1-99, [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103
+    (bert-base-uncased's ids), then each character seen with its ``##`` form
+    and each lowercased word; each ``pinned`` token at its own id (``|`` is
+    1064 in bert-base-uncased), ``[unused<n>]`` filling the gap below it;
     BertNormalizer (lowercase), BertPreTokenizer, ``[CLS] $A [SEP]``."""
-    words = sorted({w.lower() for w in words if w})
-    chars = sorted({c for w in words for c in w} | set("0123456789.,:;!?'-"))
-    vocab = {f"[unused{i}]": i for i in range(100)}
-    vocab.update({"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103})
+    pinned = dict(pinned or {})
+    words = sorted({w.lower() for w in words if w} - set(pinned))
+    chars = sorted({c for w in words for c in w} | set("0123456789.,:;!?'-") - set(pinned))
+    toks = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                              "[MASK]"]
+    seen = set(toks)
     for tok in chars + ["##" + c for c in chars] + words:
-        vocab.setdefault(tok, len(vocab) + 4 if len(vocab) >= 100 else len(vocab))
-    vocab = {t: i for i, (t, _) in enumerate(sorted(vocab.items(), key=lambda kv: kv[1]))}
+        if tok not in seen:
+            toks.append(tok)
+            seen.add(tok)
+    for tok, i in sorted(pinned.items(), key=lambda kv: kv[1]):
+        while len(toks) < i:
+            toks.append(f"[unused{len(toks)}]")
+        toks.insert(i, tok)
+    vocab = {t: i for i, t in enumerate(toks)}
     special = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
                 "rstrip": False, "normalized": False, "special": True}
                for t in ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")]
@@ -2912,11 +2937,14 @@ def write_wordpiece_json(path: Path, words) -> None:
 def write_bert_dir(path: Path, config: dict, seed: int) -> None:
     """A Hugging Face BERT directory: ``config.json``, random weights (BERT's
     init from ``seed``) as ``model.safetensors``, and a WordPiece
-    ``tokenizer.json`` over :func:`caption_words`."""
+    ``tokenizer.json`` over :func:`caption_words` and the captions of
+    ``[audioldm]`` and ``[concat-order]``, ``|`` at its bert-base-uncased id."""
     from versband_tpu_torch.text.bert import BertModel, save_bert_dir
 
     save_bert_dir(BertModel(config).init_weights(torch.Generator().manual_seed(seed)), str(path))
-    write_wordpiece_json(path / "tokenizer.json", caption_words() + LDM_CAPTIONS[0].split())
+    write_wordpiece_json(path / "tokenizer.json",
+                         caption_words() + LDM_CAPTIONS[0].split() + " ".join(ORDER_CAPTIONS).split(),
+                         pinned={"|": ORDER_SEP_ID})
 
 
 @torch.no_grad()
@@ -3144,6 +3172,395 @@ def phase_audioldm(dev) -> dict:
     return {"k1": sum(counts.values())}
 
 
+# [timefreq-cli], [concat-order], [ae2d], [legacy-modules]: the legacy
+# backbones and the 2-D first stage, fp32 with TF32 off, random weights from
+# SEED, at the published widths and full depth.
+# The reference's VideoFlagLargeDiT defaults (TimeFreqMoeDiT's), with the
+# latent and T5 widths of configs/vocal2music.yaml.
+TIMEFREQ_TARGET = "ldm.modules.diffusionmodules.flag_large_dit_moe.VideoFlagLargeDiT"
+TIMEFREQ = dict(in_channels=20, context_dim=1024, hidden_size=1152, depth=28, num_heads=16,
+                num_experts=8, multiple_of=256, max_len=1000)
+TIMEFREQ_SCALE = "2"
+TIMEFREQ_BIGVGAN = Path("useful_ckpts") / "bigvgan_scaled"  # under CLI_WORK
+# ddpm_audio_order's LDM over ConcatOrderDiT at its class defaults, BERT-width
+# caption tokens, the shipped 1-D VAE
+ORDER_LDM_TARGET = "ldm.models.diffusion.ddpm_audio_order.LatentDiffusion_audio"
+CONCAT_ORDER = dict(in_channels=20, context_dim=768, hidden_size=1152, depth=28, num_heads=16,
+                    max_len=1000, num_orders=100)
+ORDER_CAPTIONS = ["piano | bass | drums", "acoustic guitar | strings | drums | synth pad"]
+ORDER_SEP_ID = 1064  # '|' in bert-base-uncased
+ORDER_TC, ORDER_MAX_OBJS, ORDER_DDIM_S = 64, 10, 25
+# AudioLDM's first stage (audioldm/utils.py::default_audioldm_config): 64 mel
+# bins x 1024 frames, as a 1-channel image
+AE2D = dict(embed_dim=8, ddconfig=dict(double_z=True, z_channels=8, resolution=256,
+                                       in_channels=1, out_ch=1, ch=128, ch_mult=[1, 2, 4],
+                                       num_res_blocks=2, attn_resolutions=[]))
+AE2D_SHAPE = (2, 1, 1024, 64)
+
+
+def perturb_zeros(model: torch.nn.Module, seed: int, std: float = 0.02) -> int:
+    """Every all-zero parameter (adaLN-zero layers, attention gates, the zero
+    output projections) drawn N(0, std), so that each block counts; returns
+    how many elements were drawn."""
+    g, n = torch.Generator().manual_seed(seed), 0
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.copy_((torch.randn(p.shape, generator=g) * std).to(p.device, p.dtype))
+                n += p.numel()
+    return n
+
+
+def timefreq_flops(B: int, T: int, Ty: int, cfg: dict) -> float:
+    """FLOPs of one TimeFreqMoeDiT forward: per block the q/k/v/o and caption
+    k/v projections, self and cross attention, the dense time and frequency
+    experts (E x 3 SwiGLU products each) and adaLN; proj_in, the final layer
+    and the caption embedder once."""
+    from versband_tpu_torch.nn.core import swiglu_hidden_dim
+
+    H, E, C = cfg["hidden_size"], cfg["num_experts"], cfg["in_channels"]
+    h = swiglu_hidden_dim(4 * H, cfg["multiple_of"])
+    block = (2 * B * T * 4 * H * H + 2 * B * Ty * 2 * H * H + 4 * B * T * (T + Ty) * H
+             + 2 * E * 3 * 2 * B * T * H * h + 2 * B * 6 * H * H)
+    return cfg["depth"] * block + 2 * B * T * C * H * 2 + 2 * B * Ty * (cfg["context_dim"] + H) * H
+
+
+def concat_flops(B: int, T: int, Tc: int, cfg: dict) -> float:
+    """FLOPs of one ConcatOrderDiT forward over L = 1 + Tc + T tokens: per
+    block the 1x1 convs, two attentions (4 projections and the products each)
+    and the k9 GEGLU convs (8H and 4H channels out of H and 4H: 108 H^2 per
+    token); proj_in (k5), the caption embedder and the head once."""
+    H, C, L = cfg["hidden_size"], cfg["in_channels"], 1 + Tc + T
+    block = 2 * B * L * (2 + 8 + 108) * H * H + 2 * 4 * B * L * L * H
+    return (cfg["depth"] * block + 2 * B * T * 5 * C * H + 2 * B * Tc * (cfg["context_dim"] + H) * H
+            + 2 * B * T * H * C)
+
+
+def phase_timefreq_cli(dev) -> int:
+    """[timefreq-cli]: ``cli.generate.main`` on configs/vocal2music.yaml with
+    its ``unet_config`` replaced by ``VideoFlagLargeDiT`` at the published
+    widths, from ``CLI_WORK`` as phase 11 left it (the T5 directory, the VAE,
+    the manifest), 1 item at ``--scales 2`` vocoded by BigVGAN; returns its K4
+    launches (73; K1 none: the attention is plain, as in JAX), the sampler's
+    ms and TFLOP/s a step and the parameter count."""
+    from versband_tpu_torch.cli import generate as cli
+    from versband_tpu_torch.models import cfm as cfm_mod
+    from versband_tpu_torch.models.dit_timefreq import TimeFreqMoeDiT
+    from versband_tpu_torch.utils.config import config_to_yaml, load_config
+    from versband_tpu_torch.utils.misc import count_params
+
+    root = CLI_WORK.resolve()
+    t0 = time.perf_counter()
+    cfg = load_config(str(CLI_CONFIG))
+    cfg["model"]["params"]["unet_config"] = {"target": TIMEFREQ_TARGET, "params": dict(TIMEFREQ)}
+    (root / "timefreq.yaml").write_text(config_to_yaml(cfg))
+    with torch.device("meta"):  # shapes only
+        meta = TimeFreqMoeDiT(**TIMEFREQ)
+    n_params = count_params(meta)
+    # the adaLN-zero layers, the final layer and the gates, drawn from SEED:
+    # the rest of the weights the CLI initialises from --seed
+    g = torch.Generator().manual_seed(SEED + 70)
+    part = {k: torch.randn(p.shape, generator=g) * 0.02 for k, p in meta.named_parameters()
+            if "adaLN" in k or "final_layer" in k or k.endswith("gate")}
+    torch.save(part, root / "timefreq_dit.pt")
+    (root / TIMEFREQ_BIGVGAN).mkdir(parents=True, exist_ok=True)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 71)
+        torch.save({"generator": scaled_conv_weights(BigVGANGenerator(), SEED + 71)},
+                   root / TIMEFREQ_BIGVGAN / "g_00000001")
+    print(f"[timefreq-cli] {TIMEFREQ_TARGET} {TIMEFREQ}: {n_params / 1e9:.3f} B parameters "
+          f"(count_params), {n_params * 4 / 1e9:.2f} GB in fp32; its zero-init layers "
+          f"({count_params(part) / 1e6:.1f} M) and a BigVGAN written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del meta, part
+
+    builds, shapes = [], []
+    build, fwd = cfm_mod.LatentDiffusion._build, TimeFreqMoeDiT.forward
+
+    def timed_build(self, config):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = build(self, config)
+        torch.cuda.synchronize()
+        builds.append((type(m).__name__, time.perf_counter() - t))
+        return m
+
+    def seen_forward(self, x, t, context, *a, **k):
+        ctx = context.get("c_crossattn", context) if isinstance(context, dict) else context
+        shapes.append((tuple(x.shape), tuple(ctx.shape)))
+        return fwd(self, x, t, context, *a, **k)
+
+    argv = ["--config", str(root / "timefreq.yaml"), "--ckpt", str(root / "timefreq_dit.pt"),
+            "--vae_ckpt", str(root / "vae.pt"), "--vocoder", "bigvgan",
+            "--vocoder_ckpt", str(root / TIMEFREQ_BIGVGAN), "--manifest",
+            str(root / "manifest"), "--other_condition", str(root / "midi.npy"),
+            "--scales", TIMEFREQ_SCALE, "--num_items", "1", "--seed", str(SEED),
+            "--save_dir", "out_timefreq"]
+    cwd, stats = os.getcwd(), []
+    cfm_mod.LatentDiffusion._build, TimeFreqMoeDiT.forward = timed_build, seen_forward
+    try:
+        os.chdir(root)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # count only this path's launches
+        t0 = time.perf_counter()
+        rc = cli.main(argv, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k4, k5 = fa.LAUNCHES, fa1.LAUNCHES, fw.LAUNCHES
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        os.chdir(cwd)
+        cfm_mod.LatentDiffusion._build, TimeFreqMoeDiT.forward = build, fwd
+    print(f"[timefreq-cli] main() returned {rc} in {wall:.2f} s host wall (builds, checkpoint "
+          f"loads, T5 and BigVGAN included); built on {dev}: "
+          + ", ".join(f"{n} {s:.2f} s" for n, s in builds)
+          + f"; peak memory {peak:.2f} GiB; launches K1 {k1}, K4 {k4} (want {K4_PER_CLIP}), "
+            f"K5 {k5}")
+    if rc != 0 or k1 or k5 or k4 != K4_PER_CLIP:
+        raise AssertionError(f"[timefreq-cli] rc {rc}, launches K1 {k1}, K4 {k4}, K5 {k5}")
+    (B, _, T), (_, Ty, _) = shapes[0]
+    if len(shapes) != STEPS - 1 or B != 2 or T != T_LAT:
+        raise AssertionError(f"[timefreq-cli] {len(shapes)} DiT calls of {shapes[0]}; expected "
+                             f"{STEPS - 1} at B 2 (CFG) x T {T_LAT}")
+    row = stats[0]
+    for st in cli.STAGES:
+        if st + "_ms" in row:
+            print(f"[timefreq-cli] stage {st}: {row[st + '_ms']:.2f} ms host wall, "
+                  f"{row[st + '_device_ms']:.2f} ms device")
+    step_ms = row["sampler_device_ms"] / (STEPS - 1)
+    flops = timefreq_flops(B, T, Ty, TIMEFREQ)
+    print(f"[timefreq-cli] sampler: {STEPS - 1} Euler steps at B {B} (CFG) x T {T} (caption "
+          f"{Ty} tokens), {step_ms:.2f} ms a step (device; the stage over its steps), "
+          f"{flops / 1e12:.2f} TFLOP a step, {flops / step_ms / 1e9:.2f} TFLOP/s; the stage "
+          f"{row['sampler_device_ms'] / 1e3:.2f} s")
+    wavs = sorted((root / "out_timefreq").rglob("*.wav"))
+    if len(wavs) != 1:
+        raise AssertionError(f"[timefreq-cli] {len(wavs)} wavs, want 1")
+    _check_wav("[timefreq-cli]", wavs[0], (CLI_T_MEL + 7) // 8 * 8 * HOP)
+    return dict(k4=k4, step_ms=step_ms, tflops=flops / step_ms / 1e9, params=n_params)
+
+
+def order_context(dev, bert_dir: Path, seed: int) -> dict:
+    """``ORDER_CAPTIONS`` as ConcatOrderDiT's context: WordPiece ids (the
+    bert-base-uncased layout: [CLS] 101, '|' 1064, [SEP] 102, [PAD] 0) at
+    ``ORDER_TC`` tokens, their BERT hidden states, and per caption one random
+    order in [0, 100) per object, 100 past the last."""
+    from versband_tpu_torch.text.bert import load_bert
+    from versband_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+    tok = WordPieceTokenizer.from_file(str(bert_dir / "tokenizer.json"))
+    ids = torch.from_numpy(tok(ORDER_CAPTIONS, max_length=ORDER_TC)["input_ids"]).to(dev)
+    bert = load_bert(str(bert_dir)).to(dev).eval()
+    with torch.no_grad():
+        emb = bert(ids)
+    rng = np.random.default_rng(seed)
+    orders = np.full((len(ORDER_CAPTIONS), ORDER_MAX_OBJS), 100, np.int64)
+    for i, c in enumerate(ORDER_CAPTIONS):
+        k = c.count("|") + 1
+        orders[i, :k] = rng.integers(0, 100, k)
+    return {"token_embedding": emb, "token_ids": ids, "orders": torch.from_numpy(orders).to(dev)}
+
+
+@torch.no_grad()
+def phase_concat_order(dev) -> dict:
+    """[concat-order]: ``LatentDiffusionOrder`` over ``ConcatOrderDiT`` at its
+    class defaults (built through the resolver), DDIM S 25, eta 0, batch 2,
+    no CFG, decode, HiFi-GAN."""
+    from versband_tpu_torch.models.concat_dit import ConcatOrderDiT
+    from versband_tpu_torch.models.samplers import DDIMSampler
+    from versband_tpu_torch.utils.config import instantiate_from_config, load_config
+    from versband_tpu_torch.utils.misc import count_params
+
+    if 1 + ORDER_TC + T_LAT > CONCAT_ORDER["max_len"]:
+        raise AssertionError(f"[concat-order] 1 + {ORDER_TC} + {T_LAT} tokens exceed max_len")
+    t0 = time.perf_counter()
+    if not BERT_DIR.exists():
+        write_bert_dir(BERT_DIR, BERT_BASE_UNCASED, SEED + 40)
+    ctx = order_context(dev, BERT_DIR, SEED + 80)
+    params = copy.deepcopy(dict(load_config(str(CLI_CONFIG)).model.params))
+    params["first_stage_config"]["params"].pop("ckpt_path", None)
+    params.update(unet_config={"target": "ldm.modules.diffusionmodules.concatDiT.ConcatOrderDiT",
+                               "params": dict(CONCAT_ORDER)},
+                  cond_stage_config=None, conditioning_key="crossattn")
+    torch.manual_seed(SEED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ldm = instantiate_from_config({"target": ORDER_LDM_TARGET, "params": params}, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    if not isinstance(ldm.model, ConcatOrderDiT):
+        raise AssertionError(f"[concat-order] built {type(ldm.model).__name__}")
+    drawn = perturb_zeros(ldm.model, SEED + 81)
+    voc = build_vocoder("hifigan", device=dev)
+    n_params = count_params(ldm.model)
+    ids = ctx["token_ids"]
+    print(f"[concat-order] {type(ldm).__name__} ({ORDER_LDM_TARGET}) over ConcatOrderDiT "
+          f"{CONCAT_ORDER}: {n_params / 1e9:.3f} B parameters, {n_params * 4 / 1e9:.2f} GB fp32, "
+          f"built on {dev} in {build_s:.2f} s ({drawn / 1e6:.2f} M zero-init weights drawn); "
+          f"captions {ORDER_CAPTIONS} -> ids {tuple(ids.shape)} (separators "
+          f"{(ids == ORDER_SEP_ID).sum(1).tolist()}, [CLS] {ids[:, 0].tolist()}), orders "
+          f"{ctx['orders'].tolist()}, BERT states {tuple(ctx['token_embedding'].shape)}; "
+          f"setup {time.perf_counter() - t0:.1f} s")
+    events, shape = [], (len(ORDER_CAPTIONS), 20, T_LAT)
+    model = _CallThrough(lambda x, t, c: ldm.apply_model(x, t, c), events)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 82)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # count only the main path's launches
+    t1 = time.perf_counter()
+    sampler = DDIMSampler(model, ldm.schedule)
+    n_steps = len(sampler.make_schedule(ORDER_DDIM_S)[0])
+    z = sampler.sample(shape, ctx, gen, S=ORDER_DDIM_S, eta=0.0, device=dev)
+    mel = ldm.decode_first_stage(z)
+    wav = voc.waveform(mel)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    k1, k4, k5 = fa.LAUNCHES, fa1.LAUNCHES, fw.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = events[0].elapsed_time(events[-1]) / (len(events) - 1)
+    flops = concat_flops(shape[0], T_LAT, ORDER_TC, CONCAT_ORDER)
+    n = T_MEL * HOP
+    print(f"[concat-order] DDIM S {ORDER_DDIM_S} eta 0 at B {shape[0]}: {len(events)} model "
+          f"calls, {step_ms:.2f} ms a step (device, between the calls' ends), "
+          f"{flops / 1e12:.2f} TFLOP a step, {flops / step_ms / 1e9:.2f} TFLOP/s; sample + "
+          f"decode + HiFi-GAN {wall:.2f} s host wall; peak memory {peak:.2f} GiB; launches K1 "
+          f"{k1}, K4 {k4}, K5 {k5}; waveforms {tuple(wav.shape)}, finite "
+          f"{bool(torch.isfinite(wav).all())}, std {wav.std().item():.4f}")
+    if (len(events) != n_steps or k1 or k4 or k5 or tuple(wav.shape) != (shape[0], n)
+            or not torch.isfinite(wav).all() or not wav.std() > 0
+            or not torch.isfinite(z).all()):
+        raise AssertionError(f"[concat-order] {len(events)} calls, launches {k1}/{k4}/{k5}, "
+                             f"waveforms {tuple(wav.shape)}")
+    del ldm, voc, ctx, z, mel, wav
+    return dict(step_ms=step_ms, tflops=flops / step_ms / 1e9, params=n_params, wall=wall)
+
+
+@torch.no_grad()
+def phase_ae2d(dev) -> None:
+    """[ae2d]: AudioLDM's first stage as ``AutoencoderKL2D`` on a
+    ``[2, 1, 1024, 64]`` log-mel image: ``encode().mode()`` and ``decode``
+    timed on the card, card against CPU."""
+    from versband_tpu_torch.models.autoencoder2d import AutoencoderKL2D
+    from versband_tpu_torch.utils.misc import count_params
+
+    torch.manual_seed(SEED + 90)
+    cpu = AutoencoderKL2D(**AE2D).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    x = torch.randn(AE2D_SHAPE, generator=torch.Generator().manual_seed(SEED + 91)) - 4.0
+    xd = x.to(dev)
+    z = gpu.encode(xd).mode()
+    rec = gpu.decode(z)
+    enc_ms = cuda_ms(lambda: gpu.encode(xd).mode(), 5, warmup=1)
+    dec_ms = cuda_ms(lambda: gpu.decode(z), 5, warmup=1)
+    t0 = time.perf_counter()
+    z_cpu = cpu.encode(x).mode()
+    rec_cpu = cpu.decode(z_cpu)
+    cpu_s = time.perf_counter() - t0
+    errs = []
+    for name, a, b in (("latent", z, z_cpu), ("reconstruction", rec, rec_cpu)):
+        scale = max(1.0, b.abs().max().item())
+        errs.append(_max_diff(a, b) / scale)
+        print(f"[ae2d] {name} {tuple(b.shape)} card vs CPU: max|d| / max(1, |cpu|max) "
+              f"{errs[-1]:.3e} (tol {MODULE_TOL:g}), |cpu|max {b.abs().max().item():.3f}")
+    print(f"[ae2d] AutoencoderKL2D {AE2D} ({count_params(cpu) / 1e6:.2f} M parameters) on "
+          f"{tuple(x.shape)}: encode().mode() {enc_ms:.2f} ms, decode {dec_ms:.2f} ms (device); "
+          f"the CPU took {cpu_s:.1f} s for both")
+    if not (max(errs) <= MODULE_TOL and torch.isfinite(rec).all()):
+        raise AssertionError(f"[ae2d] the card disagrees with the CPU: {errs}")
+
+
+def _legacy_cases():
+    """(name, module, inputs) at small widths, depth 2, the zero-init weights
+    drawn off zero."""
+    from versband_tpu_torch.models import concat_dit as cd
+    from versband_tpu_torch.models.autoencoder2d import VQModel, VQModelInterface
+    from versband_tpu_torch.models.dit_timefreq import TimeFreqMoeDiT
+    from versband_tpu_torch.nn.spatial_transformer import SpatialTransformer
+
+    g = torch.Generator().manual_seed(SEED + 100)
+    x = torch.randn(2, 20, 96, generator=g)
+    t = torch.tensor([124.0, 750.0])
+    cap = torch.randn(2, 7, 48, generator=g)
+    ids = torch.tensor([[101, 7, 1064, 8, 9, 1064, 11, 102, 0],
+                        [101, 5, 6, 1064, 7, 102, 0, 0, 0]])
+    order = {"token_embedding": torch.randn(2, 9, 48, generator=g), "token_ids": ids,
+             "orders": torch.tensor([[3, 1, 4, 100], [2, 0, 100, 100]])}
+    codes = {"c_crossattn": cap, "c_concat": {"acoustic": torch.randint(0, 64, (2, 3, 192),
+                                                                        generator=g)}}
+    kw = dict(in_channels=20, context_dim=48, hidden_size=128, depth=2, num_heads=4, max_len=256)
+    hy = dict(code_num=64, codebook_num=3)
+    cases = [("ConcatDiT", cd.ConcatDiT(**kw), (x, t, cap)),
+             ("ConcatDiT2MLP", cd.ConcatDiT2MLP(**kw), (x, t, cap)),
+             ("HybridDiT2MLP", cd.HybridDiT2MLP(**kw, **hy), (x, t, codes)),
+             ("HybridDiT2MLP2 concat_cut", cd.HybridDiT2MLP2(**kw, **hy), (x, t, codes)),
+             ("HybridDiT2MLP2 concat_proj", cd.HybridDiT2MLP2(**kw, **hy, cond_fuse="concat_proj"),
+              (x, t, codes)),
+             ("ConcatOrderDiT", cd.ConcatOrderDiT(**kw), (x, t, order)),
+             ("ConcatOrderDiT2", cd.ConcatOrderDiT2(**kw, max_objs=4), (x, t, order)),
+             ("TimeFreqMoeDiT", TimeFreqMoeDiT(20, 48, hidden_size=128, depth=2, num_heads=4,
+                                               num_experts=8, max_len=256), (x, t, cap))]
+    img = torch.randn(2, 64, 16, 12, generator=g)
+    ctx = torch.randn(2, 5, 48, generator=g)
+    cases += [("SpatialTransformer", SpatialTransformer(64, 4, 16, depth=2), (img,)),
+              ("SpatialTransformer context", SpatialTransformer(64, 4, 16, depth=2,
+                                                                context_dim=48), (img, ctx))]
+    dd = dict(ch=64, ch_mult=[1, 2], num_res_blocks=2, attn_resolutions=[32], in_channels=1,
+              resolution=32, z_channels=4, out_ch=1)
+    mel = torch.randn(2, 1, 32, 24, generator=g)
+    cases += [("VQModel", VQModel(4, 64, ddconfig=dd), (mel,)),
+              ("VQModelInterface", VQModelInterface(4, 64, ddconfig=dd), (mel,))]
+    for _, m, _ in cases:
+        m.eval()
+        perturb_zeros(m, SEED + 101, std=0.2)
+    return cases
+
+
+def first(out):
+    """A model's output, or the first of a tuple it answers."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+@torch.no_grad()
+def phase_legacy_modules(dev) -> None:
+    """[legacy-modules]: each new module, card against CPU, fp32, small
+    widths, within ``MODULE_TOL`` of scale; VQ indices equal; no K1."""
+    torch.manual_seed(SEED + 102)
+    reset_launches()
+    for name, cpu, args in _legacy_cases():
+        gpu = copy.deepcopy(cpu).to(dev)
+        if name.startswith("VQModel"):  # the quantizer, then the first-stage interface
+            x, xd = args[0], args[0].to(dev)
+            (zq, loss, idx), (gzq, gloss, gidx) = cpu.encode_quantized(x), gpu.encode_quantized(xd)
+            enc, genc = first(cpu.encode(x)), first(gpu.encode(xd))
+            same = torch.equal(gidx.cpu(), idx)
+            pairs = [("zq", gzq, zq), ("loss", gloss.reshape(1), loss.reshape(1)),
+                     ("encode", genc, enc), ("decode", gpu.decode(genc), cpu.decode(enc))]
+        else:
+            same, pairs = True, [("out", first(gpu(*[_to(a, dev) for a in args])),
+                                  first(cpu(*args)))]
+        for what, a, b in pairs:
+            scale = max(1.0, b.abs().max().item())
+            err = _max_diff(a, b) / scale
+            print(f"[legacy-modules] {name} {what} {tuple(b.shape)}: max|d| / max(1, |cpu|max) "
+                  f"{err:.3e} (tol {MODULE_TOL:g}), |cpu|max {b.abs().max().item():.3f}"
+                  + (f", indices equal {same}" if name.startswith("VQ") else ""))
+            if not (err <= MODULE_TOL and torch.isfinite(a).all() and same):
+                raise AssertionError(f"[legacy-modules] {name} {what} disagrees: {err}, "
+                                     f"indices equal {same}")
+    if fa.LAUNCHES:
+        raise AssertionError(f"[legacy-modules] {fa.LAUNCHES} K1 launches; the legacy modules "
+                             f"attend in plain PyTorch, as in JAX")
+
+
+def free_card() -> None:
+    """Return the cached blocks of the models just dropped."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 class _CallThrough:
     """A backbone that records a CUDA event after each call (to time the
     sampler's steps on the card) and otherwise is the backbone."""
@@ -3181,13 +3598,30 @@ def main() -> None:
     t_phase = time.perf_counter()
     ddp = phase_ddp(dev)
     ddp["wall_s"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    timefreq = phase_timefreq_cli(dev)
+    timefreq["wall_s"] = time.perf_counter() - t_phase
     shutil.rmtree(CLI_WORK, ignore_errors=True)
+    free_card()
     phase_vae_step_parity(dev)
     voc_hifigan = phase_voc_train_hifigan(dev)
     voc_bigvgan = phase_voc_train_bigvgan(dev)
     voc_pwg = phase_voc_train_pwg(dev)
     phase_voc_step_parity(dev)
+    t_phase = time.perf_counter()
+    phase_legacy_modules(dev)
+    phase_ae2d(dev)
+    legacy_s = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    order = phase_concat_order(dev)
+    order["wall_s"] = time.perf_counter() - t_phase
+    free_card()
     audioldm = phase_audioldm(dev)
+    print(f"[legacy] TimeFreqMoeDiT {timefreq['params'] / 1e9:.3f} B: {timefreq['step_ms']:.2f} "
+          f"ms an Euler step, {timefreq['tflops']:.2f} TFLOP/s ([timefreq-cli] phase "
+          f"{timefreq['wall_s']:.1f} s); ConcatOrderDiT {order['params'] / 1e9:.3f} B: "
+          f"{order['step_ms']:.2f} ms a DDIM step, {order['tflops']:.2f} TFLOP/s ([concat-order] "
+          f"phase {order['wall_s']:.1f} s); [legacy-modules] and [ae2d] {legacy_s:.1f} s")
     print(f"[voc-train] per step (device, median): hifigan {voc_hifigan['ms']:.2f} ms "
           f"({voc_hifigan['peak_gib']:.2f} GiB), bigvgan {voc_bigvgan['ms']:.2f} ms "
           f"({voc_bigvgan['peak_gib']:.2f} GiB), pwg {voc_pwg['ms']:.2f} ms "
@@ -3211,7 +3645,7 @@ def main() -> None:
         {"name": "fused_alias_free_snake", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/fused_act1d.cu",
          "replaces": "versband_tpu/ops/fused_act1d.py:94",
-         "launches": n_serve["k4"] + n_vae_cli + voc_bigvgan["k4"], **k4},
+         "launches": n_serve["k4"] + n_vae_cli + voc_bigvgan["k4"] + timefreq["k4"], **k4},
         {"name": "fused_wavenet_layer", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/fused_wavenet.cu",
          "replaces": "versband_tpu/ops/fused_wavenet.py:46",
@@ -3234,7 +3668,7 @@ def main() -> None:
           f"(train-cli's K2/K3 {n_train_cli[1]}/{n_train_cli[2]}), audioldm {audioldm['k1']}; "
           f"K4 {n_serve['k4']} (bigvgan) + "
           f"{n_vae_cli} (vae-train-cli audio logs) + {voc_bigvgan['k4']} (the trained "
-          f"BigVGAN), K5 {n_serve['k5']} (pwg) + {voc_pwg['k5']} (the trained PWG)")
+          f"BigVGAN) + {timefreq['k4']} (timefreq-cli), K5 {n_serve['k5']} (pwg) + {voc_pwg['k5']} (the trained PWG)")
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s wall, kernel builds included")
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -5,8 +5,7 @@ package (CPU).
   name: given 90000- and 100000-step files the vocoder wrappers load the
   100000-step weights (the name order would pick 90000).
 * Every reference target of the JAX ``TARGET_ALIASES`` resolves in the port
-  to a port object, or raises ``NotImplementedError`` naming the ROADMAP
-  Queue 1 item that ports it; none raises ``ModuleNotFoundError``.
+  to a port object of the JAX class's name.
 """
 
 import os
@@ -127,19 +126,38 @@ def test_aliases_are_the_jax_packages():
 
 @pytest.mark.parametrize("target", sorted(jax_config.TARGET_ALIASES))
 def test_every_reference_target_resolves_or_names_its_item(target):
-    """A port object, or NotImplementedError naming the Queue 1 item; the
-    JAX package's name for the same target behaves the same."""
+    """Every target resolves to a port object of the JAX class's name (the
+    legacy backbones and 2-D autoencoders included: nothing is left to a
+    Queue 1 item); the JAX package's name for the same target gives the same
+    object."""
     jax_name = jax_config.TARGET_ALIASES[target]
-    try:
-        obj = port_config.get_obj_from_str(target)
-    except NotImplementedError as e:
-        assert "ROADMAP Queue 1 item" in str(e) and jax_name in str(e)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            port_config.get_obj_from_str(jax_name)
-        return
+    obj = port_config.get_obj_from_str(target)
     assert obj.__module__.startswith("versband_tpu_torch.")
     assert obj.__name__ == jax_name.rsplit(".", 1)[1]
     assert port_config.get_obj_from_str(jax_name) is obj
+
+
+@pytest.mark.parametrize("target,params", [
+    ("ldm.modules.diffusionmodules.flag_large_dit_moe.VideoFlagLargeDiT",
+     dict(in_channels=4, context_dim=12, hidden_size=16, depth=1, num_heads=2, max_len=32,
+          num_experts=4, multiple_of=8)),
+    ("ldm.modules.diffusionmodules.concatDiT.ConcatOrderDiT2",
+     dict(in_channels=4, context_dim=12, hidden_size=32, depth=1, num_heads=2, max_len=64)),
+    ("ldm.models.autoencoder.AutoencoderKL",
+     dict(embed_dim=3, ddconfig=dict(ch=32, ch_mult=[1, 2], num_res_blocks=1, in_channels=1,
+                                     out_ch=1, z_channels=3, resolution=16))),
+    ("ldm.models.autoencoder.VQModelInterface",
+     dict(embed_dim=3, n_embed=8, ddconfig=dict(ch=32, ch_mult=[1], num_res_blocks=1,
+                                                in_channels=1, out_ch=1, z_channels=3))),
+    ("ldm.models.autoencoder.IdentityFirstStage", dict(vq_interface=True)),
+])
+def test_the_legacy_targets_build(target, params):
+    """Built from a config as a LatentDiffusion builds its stages: moved and
+    put in eval mode."""
+    obj = port_config.instantiate_from_config({"target": target, "params": params})
+    assert isinstance(obj, torch.nn.Module)
+    assert obj.to(torch.float32).eval() is obj
+    assert type(obj).__name__ == jax_config.TARGET_ALIASES[target].rsplit(".", 1)[1]
 
 
 def test_the_ported_targets_build():

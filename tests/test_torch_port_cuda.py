@@ -44,6 +44,11 @@ call), the latents within 2e-3 of the CPU's from the same draws (fp32,
 TF32 off, summation order through 4 blocks over 10 steps). CLAP (Cnn14 and the BERT
 caption tower, plain PyTorch) on the card against the CPU: 1e-4 of the
 embeddings' scale.
+
+The legacy backbones (a small Time/Freq-MoE DiT and ConcatOrderDiT, depth
+2) and the 2-D KL and VQ autoencoders on the card against the CPU: 2e-3 of
+scale (fp32, TF32 off, summed in another order), no K1 launch (they attend
+in plain PyTorch, as the JAX package does), the same VQ indices.
 """
 
 import math
@@ -888,3 +893,75 @@ def test_clap_on_the_card_matches_the_cpu(cuda, tmp_path):
     sims = (gpu.compute_similarity(ga, gt), cpu.compute_similarity(a, t))
     for got, ref in ((ga, a), (gt, t), sims):
         assert (got.cpu() - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+def _perturb_zeros(model, seed):
+    """adaLN-zero layers, gates and zero output projections set off zero."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.2)
+    return model
+
+
+@pytest.mark.parametrize("backbone", ["timefreq", "concat_order"])
+def test_legacy_backbones_on_the_card_match_the_cpu(cuda, backbone):
+    """A small Time/Freq-MoE DiT and ConcatOrderDiT (depth 2), card against
+    CPU within 2e-3 (fp32, TF32 off): plain attention, as in JAX, so no K1
+    launch."""
+    import copy
+
+    from versband_tpu_torch.models.concat_dit import ConcatOrderDiT
+    from versband_tpu_torch.models.dit_timefreq import TimeFreqMoeDiT
+
+    torch.manual_seed(0)
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(2, 20, 96).astype(np.float32))
+    t = torch.tensor([124.0, 750.0])
+    if backbone == "timefreq":
+        cpu = TimeFreqMoeDiT(20, 64, hidden_size=128, depth=2, num_heads=4, num_experts=8)
+        ctx = torch.from_numpy(rng.randn(2, 7, 64).astype(np.float32))
+    else:
+        cpu = ConcatOrderDiT(20, 48, hidden_size=128, depth=2, num_heads=4, max_len=200)
+        ids = torch.tensor([[101, 7, 1064, 8, 9, 1064, 11, 102, 0],
+                            [101, 5, 6, 1064, 7, 102, 0, 0, 0]])
+        ctx = {"token_embedding": torch.from_numpy(rng.randn(2, 9, 48).astype(np.float32)),
+               "token_ids": ids, "orders": torch.tensor([[3, 1, 4, 100], [2, 0, 100, 100]])}
+    cpu = _perturb_zeros(cpu.eval(), 2)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    move = (lambda c: {k: v.to(cuda) for k, v in c.items()}) if isinstance(ctx, dict) else \
+        (lambda c: c.to(cuda))
+    with torch.no_grad():
+        ref, _ = cpu(x, t, ctx)
+        n = fa.LAUNCHES
+        out, lb = gpu(x.to(cuda), t.to(cuda), move(ctx))
+        torch.cuda.synchronize()
+    assert fa.LAUNCHES == n and lb == 0.0
+    assert torch.isfinite(out).all() and ref.abs().max() > 1e-2
+    assert (out.cpu() - ref).abs().max().item() <= 2e-3 * max(1.0, ref.abs().max().item())
+
+
+def test_autoencoder2d_on_the_card_matches_the_cpu(cuda):
+    """The 2-D KL and VQ autoencoders, card against CPU (fp32, TF32 off):
+    2e-3 of scale, the same codebook indices."""
+    import copy
+
+    from versband_tpu_torch.models.autoencoder2d import AutoencoderKL2D, VQModel
+
+    dd = dict(ch=32, ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[16], in_channels=1,
+              resolution=32, z_channels=4, out_ch=1)
+    torch.manual_seed(0)
+    x = torch.randn(2, 1, 32, 16)
+    for cpu in (AutoencoderKL2D(embed_dim=4, ddconfig=dd).eval(),
+                VQModel(embed_dim=4, n_embed=16, ddconfig=dd).eval()):
+        gpu = copy.deepcopy(cpu).to(cuda)
+        kw = {} if isinstance(cpu, VQModel) else {"sample_posterior": False}
+        with torch.no_grad():
+            ref, got = cpu(x, **kw), gpu(x.to(cuda), **kw)
+        rec, rec_gpu = (ref[0], got[0])
+        assert (rec_gpu.cpu() - rec).abs().max().item() <= 2e-3 * max(1.0, rec.abs().max().item())
+        if isinstance(cpu, VQModel):
+            with torch.no_grad():
+                idx, idx_gpu = cpu.encode(x)[2], gpu.encode(x.to(cuda))[2]
+            assert torch.equal(idx_gpu.cpu(), idx)

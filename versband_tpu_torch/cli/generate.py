@@ -255,8 +255,9 @@ def main(argv: List[str] = None, stats: Optional[List[Dict]] = None) -> int:
     device = resolve_device(opt.platform)
     config = load_config(opt.config)
     model_cfg = config["model"]
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(opt.seed)  # the DiT and VAE init where no checkpoint is given
+    # the DiT and VAE init where no checkpoint is given, made on the device
+    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+        torch.manual_seed(opt.seed)
         cfm = instantiate_from_config(model_cfg, device=device)
     sampler = CFMSampler(cfm, num_timesteps=opt.ddim_steps)
 

@@ -195,8 +195,9 @@ def _train(opt, unknown: List[str], device: torch.device,
         trainer = VAETrainer(*build_vae_gan(model_cfg, device, opt.seed), learning_rate=lr,
                              **common)
     else:
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(opt.seed)  # the DiT and first-stage init
+        # the DiT and first-stage init, made on the device
+        with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+            torch.manual_seed(opt.seed)
             cfm = instantiate_from_config(model_cfg, device=device)
         fs_cfg = model_cfg["params"].get("first_stage_config") or {}
         load_first_stage(cfm, (fs_cfg.get("params") or {}).get("ckpt_path"))

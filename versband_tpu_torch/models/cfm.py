@@ -173,9 +173,14 @@ class LatentDiffusion:
             self.cond_stage = instantiate_from_config(cond_stage_config, device=self.device)
 
     def _build(self, config) -> Optional[nn.Module]:
+        """The module of ``config``, its weights made and initialised on the
+        model's device (a 5 B-parameter backbone takes ~50 s to initialise on
+        the host), then cast to its dtype."""
         if not config:
             return None
-        return instantiate_from_config(config).to(device=self.device, dtype=self.dtype).eval()
+        with torch.device(self.device):
+            module = instantiate_from_config(config)
+        return module.to(device=self.device, dtype=self.dtype).eval()
 
     @torch.no_grad()
     def encode_first_stage(self, mel: torch.Tensor, generator: Optional[torch.Generator] = None,

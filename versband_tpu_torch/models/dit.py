@@ -96,7 +96,12 @@ class StackedSwiGLU(nn.ModuleList):
                           for _ in range(num_experts)])
 
     def dense(self, x: torch.Tensor) -> torch.Tensor:
-        """Every expert on the shared input ``[B, T, d]`` -> ``[E, B, T, d]``."""
+        """Every expert on the shared input ``[B, T, d]``, or expert e on its
+        own input ``x[e]`` of ``[E, B, T, d]`` -> ``[E, B, T, d]``."""
+        if x.ndim == 4:
+            if x.shape[0] != len(self):
+                raise ValueError(f"{x.shape[0]} expert inputs for {len(self)} experts")
+            return torch.stack([expert(xe) for expert, xe in zip(self, x)])
         return torch.stack([expert(x) for expert in self])
 
     def routed(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -114,7 +114,12 @@ class CheckpointManager:
 
 
 # the port's module classes -> their family in ``utils.convert.state_dict_from_jax``
-_FAMILIES = {"BandMoeDiT": "dit", "AutoencoderKL": "vae", "HifiGanGenerator": "hifigan",
+_FAMILIES = {"BandMoeDiT": "dit", "TimeFreqMoeDiT": "dit", "AutoencoderKL": "vae",
+             "AutoencoderKL2D": "vae", "VQModel": "vae", "VQModelInterface": "vae",
+             "ConcatDiT": "concat_dit", "ConcatDiT2MLP": "concat_dit",
+             "HybridDiT2MLP": "concat_dit", "HybridDiT2MLP2": "concat_dit",
+             "ConcatOrderDiT": "concat_dit", "ConcatOrderDiT2": "concat_dit",
+             "HifiGanGenerator": "hifigan",
              "BigVGANGenerator": "bigvgan", "ParallelWaveGANGenerator": "pwg",
              "T5Encoder": "t5", "VAEGANLoss": "vaegan_loss"}
 # where the reference's Lightning checkpoints keep a sub-model's weights

@@ -77,15 +77,6 @@ TARGET_ALIASES = {
     "main.DataModuleFromConfig": "versband_tpu.data.datamodule.DataModule",
 }
 
-# JAX-package targets the port does not have yet -> the ROADMAP Queue 1 item
-# that ports them (a module, or one class of a module the port has in part).
-NOT_PORTED = {
-    "versband_tpu.models.dit_timefreq": 13,
-    "versband_tpu.models.concat_dit": 13,
-    "versband_tpu.models.autoencoder2d": 13,
-}
-
-
 class Config(dict):
     """Nested dict with attribute access."""
 
@@ -119,13 +110,8 @@ class Identity:
 
 
 def resolve_target(string: str) -> str:
-    """Map a reference or JAX-package target onto this package's dotted path;
-    a target the port does not have yet raises ``NotImplementedError``."""
+    """Map a reference or JAX-package target onto this package's dotted path."""
     string = TARGET_ALIASES.get(string, string)
-    module = string.rsplit(".", 1)[0]
-    item = NOT_PORTED.get(string, NOT_PORTED.get(module))
-    if item is not None:
-        raise NotImplementedError(f"{string} is not ported yet (ROADMAP Queue 1 item {item})")
     if string.startswith(_JAX_PKG):
         string = _PORT_PKG + string[len(_JAX_PKG):]
     return string

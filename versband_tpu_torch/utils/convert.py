@@ -9,7 +9,16 @@ without importing it:
 * Dense kernels ``[in, out]`` -> ``[out, in]``; Conv ``[k, in, out]`` ->
   ``[out, in, k]``; ConvTranspose ``[k, in, out]`` -> ``[in, out, k]``;
 * ``scale`` and ``embedding`` -> ``weight``;
-* stacked experts ``[E, d, h]`` -> ``{grp}_experts.{e}.w{n}.weight``;
+* stacked experts ``[E, d, h]`` -> ``{grp}_experts.{e}.w{n}.weight`` (the
+  Band-MoE's caption/acoustic/freq groups and the Time/Freq MoE's
+  time/freq groups alike);
+* the 2-D KL and VQ autoencoders under ``vae`` (2-D kernels ``(kh, kw, in,
+  out)`` -> ``[out, in, kh, kw]``; the codebook ``quantize/embedding`` ->
+  ``quantize.embedding.weight``);
+* ``concat_dit``: ``{c,c1,c2,caption}_embedder/ln`` -> ``mlp.3``,
+  ``blocks_{i}/transformer_blocks_{j}`` -> ``blocks.{i}.transformer_blocks.{j}``,
+  ``to_out`` -> ``to_out.0``, ``ff/proj`` / ``ff/out`` -> ``ff.net.0.proj`` /
+  ``ff.net.2``, ``code_proj`` -> ``code_proj.0``;
 * caption cross-attention ``wq/wk/wv`` -> packed ``in_proj_weight/bias``;
 * ``resblocks_{i}_{j}`` -> ``resblocks.{i*K+j}``;
 * BigVGAN: ``ups_{i}`` -> ``ups.{i}.0`` (transposed conv), ``acts1_{n}`` /
@@ -91,6 +100,19 @@ _VAE_RULES: List[Tuple[str, Repl]] = [
     (r"^encoder/down_(\d+)_downsample/", r"encoder.down.\1.downsample."),
     (r"^decoder/up_(\d+)_upsample/", r"decoder.up.\1.upsample."),
     (r"^(encoder|decoder)/mid_(block_\d+|attn_\d+)/", r"\1.mid.\2."),
+    (r"^quantize/embedding$", "quantize.embedding/embedding"),
+]
+
+_CONCAT_DIT_RULES: List[Tuple[str, Repl]] = [
+    (r"^(t|c|c1|c2|caption)_embedder/fc1/", r"\1_embedder.mlp.0."),
+    (r"^(t|c|c1|c2|caption)_embedder/fc2/", r"\1_embedder.mlp.2."),
+    (r"^(c|c1|c2|caption)_embedder/ln/", r"\1_embedder.mlp.3."),
+    (r"^code_proj/", "code_proj.0."),
+    (r"^blocks_(\d+)/", r"blocks.\1."),
+    (r"\btransformer_blocks_(\d+)/", r"transformer_blocks.\1."),
+    (r"\bto_out/", "to_out.0."),
+    (r"\bff/proj/", "ff.net.0.proj."),
+    (r"\bff/out/", "ff.net.2."),
 ]
 
 
@@ -291,7 +313,7 @@ def _clap_special(flat: Dict[str, np.ndarray], sd: Dict[str, np.ndarray]) -> Non
 
 GENERATORS = ("hifigan", "bigvgan", "pwg", "nsf", "code_hifigan", "melgan")
 DISCRIMINATORS = ("mpd", "msd", "mrd", "mwd", "pwg_disc", "melgan_disc")
-FAMILIES = ("dit", "vae", "t5", "vaegan_loss", "clap") + GENERATORS + DISCRIMINATORS
+FAMILIES = ("dit", "vae", "concat_dit", "t5", "vaegan_loss", "clap") + GENERATORS + DISCRIMINATORS
 
 
 def _num_kernels(flat) -> int:
@@ -318,6 +340,8 @@ def state_dict_from_jax(params: Dict[str, Any], family: str,
         rules = _DIT_RULES
     elif family == "vae":
         rules = _VAE_RULES
+    elif family == "concat_dit":
+        rules = _CONCAT_DIT_RULES
     elif family == "pwg":
         _pwg_special(flat, sd)
         rules = _PWG_RULES
