@@ -22,6 +22,8 @@ plain PyTorch version on the card:
   and ``postprocess`` on synthetic songs, then training from their output;
 * data-parallel training -- ``cli.train`` under the torchrun environment over
   NCCL at world size 1, in this process and through ``torch.distributed.run``;
+* tensor and expert parallelism -- the CFM step at full width on 4 ranks
+  that share the card over gloo, against the one-process step;
 * AudioLDM's best-of-N generation -- the classic samplers (DDIM, PLMS, the
   ancestral loop) over the shipped DiT, decode, HiFi-GAN and the CLAP rerank
   (Cnn14 and a BERT caption tower at their published geometry);
@@ -213,7 +215,20 @@ Phases (any failure raises and exits non-zero):
      random orders; DDIM S 25, eta 0, batch 2, no CFG, decode, HiFi-GAN:
      2 x 481,280 finite samples, no K1; ms and TFLOP/s per DDIM step, wall,
      peak memory;
- 26. prints the whole run's wall time, the kernel table as JSON, then
+ 26. [tp] (after phase 20) tensor and expert parallelism: 4 ranks share
+     cuda:0 over a gloo group (``file://`` rendezvous), each builds the
+     training phase's full-width CFM from SEED, and ``CFMTrainer(mesh=)``
+     takes 3 steps (draws fixed; Adam eps 1e-3, LR 1e-3) at (1 data, 2
+     model) and at (2, 2), each rank on its 4 of the 8 heads (K1 forward,
+     K2/K3 backward: 4/4/4 a step, asserted) and its 2 of each 4 experts;
+     held to the same steps in this process (losses and gradient norm 1e-4
+     relative, the gathered parameters 1e-3 x LR x each leaf's scale); the
+     (1, 2) run's whole checkpoint resumed here without a group, its 4th
+     loss against the uninterrupted run's (1e-4); event ms a step per rank,
+     model-axis all-reduces and bytes a step, parameter and Adam bytes per
+     rank against one process (ranks sharing one card: not a multi-card
+     figure);
+ 27. prints the whole run's wall time, the kernel table as JSON, then
      ``{"ok": true, ...}`` last.
 """
 
@@ -3576,6 +3591,242 @@ class _CallThrough:
         return out
 
 
+# [tp]: tensor and expert parallelism (the model axis) on one card. Ranks
+# share cuda:0 over a gloo group (NCCL takes one card per rank); each runs K1
+# forward and K2/K3 backward on its own heads. The times are those of
+# processes sharing one card over gloo, not a multi-card figure.
+TP_LAYOUTS = ((1, 2), (2, 2))  # (data, model); the first also writes a checkpoint
+TP_WORLD, TP_B, TP_T_MEL, TP_STEPS = 4, 8, 1536, 3  # 1536-frame mels -> latent 768
+# a constant LR, large enough that 1e-3 x LR is above float32's spacing at the
+# LayerNorm weights (1.19e-7 at 1.0: at LR 1e-4 one ulp is 1.19e-3 x LR); Adam's
+# eps as the CPU tests' (the key bias's exact zero gradient)
+TP_LR, TP_EPS = 1e-3, 1e-3
+TP_LOSS_TOL, TP_PARAM_TOL = 1e-4, 1e-3  # relative; x LR x each gathered leaf's scale
+TP_WORK = Path("build") / "chip_smoke_tp"
+
+
+def _tp_inputs() -> tuple:
+    """The [tp] phase's CFM (full width, random weights from SEED, on the
+    card) and its TP_STEPS + 1 global batches with their draws (posterior, t,
+    noise, Gumbel), made alike in every process."""
+    torch.manual_seed(SEED)
+    unet, vae = training_configs()
+    cfm = CFM(unet_config=unet, first_stage_config=vae, mel_dim=DIT["in_channels"],
+              scale_by_std=False, scale_factor=0.7, device="cuda", dtype=torch.float32)
+    perturb_zero_init(cfm.model, SEED)
+    rng = np.random.RandomState(SEED + 40)
+    T, z = TP_T_MEL // 2, DIT["in_channels"]
+    steps = []
+    for _ in range(TP_STEPS + 1):
+        batch = {"image": rng.randn(TP_B, 80, TP_T_MEL).astype(np.float32),
+                 "caption": rng.randn(TP_B, 80, DIT["ori_dim"]).astype(np.float32),
+                 "midi": rng.randint(0, 128, (TP_B, 1, TP_T_MEL)).astype(np.int32),
+                 "beats": rng.randint(0, 2, (TP_B, 1, TP_T_MEL)).astype(np.int32)}
+        given = {"posterior": rng.randn(TP_B, z, T).astype(np.float32),
+                 "t": rng.randint(0, 1000, TP_B).astype(np.int64),
+                 "noise": rng.randn(TP_B, z, T).astype(np.float32),
+                 "gumbel": [rng.gumbel(size=s).astype(np.float32)
+                            for s in cfm.model.gumbel_shapes(TP_B, T)]}
+        steps.append((batch, given))
+    return cfm, steps
+
+
+def _tp_on_card(x, dev):
+    if isinstance(x, dict):
+        return {k: _tp_on_card(v, dev) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_tp_on_card(v, dev) for v in x]
+    return torch.from_numpy(x).to(dev)
+
+
+def _tp_step(trainer, batch, given, dev, place=lambda b: b):
+    given = dict(_tp_on_card(place(given), dev))
+    given["gumbel"] = iter(given["gumbel"])
+    return trainer.train_step(trainer.state, _tp_on_card(place(batch), dev), given=given)
+
+
+def _tp_trainer(cfm, logdir, mesh=None):
+    trainer = CFMTrainer(cfm, None, learning_rate=TP_LR, logdir=str(logdir), seed=SEED,
+                         use_tensorboard=False, log_every_n_steps=10 ** 9, mesh=mesh)
+    trainer.tx = make_adamw(TP_LR, eps=TP_EPS, grad_clip=1.0)
+    return trainer
+
+
+def _tp_checksum(module) -> float:
+    return float(sum(p.double().sum() for p in module.state_dict().values()))
+
+
+def _tp_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
+    """One rank of [tp]: every layout of TP_LAYOUTS it belongs to, TP_STEPS
+    steps each through ``CFMTrainer``'s step on its slice; the first layout
+    writes the whole checkpoint (rank 0)."""
+    from versband_tpu_torch import parallel
+    from versband_tpu_torch.parallel.sharding import gather_state_dict, shard_batch
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = parallel.init_from_env("cuda", init_method=f"file://{rendezvous}", backend="gloo")
+    out = {}
+    try:
+        for layout in TP_LAYOUTS:
+            mesh = parallel.make_mesh(*layout)
+            if not mesh.member:
+                out[layout] = None
+                continue
+            cfm, steps = _tp_inputs()
+            checksum = _tp_checksum(cfm.model) + _tp_checksum(cfm.first_stage)
+            trainer = _tp_trainer(cfm, Path(out_dir) / f"run_{layout[0]}x{layout[1]}", mesh)
+            trainer.init_state({"image": steps[0][0]["image"]})
+
+            def place(b, mesh=mesh):
+                return shard_batch(b, mesh)
+
+            metrics, ms, counts, reduces = [], [], [], []
+            for batch, given in steps[:TP_STEPS]:
+                torch.cuda.synchronize()
+                reset_launches()
+                r0 = (parallel.MODEL_REDUCES, parallel.MODEL_REDUCE_BYTES)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                m = _tp_step(trainer, batch, given, dev, place)
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+                counts.append(launches())
+                reduces.append((parallel.MODEL_REDUCES - r0[0],
+                                parallel.MODEL_REDUCE_BYTES - r0[1]))
+                metrics.append({k: v.item() for k, v in m.items()})
+            params = {k: v.cpu() for k, v in gather_state_dict(cfm.model).items()}
+            local = sum(p.numel() * p.element_size() for p in trainer.state.params)
+            if layout == TP_LAYOUTS[0]:
+                trainer.global_step = TP_STEPS
+                trainer.save_checkpoint("last")  # every rank gathers; rank 0 writes
+            first = mesh.data_rank == 0 and mesh.model_rank == 0
+            out[layout] = {"coords": (mesh.data_rank, mesh.model_rank), "metrics": metrics,
+                           "ms": ms, "launches": counts, "reduces": reduces,
+                           "state_bytes": 3 * local, "checksum": checksum,
+                           "params": params if first else None}
+            del trainer, cfm
+            free_card()
+    finally:
+        parallel.leave()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def phase_tp(dev) -> dict:
+    """[tp]: the CFM training step under tensor and expert parallelism, at
+    full width (hidden 768, 8 heads of 96, depth 4, 4 experts per group,
+    caption [8, 80, 1024], batch 8, latent 768; fp32, TF32 off), TP_WORLD
+    ranks on cuda:0 over gloo, at each of TP_LAYOUTS, against the same steps
+    in this process; the (1, 2) run's whole checkpoint resumed here without
+    a group. Returns the ranks' K1/K2/K3 launches (summed)."""
+    import torch.multiprocessing as mp
+
+    from versband_tpu_torch import parallel
+    from versband_tpu_torch.train.checkpoints import CheckpointManager
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TP_WORK, ignore_errors=True)
+    TP_WORK.mkdir(parents=True)
+    ranks = mp.start_processes(_tp_rank, args=(TP_WORLD, str((TP_WORK / "rdzv").resolve()),
+                                               str(TP_WORK.resolve())),
+                               nprocs=TP_WORLD, join=False, start_method="spawn")
+    # the same steps in this process, while the ranks run
+    cfm, steps = _tp_inputs()
+    checksum = _tp_checksum(cfm.model) + _tp_checksum(cfm.first_stage)
+    trainer = _tp_trainer(cfm, TP_WORK / "one")
+    trainer.init_state({"image": steps[0][0]["image"]})
+    one, one_ms = [], []
+    for i, (batch, given) in enumerate(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+        ev[0].record()
+        m = _tp_step(trainer, batch, given, dev)
+        ev[1].record()
+        torch.cuda.synchronize()
+        one_ms.append(ev[0].elapsed_time(ev[1]))
+        one.append({k: v.item() for k, v in m.items()})
+        if i == TP_STEPS - 1:
+            one_params = {k: v.detach().cpu().clone() for k, v in cfm.model.state_dict().items()}
+    whole_bytes = 3 * sum(p.numel() * p.element_size() for p in trainer.state.params)
+    del trainer, cfm
+    free_card()
+    while not ranks.join(timeout=600):
+        pass
+    got = [torch.load(TP_WORK / f"rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
+
+    k123 = [0, 0, 0]
+    depth = DIT["depth"]
+    for layout in TP_LAYOUTS:
+        members = [r[layout] for r in got if r[layout] is not None]
+        if len(members) != layout[0] * layout[1]:
+            raise AssertionError(f"[tp] {layout}: {len(members)} ranks reported")
+        for m in members:
+            if m["checksum"] != checksum:
+                raise AssertionError(f"[tp] {layout} rank {m['coords']}: other initial weights")
+            if any(c != (depth, depth, depth) for c in m["launches"]):
+                raise AssertionError(f"[tp] {layout} rank {m['coords']}: K1/K2/K3 launches per "
+                                     f"step {m['launches']}, expected {depth} each")
+            k123 = [a + sum(c[i] for c in m["launches"]) for i, a in enumerate(k123)]
+        worst = 0.0
+        for i in range(TP_STEPS):
+            for k in ("loss", "loss_simple", "lb_loss", "grad_norm"):
+                for m in members:
+                    gap = abs(m["metrics"][i][k] - one[i][k]) / max(abs(one[i][k]), 1e-30)
+                    worst = max(worst, gap)
+        if worst > TP_LOSS_TOL:
+            raise AssertionError(f"[tp] {layout}: losses or gradient norm {worst:.3e} from the "
+                                 f"one-process steps (bar {TP_LOSS_TOL})")
+        params = next(m["params"] for m in members if m["params"] is not None)
+        if list(params) != list(one_params):
+            raise AssertionError(f"[tp] {layout}: gathered names differ from the one-process")
+        # each leaf's max|d| in units of LR x the leaf's scale (its largest |value|, at least 1)
+        gaps = sorted(((float((params[k] - v).abs().max())
+                        / (TP_LR * max(1.0, float(v.abs().max()))), k)
+                       for k, v in one_params.items()), reverse=True)
+        p_gap = gaps[0][0]
+        print(f"[tp] {layout}: the largest parameter gaps (x LR x the leaf's scale): "
+              + ", ".join(f"{k} {g:.3e}" for g, k in gaps[:3]))
+        if p_gap > TP_PARAM_TOL:
+            raise AssertionError(f"[tp] {layout}: gathered parameters {p_gap:.3e} x LR x scale "
+                                 f"from the one-process steps (bar {TP_PARAM_TOL})")
+        n, b = members[0]["reduces"][-1]
+        for m in sorted(members, key=lambda m: m["coords"]):
+            print(f"[tp] ({layout[0]} data, {layout[1]} model) rank {m['coords']}: event ms "
+                  f"per step {['%.2f' % x for x in m['ms']]}; K1/K2/K3 per step "
+                  f"{m['launches'][-1]}; params + Adam state {m['state_bytes'] / 2 ** 20:.1f} "
+                  f"MiB (one process: {whole_bytes / 2 ** 20:.1f} MiB)")
+        print(f"[tp] ({layout[0]} data, {layout[1]} model): {n} model-axis all-reduces "
+              f"a step, {b / 2 ** 20:.1f} MiB a step per rank; losses and gradient norm within "
+              f"{worst:.3e} of the one-process steps (bar {TP_LOSS_TOL}), gathered parameters "
+              f"within {p_gap:.3e} x LR x scale (bar {TP_PARAM_TOL}); {TP_WORLD} processes "
+              f"share one card over gloo: not a multi-card figure")
+
+    # the (1, 2) run's whole checkpoint, resumed without a group
+    cfm, steps = _tp_inputs()
+    layout = TP_LAYOUTS[0]
+    trainer = _tp_trainer(cfm, TP_WORK / "resume")
+    trainer.init_state({"image": steps[0][0]["image"]})
+    trainer.ckpt = CheckpointManager(str(TP_WORK / f"run_{layout[0]}x{layout[1]}" / "checkpoints"))
+    trainer._restore()
+    if trainer.global_step != TP_STEPS or trainer.state.step != TP_STEPS:
+        raise AssertionError(f"[tp] resumed at step {trainer.global_step}/{trainer.state.step}")
+    resumed = _tp_step(trainer, *steps[TP_STEPS], dev)["loss"].item()
+    want = one[TP_STEPS]["loss"]
+    gap = abs(resumed - want) / abs(want)
+    if gap > TP_LOSS_TOL or parallel.active():
+        raise AssertionError(f"[tp] the checkpoint of {layout} resumed in one process: step "
+                             f"{TP_STEPS + 1} loss {resumed} against {want} uninterrupted")
+    print(f"[tp] checkpoint of ({layout[0]} data, {layout[1]} model) resumed in one process: "
+          f"step {TP_STEPS + 1} loss {resumed:.6f}, uninterrupted {want:.6f} (|d| {gap:.2e} "
+          f"relative); one-process event ms per step {['%.2f' % x for x in one_ms]}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del trainer, cfm
+    free_card()
+    shutil.rmtree(TP_WORK, ignore_errors=True)
+    return {"launches": tuple(k123)}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_card()
@@ -3598,6 +3849,7 @@ def main() -> None:
     t_phase = time.perf_counter()
     ddp = phase_ddp(dev)
     ddp["wall_s"] = time.perf_counter() - t_phase
+    tp = phase_tp(dev)
     t_phase = time.perf_counter()
     timefreq = phase_timefreq_cli(dev)
     timefreq["wall_s"] = time.perf_counter() - t_phase
@@ -3627,8 +3879,8 @@ def main() -> None:
           f"({voc_bigvgan['peak_gib']:.2f} GiB), pwg {voc_pwg['ms']:.2f} ms "
           f"({voc_pwg['peak_gib']:.2f} GiB); on the trained generators K4 "
           f"{voc_bigvgan['k4_ms']:.3f} ms and K5 {voc_pwg['k5_ms']:.3f} ms per launch")
-    n_train = tuple(a + b + c + d for a, b, c, d in zip(trained["launches"], n_train_cli,
-                                                       prep["launches"], ddp["launches"]))
+    n_train = tuple(sum(n) for n in zip(trained["launches"], n_train_cli, prep["launches"],
+                                        ddp["launches"], tp["launches"]))
     n_serve = {k: sum(f[k] for f in served.values()) for k in ("k1", "k4", "k5")}
     bwd_src = "versband_tpu_torch/ops/csrc/flash_attn_bwd.cu"
     table = [
@@ -3663,7 +3915,8 @@ def main() -> None:
           f"and {ddp['wall_s']:.1f} s")
     print(f"kernels: {[k['name'] for k in table]}; K1 launches: serving {n_serve['k1']}, "
           f"training {trained['launches'][0]}, cli {n_cli}, train-cli {n_train_cli[0]}, "
-          f"prep-cli {prep['launches'][0]}, ddp {ddp['launches'][0]}, "
+          f"prep-cli {prep['launches'][0]}, ddp {ddp['launches'][0]}, tp {tp['launches'][0]} "
+          f"(its ranks' K2/K3 {tp['launches'][1]}/{tp['launches'][2]}), "
           f"vae-train-cli's cli.generate {n_vae_gen} "
           f"(train-cli's K2/K3 {n_train_cli[1]}/{n_train_cli[2]}), audioldm {audioldm['k1']}; "
           f"K4 {n_serve['k4']} (bigvgan) + "

@@ -142,11 +142,17 @@ def test_lr_line_is_the_jax_formula(capsys):
             assert lr == base and line == f"Using base learning rate {base:.2e}"
 
 
+TIMEFREQ_UNET = ("model.params.unet_config.target="
+                 "ldm.modules.diffusionmodules.flag_large_dit_moe.VideoFlagLargeDiT")
+
+
 @pytest.mark.parametrize("args,item", [
-    # data parallelism is ported (tests/test_torch_port_ddp.py); the model
-    # axis is refused before any rank starts
-    (["-b", "configs/vocal2music.yaml", "-t", "--devices", "2", "--n_model", "2"], "item 12"),
-    (["-b", "configs/vocal2music.yaml", "-t", "--n_model", "2"], "item 12"),
+    # the data axis and the Band-MoE DiT's model axis are ported
+    # (tests/test_torch_port_ddp.py, tests/test_torch_port_tp_*.py); the model
+    # axis of another backbone is refused before any rank starts
+    (["-b", "configs/vocal2music.yaml", "-t", "--devices", "2", "--n_model", "2",
+      TIMEFREQ_UNET], "item 12"),
+    (["-b", "configs/vocal2music.yaml", "-t", "--n_model", "2", TIMEFREQ_UNET], "item 12"),
 ])
 def test_what_is_not_ported_raises(args, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):

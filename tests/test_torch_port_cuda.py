@@ -49,6 +49,13 @@ The legacy backbones (a small Time/Freq-MoE DiT and ConcatOrderDiT, depth
 2) and the 2-D KL and VQ autoencoders on the card against the CPU: 2e-3 of
 scale (fp32, TF32 off, summed in another order), no K1 launch (they attend
 in plain PyTorch, as the JAX package does), the same VQ indices.
+
+Tensor and expert parallelism on one card: two ranks share cuda:0 over gloo
+(``tests/torch_port_tp_worker.py``); the cut ``JointAttention`` and
+``BandMoE`` of a small Band-MoE DiT (head dim 32) against the whole ones,
+output and input gradient within K1's fp32 bar of scale, one K1, K2 and K3
+on each rank's heads; ``flash_attention_sharded`` over heads and over rows
+against the plain version, one K1 a rank.
 """
 
 import math
@@ -965,3 +972,71 @@ def test_autoencoder2d_on_the_card_matches_the_cpu(cuda):
             with torch.no_grad():
                 idx, idx_gpu = cpu.encode(x)[2], gpu.encode(x.to(cuda))[2]
             assert torch.equal(idx_gpu.cpu(), idx)
+
+
+# --- tensor and expert parallelism on one card (ranks share cuda:0 over gloo) --
+TP_DIT = dict(in_channels=4, ori_dim=64, context_dim=128, hidden_size=128, num_heads=4,
+              depth=1, max_len=256, num_experts=4, multiple_of=32, use_flash=True)
+
+
+@pytest.fixture(scope="module")
+def tp_ranks(tmp_path_factory):
+    """Two ranks on cuda:0 over gloo (``tests/torch_port_tp_worker.py``): the
+    cut modules of a small Band-MoE DiT (head dim 32) against the whole ones,
+    and ``flash_attention_sharded``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import torch.multiprocessing as mp
+
+    from versband_tpu_torch.models.dit import BandMoeDiT
+    import torch_port_tp_worker as worker
+
+    root = tmp_path_factory.mktemp("tp_card")
+    torch.manual_seed(0)
+    model = BandMoeDiT(**TP_DIT)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "adaLN" in name or "final_layer" in name or name.endswith("gate"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.2)
+    B, T, d = 2, 200, TP_DIT["hidden_size"]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g)
+
+    case = {"kind": "card", "dit_kwargs": TP_DIT, "dit": model.state_dict(),
+            "x": rnd(B, T, d), "y": rnd(B, 12, d), "t_emb": rnd(B, d), "caption": rnd(B, 12, d),
+            "acoustic": rnd(B, T, d), "dout": rnd(B, T, d),
+            "noise": [-torch.log(-torch.log(torch.rand(s, generator=g).clamp_min(1e-20)))
+                      for s in model.layers[0].feed_forward.noise_shapes(B, T)],
+            "q": rnd(2, 256, 4, 96), "k": rnd(2, 256, 4, 96), "v": rnd(2, 256, 4, 96),
+            "kv_len": torch.tensor([256, 97], dtype=torch.int32)}
+    torch.save(case, root / "inputs.pt")
+    mp.start_processes(worker.main, args=(2, str(root / "rendezvous"), str(root / "inputs.pt"),
+                                          str(root), "cuda"),
+                       nprocs=2, join=True, start_method="spawn")
+    return case, [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+@pytest.mark.parametrize("module", ["attention", "moe"])
+def test_tp_modules_on_one_card_match_the_whole_ones(cuda, tp_ranks, module):
+    """Each rank's half of the heads and experts, summed over the model
+    group, gives the whole module's output and input gradient (fp32: 1e-4 of
+    scale, K1's bar); the cut attention runs one K1, K2 and K3 on its heads."""
+    _, ranks = tp_ranks
+    for r in ranks:
+        (o_w, g_w, _), (o_c, g_c, n) = r[module]["whole"], r[module]["cut"]
+        assert float((o_c - o_w).abs().max()) <= TOL[torch.float32] * float(o_w.abs().max())
+        assert float((g_c - g_w).abs().max()) <= TOL[torch.float32] * float(g_w.abs().max())
+        assert n == ((1, 1, 1) if module == "attention" else (0, 0, 0))
+
+
+@pytest.mark.parametrize("layout", [(1, 2), (2, 1)], ids=["model2", "data2"])
+def test_flash_attention_sharded_against_plain(cuda, tp_ranks, layout):
+    case, ranks = tp_ranks
+    ref = fa.flash_attention_reference(case["q"], case["k"], case["v"], case["kv_len"])
+    for r in ranks:
+        out, n = r[layout]
+        assert n == 1  # one K1 on this rank's block
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((out - ref).abs().max()) <= TOL[torch.float32] * scale

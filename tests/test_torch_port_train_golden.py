@@ -171,7 +171,7 @@ def test_five_steps_and_validation_match_jax(tmp_path, t5_dir, monkeypatch):
                                 for _ in shapes(b, t_lat)])}
 
     scale = cfm.compute_scale_factor
-    cfm.compute_scale_factor = lambda mel, gen: scale(
+    cfm.compute_scale_factor = lambda mel, gen, group=None: scale(
         mel, noise=torch.from_numpy(rec.take("normal")))
     losses, seen = [], []
     one, many, val = tr.train_step, tr.multi_step, tr._val_loss

@@ -50,7 +50,7 @@ def cfm_step(case, rank, world, per_rank_usage=False):
     given["gumbel"] = iter(given["gumbel"])
     real = dit.global_sum
     if per_rank_usage:  # the load-balancing usage of this rank's batch alone
-        dit.global_sum = lambda x: x
+        dit.global_sum = lambda x, group=None: x
     try:
         metrics = make_cfm_train_step(cfm)(state, batch, given=given)
     finally:

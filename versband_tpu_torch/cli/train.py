@@ -34,8 +34,14 @@ process per rank over gloo), as Lightning's DDP trained the reference:
 * each rank loads ``batch_size`` from its shard, so the global batch and the
   LR's ``devices`` factor are the world size; rank 0 writes the run's files.
 
-``--n_model`` above 1 (tensor and expert parallelism) raises: ROADMAP Queue 1
-item 12's later part.
+``--n_model M`` adds tensor and expert parallelism for the CFM backbone
+(the Band-MoE DiT): the ranks form a ``(world / M, M)`` mesh
+(``parallel.make_mesh``), as JAX ``cli/train.py:190-198`` builds it; each
+model row of M ranks holds one model cut over its attention heads and
+experts and loads one batch, so the global batch and the LR's ``devices``
+factor are ``world / M``. Checkpoints are whole, the file a one-process run
+writes. Stage 1 trains over the data axis only and ignores ``--n_model``
+(JAX ``cli/train.py:170-176``), and says so.
 """
 
 from __future__ import annotations
@@ -54,7 +60,8 @@ import torch
 
 from versband_tpu_torch import parallel
 from versband_tpu_torch.utils.config import (
-    Config, apply_dot_overrides, instantiate_from_config, load_config, merge_configs)
+    Config, apply_dot_overrides, instantiate_from_config, load_config, merge_configs,
+    resolve_target)
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -70,8 +77,10 @@ def get_parser() -> argparse.ArgumentParser:
                    help="data-parallel ranks, one per card (CPU processes with "
                         "--platform cpu); under torchrun, its world size")
     p.add_argument("--n_model", type=int, default=1,
-                   help="model-parallel axis size (1 only; more is ROADMAP item 12's "
-                        "later part)")
+                   help="model axis of the (data, model) mesh: tensor parallelism over the "
+                        "DiT's attention heads and expert parallelism over its experts; the "
+                        "ranks (--devices or torchrun's) must divide by it; stage 1 "
+                        "ignores it")
     p.add_argument("--scale_lr", type=str, default="true")
     p.add_argument("--max_steps", type=int, default=10 ** 9)
     p.add_argument("--max_epochs", type=int, default=1000)
@@ -116,10 +125,10 @@ def main(argv: Optional[List[str]] = None, run: Optional[Dict[str, Any]] = None)
     """Run the CLI on ``argv``. ``run``, when given, receives the run's
     ``trainer``, ``config`` and ``logdir``."""
     opt, unknown = get_parser().parse_known_args(argv)
-    if opt.n_model > 1:
-        raise NotImplementedError("tensor and expert parallelism (--n_model > 1) are not "
-                                  "ported yet (ROADMAP Queue 1 item 12's later part)")
     from versband_tpu_torch.device import resolve_device
+
+    if opt.n_model > 1:
+        check_model_axis(load_run_config(opt, unknown))
 
     device_type = "cpu" if opt.platform == "cpu" else "cuda"
     joined = False
@@ -141,24 +150,56 @@ def main(argv: Optional[List[str]] = None, run: Optional[Dict[str, Any]] = None)
             parallel.leave()
 
 
+def load_run_config(opt, unknown: List[str]) -> Optional[Config]:
+    """The run's config: ``-r``'s archived configs, then ``--base`` in order,
+    then the ``key=value`` overrides; None without any config."""
+    bases = list(opt.base)
+    if opt.resume:
+        bases = sorted(glob.glob(os.path.join(opt.resume, "configs/*.yaml"))) + bases
+    if not bases:
+        return None
+    config: Config = Config.wrap({})
+    for b in bases:
+        config = merge_configs(config, load_config(b))
+    return apply_dot_overrides(config, unknown)
+
+
+def is_stage1(config: Config) -> bool:
+    target = config["model"]["target"]
+    return "autoencoder" in target.lower() or target.endswith("AutoencoderKL")
+
+
+def check_model_axis(config: Optional[Config]) -> None:
+    """``--n_model`` above 1 cuts the Band-MoE DiT only: another backbone
+    raises here, before any rank starts (stage 1 ignores the flag)."""
+    if config is None or is_stage1(config):
+        return
+    unet = resolve_target(config["model"]["params"]["unet_config"]["target"])
+    if unet != "versband_tpu_torch.models.dit.BandMoeDiT":
+        raise NotImplementedError(
+            f"--n_model above 1 cuts the Band-MoE DiT only, not {unet} (ROADMAP Queue 1 "
+            f"item 12's remainder)")
+
+
 def _train(opt, unknown: List[str], device: torch.device,
            run: Optional[Dict[str, Any]]) -> int:
     ndev, rank = parallel.world()
     # one run directory for every rank: rank 0's clock names it
     now = parallel.broadcast_object(datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S"))
 
-    bases = list(opt.base)
-    if opt.resume:
-        bases = sorted(glob.glob(os.path.join(opt.resume, "configs/*.yaml"))) + bases
-    if not bases:
+    config = load_run_config(opt, unknown)
+    if config is None:
         print("no --base config given", file=sys.stderr)
         return 2
-    config: Config = Config.wrap({})
-    for b in bases:
-        config = merge_configs(config, load_config(b))
-    config = apply_dot_overrides(config, unknown)
-
     model_cfg = config["model"]
+    stage1 = is_stage1(config)
+    mesh = None
+    if stage1 and opt.n_model > 1:
+        print(f"Stage 1 trains over the data axis only: --n_model {opt.n_model} ignored")
+    elif not stage1 and (ndev > 1 or opt.n_model > 1):
+        mesh = parallel.make_mesh(None, opt.n_model)
+        print(f"Training on mesh {mesh.shape}")
+    n_data = ndev if mesh is None else mesh.n_data
     logdir = build_logdir(opt, now)
     ckptdir = os.path.join(logdir, "checkpoints")
     cfgdir = os.path.join(logdir, "configs")
@@ -167,8 +208,10 @@ def _train(opt, unknown: List[str], device: torch.device,
     lightning_cfg = config.get("lightning", Config.wrap({}))
 
     datamodule = instantiate_from_config(data_cfg)
+    if mesh is not None:  # the sampler shards by data index: a model row loads one batch
+        datamodule.num_replicas, datamodule.rank = mesh.n_data, mesh.data_rank
     datamodule.setup()
-    lr = scaled_lr(opt, ndev, data_cfg["params"]["batch_size"],
+    lr = scaled_lr(opt, n_data, data_cfg["params"]["batch_size"],
                    float(model_cfg.get("base_learning_rate", 1e-4)))
 
     from versband_tpu_torch.train.callbacks import DeviceStatsCallback, SetupCallback
@@ -179,6 +222,9 @@ def _train(opt, unknown: List[str], device: torch.device,
     if rank == 0:  # the run's directory, configs and logs are rank 0's to write
         callbacks = [SetupCallback(bool(opt.resume), now, logdir, ckptdir, cfgdir, config,
                                    lightning_cfg), DeviceStatsCallback()]
+    # the loggers sample through the backbone: under a model axis, every rank
+    # of rank 0's model row runs them (rank 0 alone writes)
+    if rank == 0 or (mesh is not None and mesh.n_model > 1 and mesh.data_rank == 0):
         for name, cb_cfg in (lightning_cfg.get("callbacks") or {}).items():
             try:
                 callbacks.append(instantiate_from_config(cb_cfg, device=device))
@@ -190,8 +236,7 @@ def _train(opt, unknown: List[str], device: torch.device,
     common = dict(logdir=logdir, max_steps=opt.max_steps, max_epochs=opt.max_epochs,
                   callbacks=callbacks, ckpt=ckpt, seed=opt.seed,
                   accumulate_grad_batches=opt.accumulate_grad_batches)
-    target = model_cfg["target"]
-    if "autoencoder" in target.lower() or target.endswith("AutoencoderKL"):
+    if stage1:
         trainer = VAETrainer(*build_vae_gan(model_cfg, device, opt.seed), learning_rate=lr,
                              **common)
     else:
@@ -206,7 +251,7 @@ def _train(opt, unknown: List[str], device: torch.device,
             use_ema=bool(model_cfg["params"].get("use_ema", False)),
             steps_per_call=opt.steps_per_call, prefetch_groups=opt.prefetch_groups,
             transfer_dtype=opt.transfer_dtype, caption_cache_dir=opt.caption_cache_dir,
-            **common)
+            mesh=mesh, **common)
     if run is not None:
         run.update(trainer=trainer, config=config, logdir=logdir)
 

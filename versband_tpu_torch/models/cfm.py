@@ -200,13 +200,14 @@ class LatentDiffusion:
     @torch.no_grad()
     def compute_scale_factor(self, mel: torch.Tensor,
                              generator: Optional[torch.Generator] = None,
-                             noise: Optional[torch.Tensor] = None) -> float:
+                             noise: Optional[torch.Tensor] = None, group=None) -> float:
         """scale_by_std: 1/std(z) of a posterior sample of ``mel`` (population
         std), over every rank's ``mel`` under a process group: the sums of z
-        and z^2 in float64, summed over the ranks."""
+        and z^2 in float64, summed over the ranks of ``group`` (None: all of
+        them; under a mesh, the data group)."""
         z = self.first_stage.encode(mel).sample(generator, noise).double()
         n, s1, s2 = parallel.global_sum(torch.stack(
-            [z.new_tensor(float(z.numel())), z.sum(), (z * z).sum()]))
+            [z.new_tensor(float(z.numel())), z.sum(), (z * z).sum()]), group)
         std = torch.sqrt(s2 / n - (s1 / n) ** 2)
         self.scale_factor = float(1.0 / std.item())
         return self.scale_factor

@@ -24,7 +24,16 @@ noise, as in JAX without a ``gumbel`` rng. The noise of a block is drawn
 before the block runs, so ``remat`` (``torch.utils.checkpoint`` per block)
 recomputes the block with the same noise. In a training forward under a
 process group the load-balancing loss takes each expert's usage over the
-global batch (``parallel.global_sum`` of its numerator and denominator).
+global batch (``parallel.global_sum`` of its numerator and denominator,
+over the data group).
+
+Under tensor and expert parallelism (``parallel.sharding.shard_module_``)
+each rank of a model group holds half or a quarter of every attention's
+heads and of each expert group. The gates stay whole on every rank and see
+the same inputs, so the ranks route alike; each rank mixes its own experts
+by its columns of the gate probabilities, and the partial sums meet in one
+``reduce_from_model`` per expert stage (for the frequency experts, each
+rank's bands written into zeros: an all-gather made of one all-reduce).
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ from versband_tpu_torch.nn.core import (
     ConditionEmbedder, FeedForward, JointAttention, RMSNorm, TimestepEmbedder,
     modulate, precompute_rope, sdpa,
 )
-from versband_tpu_torch.parallel import global_sum
+from versband_tpu_torch.parallel import copy_to_model, global_sum, reduce_from_model
 
 
 def anneal_temperature(step: int, init: float = 2.0, decay: float = 0.9999,
@@ -89,23 +98,34 @@ def gumbel_softmax(logits: torch.Tensor, temperature: float, hard: bool,
 
 
 class StackedSwiGLU(nn.ModuleList):
-    """E SwiGLU experts (``{e}.w1/w2/w3``), evaluated densely or band-diagonally."""
+    """E SwiGLU experts (``{e}.w1/w2/w3``), evaluated densely or band-diagonally.
+
+    Under expert parallelism the other ranks' experts are None here (their
+    names, and so the others', stay the one-process names); each method
+    then computes this rank's experts only, which the caller sums over the
+    model group."""
 
     def __init__(self, num_experts: int, dim: int, hidden_dim: int, multiple_of: int = 256):
         super().__init__([FeedForward(dim, hidden_dim, multiple_of)
                           for _ in range(num_experts)])
 
+    def local(self) -> List[int]:
+        """The indices of the experts this rank holds."""
+        return [e for e, expert in enumerate(self) if expert is not None]
+
     def dense(self, x: torch.Tensor) -> torch.Tensor:
         """Every expert on the shared input ``[B, T, d]``, or expert e on its
-        own input ``x[e]`` of ``[E, B, T, d]`` -> ``[E, B, T, d]``."""
+        own input ``x[e]`` of ``[E, B, T, d]`` -> ``[E, B, T, d]`` (E: the
+        experts this rank holds)."""
         if x.ndim == 4:
             if x.shape[0] != len(self):
                 raise ValueError(f"{x.shape[0]} expert inputs for {len(self)} experts")
             return torch.stack([expert(xe) for expert, xe in zip(self, x)])
-        return torch.stack([expert(x) for expert in self])
+        return torch.stack([self[e](x) for e in self.local()])
 
     def routed(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """Token ``(b, t)`` through expert ``idx[b, t]`` only -> ``[B, T, d]``.
+        """Token ``(b, t)`` through expert ``idx[b, t]`` only -> ``[B, T, d]``
+        (zero where that expert is another rank's).
 
         The tokens are sorted by expert (a stable argsort, ``jnp.argsort``'s
         order), counted per expert (read on the host: the segments' sizes
@@ -115,36 +135,48 @@ class StackedSwiGLU(nn.ModuleList):
         xf, idf = x.reshape(B * T, d), idx.reshape(B * T)
         order = torch.argsort(idf, stable=True)
         counts = torch.bincount(idf, minlength=len(self)).tolist()
-        out = torch.empty_like(xf)
+        out = torch.empty_like(xf) if len(self.local()) == len(self) else torch.zeros_like(xf)
         start = 0
         for expert, n in zip(self, counts):
-            xs = xf[order[start: start + n]]
-            a = torch.matmul(xs, expert.w1.weight.t())
-            b = torch.matmul(xs, expert.w3.weight.t())
-            out[start: start + n] = torch.matmul(F.silu(a) * b, expert.w2.weight.t())
+            if expert is not None:
+                xs = xf[order[start: start + n]]
+                a = torch.matmul(xs, expert.w1.weight.t())
+                b = torch.matmul(xs, expert.w3.weight.t())
+                out[start: start + n] = torch.matmul(F.silu(a) * b, expert.w2.weight.t())
             start += n
         return out[torch.argsort(order)].reshape(B, T, d)
 
     def band_diagonal(self, x: torch.Tensor) -> torch.Tensor:
-        """Expert e on channel band e only, its band-e outputs kept -> ``[B, T, d]``.
+        """Expert e on channel band e only, its band-e outputs kept -> ``[B, T, d]``
+        (zero on the bands of another rank's experts).
 
         Equals running expert e on x masked to band e and keeping band e of its
         output, with the matmuls contracted over the band alone.
         """
         band = x.shape[-1] // len(self)
         outs = []
-        for e, expert in enumerate(self):
-            sl = slice(e * band, (e + 1) * band)
+        for e in self.local():
+            expert, sl = self[e], slice(e * band, (e + 1) * band)
             xb = x[..., sl]
             a = F.linear(xb, expert.w1.weight[:, sl])
             b = F.linear(xb, expert.w3.weight[:, sl])
             outs.append(F.linear(F.silu(a) * b, expert.w2.weight[sl]))
-        return torch.cat(outs, dim=-1)
+        if len(outs) == len(self):
+            return torch.cat(outs, dim=-1)
+        out = x.new_zeros(x.shape)
+        for e, o in zip(self.local(), outs):
+            out[..., e * band:(e + 1) * band] = o
+        return out
 
 
 class CaptionCrossAttention(nn.Module):
     """Biased multi-head attention (q = x, kv = caption) with
-    ``nn.MultiheadAttention``'s parameter names; plain :func:`sdpa` inside."""
+    ``nn.MultiheadAttention``'s parameter names; plain :func:`sdpa` inside.
+
+    Cut by ``parallel.sharding.shard_module_`` (``tp_group`` set), it holds
+    the q, k and v rows of ``n_local`` heads and their columns of
+    ``out_proj``; the whole ``in_proj_bias`` is sliced at use, and
+    ``out_proj.bias`` is added once, after the partial products are summed."""
 
     def __init__(self, dim: int, num_heads: int = 8):
         super().__init__()
@@ -153,16 +185,27 @@ class CaptionCrossAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        self.tp_group = None
+        self.n_local, self.head_offset = num_heads, 0
 
     def forward(self, x: torch.Tensor, caption: torch.Tensor) -> torch.Tensor:
         B, T, d = x.shape
         hd = d // self.num_heads
+        group, H = self.tp_group, self.n_local
         wq, wk, wv = self.in_proj_weight.chunk(3)
-        bq, bk, bv = self.in_proj_bias.chunk(3)
-        q = F.linear(x, wq, bq).view(B, T, self.num_heads, hd)
-        k = F.linear(caption, wk, bk).view(B, caption.shape[1], self.num_heads, hd)
-        v = F.linear(caption, wv, bv).view(B, caption.shape[1], self.num_heads, hd)
-        return self.out_proj(sdpa(q, k, v).reshape(B, T, d))
+        if group is None:
+            bq, bk, bv = self.in_proj_bias.chunk(3)
+        else:
+            x, caption = copy_to_model(x, group), copy_to_model(caption, group)
+            cols = slice(self.head_offset * hd, (self.head_offset + H) * hd)
+            bq, bk, bv = (b[cols] for b in copy_to_model(self.in_proj_bias, group).chunk(3))
+        q = F.linear(x, wq, bq).view(B, T, H, hd)
+        k = F.linear(caption, wk, bk).view(B, caption.shape[1], H, hd)
+        v = F.linear(caption, wv, bv).view(B, caption.shape[1], H, hd)
+        out = sdpa(q, k, v).reshape(B, T, H * hd)
+        if group is None:
+            return self.out_proj(out)
+        return reduce_from_model(F.linear(out, self.out_proj.weight), group) + self.out_proj.bias
 
 
 class BandMoE(nn.Module):
@@ -186,10 +229,32 @@ class BandMoE(nn.Module):
         self.caption_experts = StackedSwiGLU(num_experts, dim, hidden_dim, multiple_of)
         self.acoustic_experts = StackedSwiGLU(num_experts, dim, hidden_dim, multiple_of)
         self.freq_experts = StackedSwiGLU(num_experts, dim, hidden_dim, multiple_of)
+        # set by parallel.sharding.shard_module_: the model group that shares
+        # the experts (None: every expert here) and the data group the
+        # load-balancing usage sums over (None: the whole process group)
+        self.tp_group = None
+        self.data_group = None
 
     def noise_shapes(self, B: int, T: int) -> List[Tuple[int, ...]]:
         """Shapes of the Gumbel noise one training forward draws, in order."""
         return [(B, 2), (B, T, self.num_experts), (B, T, self.num_experts)]
+
+    def _mix(self, x, cap_feat, acoustic, cap_probs, ac_probs, hl_probs, hard: bool
+             ) -> torch.Tensor:
+        """The caption and acoustic experts this rank holds, mixed by their
+        columns of the gate probabilities and the group gate (each token
+        through its argmax expert alone on the routed eval path)."""
+        cap_mask = hl_probs[:, 0][:, None, None]
+        ac_mask = hl_probs[:, 1][:, None, None]
+        if hard and self.eval_routed:
+            cap_idx = self.caption_gating_network(cap_feat).argmax(dim=-1)
+            ac_idx = self.acoustic_gating_network(acoustic).argmax(dim=-1)
+            return (self.caption_experts.routed(x, cap_idx) * cap_mask
+                    + self.acoustic_experts.routed(x, ac_idx) * ac_mask)
+        return (torch.einsum("ebtd,bte->btd", self.caption_experts.dense(x), cap_probs)
+                * cap_mask
+                + torch.einsum("ebtd,bte->btd", self.acoustic_experts.dense(x), ac_probs)
+                * ac_mask)
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor, caption: torch.Tensor,
                 acoustic: torch.Tensor, step: int = 0, train: bool = False,
@@ -213,17 +278,22 @@ class BandMoE(nn.Module):
         ac_probs = gumbel_softmax(self.acoustic_gating_network(acoustic), temperature, hard,
                                   ac_g)
 
-        if hard and self.eval_routed:  # each token through its argmax expert alone
-            cap_idx = self.caption_gating_network(cap_feat).argmax(dim=-1)
-            ac_idx = self.acoustic_gating_network(acoustic).argmax(dim=-1)
-            y = (self.caption_experts.routed(x, cap_idx) * cap_mask
-                 + self.acoustic_experts.routed(x, ac_idx) * ac_mask)
+        group = self.tp_group
+        if group is None:
+            mixed = self._mix(x, cap_feat, acoustic, cap_probs, ac_probs, hl_probs, hard)
+            z = self.freq_experts.band_diagonal(mixed)
         else:
-            y = (torch.einsum("ebtd,bte->btd", self.caption_experts.dense(x), cap_probs)
-                 * cap_mask
-                 + torch.einsum("ebtd,bte->btd", self.acoustic_experts.dense(x), ac_probs)
-                 * ac_mask)
-        z = self.freq_experts.band_diagonal(y)
+            # the gates' outputs are whole on every rank: each rank's slice of
+            # the work takes them through copy_to_model, so their gradients
+            # come back as the sum of the ranks' parts
+            xm, hl_m = copy_to_model(x, group), copy_to_model(hl_probs, group)
+            own_c, own_a = self.caption_experts.local(), self.acoustic_experts.local()
+            cp = copy_to_model(cap_probs, group)[..., own_c]
+            ap = copy_to_model(ac_probs, group)[..., own_a]
+            mixed = reduce_from_model(self._mix(xm, cap_feat, acoustic, cp, ap, hl_m, hard),
+                                      group)
+            z = reduce_from_model(
+                self.freq_experts.band_diagonal(copy_to_model(mixed, group)), group)
 
         cap_m = cap_mask.expand(B, T, 1).reshape(-1, 1)
         ac_m = ac_mask.expand(B, T, 1).reshape(-1, 1)
@@ -234,7 +304,7 @@ class BandMoE(nn.Module):
             # usage over the global batch, as JAX's global program takes it:
             # the loss is not linear in the batch, so a per-rank usage would
             # give another gradient than the full batch's
-            num, den = global_sum(torch.cat([num, den[None]])).split([2 * E, 1])
+            num, den = global_sum(torch.cat([num, den[None]]), self.data_group).split([2 * E, 1])
             den = den[0]
         usage = num / (den + 1e-10)
         lb_loss = torch.mean(usage * torch.log(usage + 1e-10))

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from versband_tpu_torch.ops.flash_attention import flash_attention
+from versband_tpu_torch.parallel import copy_to_model, reduce_from_model
 
 _NEG = float(torch.finfo(torch.float32).min)
 
@@ -163,7 +164,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class JointAttention(nn.Module):
     """Self-attention with RoPE plus an optional zero-init tanh-gated
     cross-attention over ``y``; GQA through ``n_kv_heads``. The cross path
-    always uses :func:`sdpa` (text keys are short)."""
+    always uses :func:`sdpa` (text keys are short).
+
+    Cut by ``parallel.sharding.shard_module_`` (``tp_group`` set), it holds
+    ``n_local`` of the heads: column-parallel ``wq/wk/wv(_y)``, this rank's
+    slice of the whole per-head ``gate``, and a row-parallel ``wo`` whose
+    partial products are summed over the model group."""
 
     def __init__(self, dim: int, n_heads: int, n_kv_heads: Optional[int] = None,
                  qk_norm: bool = False, y_dim: int = 0, use_flash: bool = False,
@@ -176,6 +182,9 @@ class JointAttention(nn.Module):
         self.use_flash = use_flash
         self.proportional_attn = proportional_attn
         self.base_seqlen = base_seqlen
+        # this rank's heads under tensor parallelism (all of them otherwise)
+        self.tp_group = None
+        self.n_local, self.kv_local, self.head_offset = n_heads, self.n_kv, 0
         hd, nkv = self.head_dim, self.n_kv
         self.wq = nn.Linear(dim, n_heads * hd, bias=False)
         self.wk = nn.Linear(dim, nkv * hd, bias=False)
@@ -202,12 +211,14 @@ class JointAttention(nn.Module):
                 y_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, _ = x.shape
         hd, n_rep = self.head_dim, self.n_heads // self.n_kv
+        H, Hkv, group = self.n_local, self.kv_local, self.tp_group
+        x = copy_to_model(x, group)
         q, k, v = self.wq(x), self.wk(x), self.wv(x)
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
-        q = apply_rope(q.view(B, T, self.n_heads, hd), rope_cos, rope_sin)
-        k = apply_rope(k.view(B, T, self.n_kv, hd), rope_cos, rope_sin)
-        v = v.view(B, T, self.n_kv, hd)
+        q = apply_rope(q.view(B, T, H, hd), rope_cos, rope_sin)
+        k = apply_rope(k.view(B, T, Hkv, hd), rope_cos, rope_sin)
+        v = v.view(B, T, Hkv, hd)
         if n_rep > 1:
             k = k.repeat_interleave(n_rep, dim=2)
             v = v.repeat_interleave(n_rep, dim=2)
@@ -218,15 +229,19 @@ class JointAttention(nn.Module):
         out = attention(q, k, v, x_mask, scale=scale, use_flash=self.use_flash)
 
         if self.y_dim > 0 and y is not None:
+            y = copy_to_model(y, group)
             Ty = y.shape[1]
             ky = self.wk_y(y)
             if self.ky_norm is not None:
                 ky = self.ky_norm(ky)
-            ky = ky.view(B, Ty, self.n_kv, hd)
-            vy = self.wv_y(y).view(B, Ty, self.n_kv, hd)
+            ky = ky.view(B, Ty, Hkv, hd)
+            vy = self.wv_y(y).view(B, Ty, Hkv, hd)
             if n_rep > 1:
                 ky = ky.repeat_interleave(n_rep, dim=2)
                 vy = vy.repeat_interleave(n_rep, dim=2)
             out_y = sdpa(q, ky, vy, y_mask)
-            out = out + out_y * torch.tanh(self.gate).to(out.dtype)[None, None, :, None]
-        return self.wo(out.reshape(B, T, self.n_heads * hd))
+            gate = self.gate
+            if group is not None:
+                gate = copy_to_model(gate, group)[self.head_offset:self.head_offset + H]
+            out = out + out_y * torch.tanh(gate).to(out.dtype)[None, None, :, None]
+        return reduce_from_model(self.wo(out.reshape(B, T, H * hd)), group)

@@ -30,7 +30,8 @@ they run the plain versions (:func:`flash_attention_reference`, the port of
 ``_sdpa_masked``, and :func:`flash_attention_bwd_reference`, the dense
 formulas of the two backward kernels). ``LAUNCHES`` (K1), ``LAUNCHES_DQ``
 (K2) and ``LAUNCHES_DKV`` (K3) count kernel launches, so a run can show that
-its hot path went through the kernels.
+its hot path went through the kernels. :func:`flash_attention_sharded`
+runs them on one rank's block of a ``(data, model)`` mesh.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from versband_tpu_torch.ops import _build
+from versband_tpu_torch.parallel import copy_to_model, reduce_from_model
 
 LAUNCHES = 0
 LAUNCHES_DQ = 0
@@ -385,3 +387,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, kv_len, scale)
     return _forward(q, k, v, kv_len, scale)[0]
+
+
+def flash_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            kv_len: Optional[torch.Tensor] = None, mesh=None,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_attention` under a ``(data, model)`` mesh (the port of
+    the JAX ``flash_attention_sharded``): q, k, v are whole ``[B, T, H, D]``
+    on every rank of ``mesh`` (a ``parallel.mesh.Mesh``); each rank runs K1
+    on its ``[B/d, T, H/m, D]`` block (its data index's rows, its model
+    index's heads), and the whole output comes back by one all-reduce of a
+    zero tensor holding each rank's block. The gradient runs K2/K3 on the
+    same block and comes back whole the same way. Axes that do not divide
+    (``B % d``, ``H % m``), a mesh of one rank, or no mesh: the unsharded
+    kernel, as in JAX."""
+    if mesh is None or mesh.size == 1:
+        return flash_attention(q, k, v, kv_len=kv_len, scale=scale)
+    B, H = q.shape[0], q.shape[2]
+    if B % mesh.n_data or H % mesh.n_model:
+        return flash_attention(q, k, v, kv_len=kv_len, scale=scale)
+    bl, hl = B // mesh.n_data, H // mesh.n_model
+    rows = slice(mesh.data_rank * bl, (mesh.data_rank + 1) * bl)
+    heads = slice(mesh.model_rank * hl, (mesh.model_rank + 1) * hl)
+    q, k, v = (copy_to_model(t, mesh.group)[rows, :, heads] for t in (q, k, v))
+    out = flash_attention(q, k, v, kv_len=None if kv_len is None else kv_len[rows],
+                          scale=scale)
+    whole = out.new_zeros(B, out.shape[1], H, out.shape[3])
+    whole[rows, :, heads] = out
+    return reduce_from_model(whole, mesh.group)

@@ -106,8 +106,10 @@ class ImageLogger(Callback):
         if not self.check_frequency(step):
             return
         if hasattr(trainer, "log_images"):
+            # under a model axis every rank of rank 0's model row samples
+            # (the backbone's slices meet in collectives); rank 0 writes
             images = trainer.log_images(batch)
-            if images:
+            if images and trainer.is_main:
                 self.log_img(trainer, images, step)
 
 

@@ -7,7 +7,11 @@ Checkpoints are written with ``torch.save`` as one file per name under
 counters, EMA). ``last_step.json`` beside ``last`` carries the step and
 run-level scalars that live outside the train state, such as the
 ``scale_by_std`` latent scale factor, so a resume or an inference run
-decodes at the trained scale.
+decodes at the trained scale. Under a ``(data, model)`` mesh the state's
+``state_dict()`` is whole (``TrainState`` gathers it over the model group)
+and rank 0 writes it, so the file is the one a one-process run writes:
+``load_model_checkpoint`` and ``cli.generate`` read it unchanged, and it
+resumes at any layout.
 
 :func:`load_model_checkpoint` reads the port's own files, the JAX package's
 ``.npz`` exports and the reference's Lightning ``.ckpt``. The JAX package's

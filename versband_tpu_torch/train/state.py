@@ -19,6 +19,15 @@ JAX chain ``optax.MultiSteps(chain(clip_by_global_norm, adamw))``:
 The EMA shadow ticks once per applied update with the decay
 ``min(decay, (1 + n) / (10 + n))`` (LitEma's warm-up), not per micro-step.
 
+Around a module cut by ``parallel.sharding.shard_module_`` (tensor and
+expert parallelism) AdamW and the EMA act on this rank's slices; the
+gradients are averaged over the data group only, and the clip takes the
+true global norm (the squares of the cut parameters summed over the model
+group, each replicated one counted once), as ``optax.clip_by_global_norm``
+sees the whole arrays. ``state_dict()`` is then whole, under the one-process
+keys (every rank of the model group gathers), and ``load_state_dict`` takes
+this rank's slices of a whole state, so a checkpoint resumes at any layout.
+
 ``make_radam`` configures ParallelWaveGAN's RAdam as the JAX
 ``make_radam`` chains it: L2 decay added to the gradient before
 ``optax.radam``'s update (:class:`RAdamOptimizer`).
@@ -34,7 +43,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from versband_tpu_torch import parallel
 from versband_tpu_torch.parallel import active as parallel_active, all_reduce_grads
+from versband_tpu_torch.parallel.sharding import gather, gather_state_dict, load_whole_, local_part
 
 LearningRate = Union[float, Callable[[int], float]]
 
@@ -211,7 +222,8 @@ class TrainState:
     """Single-optimizer train state of a module whose trainable parameters
     (``requires_grad``) the optimizer updates in place. Under a process group
     the ``.grad`` it consumes is the global batch's (:meth:`reduce_gradients`),
-    so every rank applies the same update.
+    so every rank applies the same update. A module cut by
+    ``parallel.sharding.shard_module_`` is cut before the state is made.
 
     ``step`` counts micro-steps; ``updates`` counts applied optimizer updates.
     """
@@ -227,18 +239,42 @@ class TrainState:
         self.mini_step = 0
         self.acc_grads: Optional[List[torch.Tensor]] = None
         self.ema = EmaState(self.named, ema_decay) if ema_decay is not None else None
+        self.layout = getattr(model, "tp_layout", None)  # set by shard_module_
+
+    @property
+    def data_group(self):
+        """The group a gradient is averaged over (None: the whole group)."""
+        return None if self.layout is None else self.layout.mesh.data_group
+
+    @property
+    def _model_split(self) -> bool:
+        return self.layout is not None and self.layout.mesh.n_model > 1
 
     def reduce_gradients(self) -> None:
-        """Average ``.grad`` over the ranks of a process group (nothing
-        without one); the train steps call it once per micro-step, after the
-        backward and before :meth:`apply_gradients`. A parameter without a
-        gradient reduces :meth:`grads`'s zeros, so every rank reduces the
-        same buffer."""
+        """Average ``.grad`` over the ranks of the data group (nothing
+        without a process group); the train steps call it once per
+        micro-step, after the backward and before :meth:`apply_gradients`. A
+        parameter without a gradient reduces :meth:`grads`'s zeros, so every
+        rank reduces the same buffer."""
         if not parallel_active():
             return
         for p, g in zip(self.params, self.grads()):
             p.grad = g
-        all_reduce_grads(self.params)
+        all_reduce_grads(self.params, self.data_group)
+
+    def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of ``grads`` (one per trainable parameter) over
+        the whole model: under a cut module, the cut parameters' squares
+        summed over the model group and each replicated one counted once."""
+        if not self._model_split:
+            return global_norm(grads)
+        zero = grads[0].new_zeros((), dtype=torch.float32)
+        squares = [(self.layout.sharded(k), g.float().pow(2).sum())
+                   for k, g in zip(self.named, grads)]
+        cut = sum((sq for split, sq in squares if split), zero)
+        kept = sum((sq for split, sq in squares if not split), zero)
+        parallel.sum_([cut], self.layout.mesh.model_group)
+        return torch.sqrt(cut + kept)
 
     def grads(self) -> List[torch.Tensor]:
         """The gradients in ``.grad`` (zeros where a parameter got none)."""
@@ -266,7 +302,7 @@ class TrainState:
             for acc in self.acc_grads:
                 acc.zero_()
         if self.tx.grad_clip is not None:
-            norm = global_norm(grads)
+            norm = self.grad_norm(grads)
             # optax: t / norm * max_norm where norm >= max_norm, else t (no host sync)
             grads = [torch.where(norm < self.tx.grad_clip, g,
                                  g / norm.to(g.dtype) * self.tx.grad_clip) for g in grads]
@@ -282,13 +318,18 @@ class TrainState:
         return True
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "updates": self.updates, "mini_step": self.mini_step,
-                "model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "acc_grads": self.acc_grads,
-                "ema": None if self.ema is None else self.ema.state_dict()}
+        sd = {"step": self.step, "updates": self.updates, "mini_step": self.mini_step,
+              "model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+              "acc_grads": self.acc_grads,
+              "ema": None if self.ema is None else self.ema.state_dict()}
+        return sd if self.layout is None else self._whole(sd)
 
     def load_state_dict(self, sd: dict) -> None:
-        self.model.load_state_dict(sd["model"])
+        if self.layout is not None:
+            sd = self._local(sd)
+            load_whole_(self.model, sd.pop("model"))
+        else:
+            self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         self.step, self.updates = int(sd["step"]), int(sd["updates"])
         self.mini_step = int(sd["mini_step"])
@@ -296,6 +337,65 @@ class TrainState:
             a.to(p.device) for a, p in zip(sd["acc_grads"], self.params)]
         if self.ema is not None and sd.get("ema") is not None:
             self.ema.load_state_dict(sd["ema"])
+
+    # --- whole <-> this rank's slices, under a cut module ---------------------
+    def _whole_names(self) -> List[str]:
+        return [k for k, trains in self.layout.params if trains]
+
+    def _gather(self, local: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole tensors for every trainable one-process name from this
+        rank's ``local`` ones (collective over the model group)."""
+        return gather(self.layout, {k: local.get(k) for k in self._whole_names()})
+
+    def _whole(self, sd: dict) -> dict:
+        """The one-process form of this rank's state dict ``sd``."""
+        names, whole_names = list(self.named), self._whole_names()
+        sd["model"] = gather_state_dict(self.model)
+        opt = sd["optimizer"]
+        if len(opt["param_groups"]) != 1:
+            raise ValueError("a cut module's state takes one parameter group")
+        state = {}
+        if opt["state"]:
+            first = opt["state"][0]
+            per_param = [key for key, v in first.items()
+                         if torch.is_tensor(v) and v.shape == self.params[0].shape]
+            whole = {key: self._gather({k: opt["state"][i][key] for i, k in enumerate(names)})
+                     for key in per_param}
+            scalars = {key: v for key, v in first.items() if key not in per_param}
+            state = {j: {**scalars, **{key: whole[key][k] for key in per_param}}
+                     for j, k in enumerate(whole_names)}
+        sd["optimizer"] = {"state": state, "param_groups": [
+            {**opt["param_groups"][0], "params": list(range(len(whole_names)))}]}
+        if self.acc_grads is not None:
+            got = self._gather(dict(zip(names, self.acc_grads)))
+            sd["acc_grads"] = [got[k] for k in whole_names]
+        if self.ema is not None:
+            sd["ema"] = {**sd["ema"], "shadow": self._gather(self.ema.shadow)}
+        return sd
+
+    def _local(self, sd: dict) -> dict:
+        """This rank's part of the one-process state dict ``sd``."""
+        names, whole_names = list(self.named), self._whole_names()
+        at = {k: j for j, k in enumerate(whole_names)}
+        shapes = {k: tuple(self.layout.whole[k]) for k in whole_names}
+        opt = sd["optimizer"]
+
+        def part(k, v):
+            if torch.is_tensor(v) and tuple(v.shape) == shapes[k]:
+                return local_part(self.layout, k, v)
+            return v
+
+        state = {i: {key: part(k, v) for key, v in opt["state"][at[k]].items()}
+                 for i, k in enumerate(names) if at[k] in opt["state"]}
+        out = {**sd, "optimizer": {"state": state, "param_groups": [
+            {**opt["param_groups"][0], "params": list(range(len(names)))}]}}
+        if sd["acc_grads"] is not None:
+            out["acc_grads"] = [local_part(self.layout, k, sd["acc_grads"][at[k]])
+                                for k in names]
+        if sd.get("ema") is not None:
+            out["ema"] = {**sd["ema"], "shadow": {
+                k: local_part(self.layout, k, sd["ema"]["shadow"][k]) for k in names}}
+        return out
 
 
 @contextlib.contextmanager

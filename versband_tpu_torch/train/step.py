@@ -11,9 +11,12 @@ Gumbel; any of them can be handed in instead (``given``), which is how the
 tests feed the JAX step and this one the same draws.
 
 Under a process group (``versband_tpu_torch.parallel``) each rank's
-gradient is averaged over the ranks right after the backward, so the norm,
-the clip and AdamW see the global batch's gradient, as JAX's global program
-does; the metrics are averaged too, so the logged loss is the global batch's.
+gradient is averaged over the ranks of its data group right after the
+backward, so the norm, the clip and AdamW see the global batch's gradient,
+as JAX's global program does; the metrics are averaged too, so the logged
+loss is the global batch's. :func:`shard_train_step` puts a step on a
+``(data, model)`` mesh: the state's module cut to each rank's slices, the
+batch to each data index's rows.
 
 ``make_cfm_multi_step`` runs K steps in one call over a ``[K, ...]``-stacked
 batch and returns the metrics as ``[K]`` tensors on the device, so a caller
@@ -29,7 +32,9 @@ import torch
 
 from versband_tpu_torch.models.cfm import CFM
 from versband_tpu_torch.parallel import mean_metrics
-from versband_tpu_torch.train.state import TrainState, global_norm
+from versband_tpu_torch.parallel.mesh import Mesh
+from versband_tpu_torch.parallel.sharding import shard_batch, shard_module_
+from versband_tpu_torch.train.state import TrainState
 
 
 def _decompress_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -81,9 +86,9 @@ def make_cfm_train_step(cfm: CFM, accumulate_grad_batches: int = 1
         loss.backward()
         state.reduce_gradients()
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(state.grads())
+        metrics["grad_norm"] = state.grad_norm(state.grads())
         state.apply_gradients()
-        return mean_metrics(metrics)
+        return mean_metrics(metrics, state.data_group)
 
     return step_fn
 
@@ -105,3 +110,32 @@ def make_cfm_multi_step(cfm: CFM, accumulate_grad_batches: int = 1
         return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
     return multi_fn
+
+
+def shard_train_step(step_fn: Callable[..., Any], state: TrainState, batch_example: Any,
+                     mesh: Mesh):
+    """A train step over ``mesh`` (JAX ``shard_train_step``): returns
+    ``(step, place_state, place_batch)``. ``place_state(state)`` cuts the
+    state's module to this rank's slices by ``parallel.sharding``'s rules
+    and returns a new state holding this rank's part of ``state`` (its
+    weights, moments, EMA and counters, whatever layout they came from);
+    ``place_batch(batch)`` takes this data index's rows of a global batch
+    (or of injected draws). ``step`` is ``step_fn`` for a placed state."""
+    shard_batch(batch_example, mesh)  # a global batch that does not divide raises here
+
+    def place_state(s: TrainState) -> TrainState:
+        whole = s.state_dict()
+        shard_module_(s.model, mesh)
+        placed = TrainState(s.model, s.tx, ema_decay=None if s.ema is None else s.ema.decay)
+        placed.load_state_dict(whole)
+        return placed
+
+    def place_batch(b: Any) -> Any:
+        return shard_batch(b, mesh)
+
+    def step(s: TrainState, *args, **kwargs):
+        if s.layout is None or s.layout.mesh is not mesh:
+            raise ValueError("the state is not placed on this mesh: call place_state first")
+        return step_fn(s, *args, **kwargs)
+
+    return step, place_state, place_batch

@@ -40,14 +40,21 @@ each test item's reconstruction.
 
 Under a process group (``versband_tpu_torch.parallel``, one rank per card)
 both trainers start every rank from rank 0's weights, draw from a generator
-seeded ``seed + rank``, and step on the gradients averaged over the ranks;
-rank 0 alone writes checkpoints, metric logs and TensorBoard (the CLI gives
-the logging callbacks to rank 0 only), and every rank reads the checkpoint on
-resume. Validation runs each rank's shard, validation batch i of rank r
-seeded as global batch ``r + i x world``, and the sums of the losses and
-counts are all-reduced, so the logged value is the one-rank value when the
-batches divide evenly. ``scale_by_std`` takes the std over the global first
-batch.
+seeded ``seed + d`` (d: the rank's data index), and step on the gradients
+averaged over the data axis; rank 0 alone writes checkpoints, metric logs
+and TensorBoard (the CLI gives the logging callbacks to rank 0 only), and
+every rank reads the checkpoint on resume. Validation runs each data index's
+shard, validation batch i of data index d seeded as global batch ``d + i x
+n_data``, and the sums of the losses and counts are all-reduced over the
+data axis, so the logged value is the one-rank value when the batches
+divide evenly. ``scale_by_std`` takes the std over the global first batch.
+
+``CFMTrainer(mesh=...)`` adds the ``model`` axis (``parallel.mesh``): the
+backbone is cut to each rank's heads and experts (``parallel.sharding``)
+when the state is made, the ranks of one model row draw alike (their
+generator's seed is the data index's), and a checkpoint is whole: every rank
+gathers, rank 0 writes the file a one-process run writes. ``VAETrainer``
+keeps the data axis only, as JAX does.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ import torch
 from versband_tpu_torch import parallel
 from versband_tpu_torch.data.collate import pad_or_cut_xd
 from versband_tpu_torch.models.cfm import CFM, cfm_p_losses
+from versband_tpu_torch.parallel.sharding import shard_module_
 from versband_tpu_torch.train.callbacks import Callback
 from versband_tpu_torch.train.checkpoints import CheckpointManager
 from versband_tpu_torch.train.state import TrainState, ema_scope, make_adam, make_adamw
@@ -78,7 +86,7 @@ from versband_tpu_torch.utils.config import instantiate_from_config
 
 MIDI_PAD, BEATS_PAD = 128, 2
 VAL_SEED = 17  # validation batch i draws from a generator seeded VAL_SEED * 2**32 + i
-# (i counts the global batches: rank r's j-th is r + j x world)
+# (i counts the global batches: data index d's j-th is d + j x n_data)
 
 
 def pad_batch_time(batch: Dict[str, np.ndarray], multiple: int = 128,
@@ -106,7 +114,7 @@ class BaseTrainer:
                  val_every_n_epochs: int = 1, log_every_n_steps: int = 50,
                  callbacks: Optional[List[Callback]] = None,
                  ckpt: Optional[CheckpointManager] = None, seed: int = 0,
-                 time_bucket: int = 128, use_tensorboard: bool = True):
+                 time_bucket: int = 128, use_tensorboard: bool = True, mesh=None):
         self.logdir = logdir
         self.max_steps = max_steps
         self.max_epochs = max_epochs
@@ -119,6 +127,11 @@ class BaseTrainer:
         self.global_step = 0
         self.world, self.rank = parallel.world()
         self.is_main = self.rank == 0  # the rank that writes logs and checkpoints
+        # the data axis: the mesh's, else every rank of the group
+        self.mesh = mesh
+        self.n_data, self.data_rank = ((mesh.n_data, mesh.data_rank) if mesh is not None
+                                       else (self.world, self.rank))
+        self.data_group = None if mesh is None else mesh.data_group
         self.writer = None
         if use_tensorboard and self.is_main:
             try:
@@ -177,22 +190,32 @@ class BaseTrainer:
     def _val_generator(self, i: int) -> torch.Generator:
         """The generator of this rank's validation batch ``i``."""
         return torch.Generator(device=self.device).manual_seed(
-            VAL_SEED * 2 ** 32 + self.rank + i * self.world)
+            VAL_SEED * 2 ** 32 + self.data_rank + i * self.n_data)
 
     def _global_means(self, values: Dict[str, List[float]]) -> Dict[str, float]:
-        """Each list's mean over the batches of every rank (one all-reduce of
-        the sums and the count)."""
+        """Each list's mean over the batches of every data index (one
+        all-reduce of the sums and the count over the data axis)."""
         if not parallel.active():
             return {k: float(np.mean(v)) for k, v in values.items()}
         n = len(next(iter(values.values()), []))
         sums = torch.tensor([sum(v) for v in values.values()] + [n], dtype=torch.float64,
                             device=self.device)
-        sums = parallel.global_sum(sums)
+        sums = parallel.global_sum(sums, self.data_group)
         return {k: float(sums[j] / sums[-1]) for j, k in enumerate(values)}
 
     def _dispatch(self, fn_name: str, *args):
         for cb in self.callbacks:
             getattr(cb, fn_name)(self, *args)
+
+
+class _Whole:
+    """A state dict gathered already, as a checkpoint's ``state_dict()``."""
+
+    def __init__(self, sd: dict):
+        self.sd = sd
+
+    def state_dict(self) -> dict:
+        return self.sd
 
 
 class _StatePair:
@@ -221,6 +244,8 @@ class VAETrainer(BaseTrainer):
 
     def __init__(self, vae, loss, learning_rate: float, accumulate_grad_batches: int = 1, **kw):
         super().__init__(**kw)
+        if self.mesh is not None and self.mesh.n_model > 1:
+            raise ValueError("stage 1 trains over the data axis only (n_model 1), as JAX does")
         self.vae = vae
         self.loss = loss
         self.device = next(vae.parameters()).device
@@ -378,7 +403,9 @@ class CFMTrainer(BaseTrainer):
         self.multi_step = (make_cfm_multi_step(
             cfm, accumulate_grad_batches=self.accumulate_grad_batches)
             if self.steps_per_call > 1 else None)
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed + self.rank)
+        # the ranks of one model row draw alike: t, noise, posterior, Gumbel
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.seed + self.data_rank)
         self.state: Optional[TrainState] = None
         self._group: list = []
         self._prefetch = max(0, int(prefetch_groups))
@@ -531,6 +558,15 @@ class CFMTrainer(BaseTrainer):
                 "midi": self._put(np.stack([b["caption"]["acoustic"]["midi"] for b in group])),
                 "beats": self._put(np.stack([b["caption"]["acoustic"]["beats"] for b in group]))}
 
+    def _row_batch(self, batch):
+        """Under a model axis, the batch of the model row's first rank on
+        every rank of the row: the sampler gives them the same items, but
+        the datasets' own draws (crop, caption) are not seeded alike
+        (ROADMAP Queue 3), and the row's slices must see one batch."""
+        if self.mesh is None or self.mesh.n_model == 1:
+            return batch
+        return parallel.broadcast_object(batch, self.mesh.model_group)
+
     def _pad(self, batch) -> Dict[str, Any]:
         ac = batch["caption"]["acoustic"]
         padded = pad_batch_time({"image": batch["image"], "midi": ac["midi"],
@@ -544,18 +580,29 @@ class CFMTrainer(BaseTrainer):
         """The train state around the backbone (the tower and the VAE stay
         frozen), and scale_by_std from the first batch (when the factor is
         still the default 1.0)."""
-        parallel.broadcast_params(self.cfm.model)
+        parallel.broadcast_params(self.cfm.model, None if self.mesh is None else self.mesh.group)
+        if self.mesh is not None:
+            shard_module_(self.cfm.model, self.mesh)
         self.state = TrainState(self.cfm.model, self.tx,
                                 ema_decay=0.9999 if self.use_ema else None)
         if self.cfm.scale_by_std and self.cfm.scale_factor == 1.0:
             mel = _decompress_batch({"image": self._put(example_batch["image"])})["image"]
-            self.cfm.compute_scale_factor(mel, self.generator)
+            self.cfm.compute_scale_factor(mel, self.generator, group=self.data_group)
             print(f"setting scale_factor to {self.cfm.scale_factor:.5f}")
 
+    def _snapshot(self):
+        """What a checkpoint writes of the state: under a cut backbone the
+        whole state, gathered by every rank (a collective); else the state."""
+        if self.state.layout is None or self.mesh.n_model == 1:
+            return self.state
+        return _Whole(self.state.state_dict())
+
     def save_checkpoint(self, name: str = "last"):
+        snap = self._snapshot()
         if self.is_main:
-            self.ckpt.save_last(self.state, self.global_step,
+            self.ckpt.save_last(snap, self.global_step,
                                 extra={"scale_factor": self.cfm.scale_factor})
+        return snap
 
     def _restore(self):
         if self.ckpt.restore_last(self.state) is None:
@@ -582,7 +629,7 @@ class CFMTrainer(BaseTrainer):
             for epoch in range(self.max_epochs):
                 self._dispatch("on_epoch_start", epoch)
                 for batch in train_loader:
-                    batch = self._pad(batch)
+                    batch = self._pad(self._row_batch(batch))
                     if self.state is None:
                         self.init_state(batch)
                         if resume:
@@ -610,9 +657,9 @@ class CFMTrainer(BaseTrainer):
                 if self.state is not None:
                     if val_loader and (epoch + 1) % self.val_every_n_epochs == 0:
                         self._validate(val_loader)  # the first after N epochs
-                    self.save_checkpoint("last")
+                    snap = self.save_checkpoint("last")
                     if self.is_main:
-                        self.ckpt.save_step_archive(self.state, self.global_step)
+                        self.ckpt.save_step_archive(snap, self.global_step)
                 if self.global_step >= self.max_steps:
                     break
         except KeyboardInterrupt:
@@ -709,11 +756,12 @@ class CFMTrainer(BaseTrainer):
         os.makedirs(savedir, exist_ok=True)
         count = 0
         for batch in loader:
-            images = self.log_images(batch)
+            images = self.log_images(self._row_batch(batch))  # a cut backbone samples together
             for b in range(images["samples"].shape[0]):
-                tag = f"sample_{count:05d}" if self.world == 1 else \
-                    f"rank{self.rank}_sample_{count:05d}"  # each rank samples its shard
-                np.save(os.path.join(savedir, f"{tag}.npy"), images["samples"][b])
+                tag = f"sample_{count:05d}" if self.n_data == 1 else \
+                    f"rank{self.data_rank}_sample_{count:05d}"  # each data index its shard
+                if self.mesh is None or self.mesh.model_rank == 0:
+                    np.save(os.path.join(savedir, f"{tag}.npy"), images["samples"][b])
                 count += 1
         print(f"test: {count} samples -> {savedir}")
         return {"test/num_samples": count}
@@ -749,12 +797,13 @@ class CFMTrainer(BaseTrainer):
         scope = ema_scope(self.state) if self.use_ema else contextlib.nullcontext()
         with scope:
             for i, vb in enumerate(val_loader):
-                db = _decompress_batch(self._device_batch(self._pad(vb)))
+                db = _decompress_batch(self._device_batch(self._pad(self._row_batch(vb))))
                 losses.append(self._val_loss(db, self._val_generator(i))["loss_simple"])
         suffix = "_ema" if self.use_ema else ""
         key = f"val/loss_simple{suffix}"
         agg = self._global_means({key: torch.stack(losses).cpu().tolist()})
         self.log_metrics(agg, self.global_step, "")
+        snap = self._snapshot()
         if self.is_main:
-            self.ckpt.save_monitored(self.state, self.global_step, agg)
+            self.ckpt.save_monitored(snap, self.global_step, agg)
         return agg
