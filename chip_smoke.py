@@ -23,7 +23,9 @@ plain PyTorch version on the card:
 * data-parallel training -- ``cli.train`` under the torchrun environment over
   NCCL at world size 1, in this process and through ``torch.distributed.run``;
 * tensor and expert parallelism -- the CFM step at full width on 4 ranks
-  that share the card over gloo, against the one-process step;
+  that share the card over gloo, against the one-process step; the same for
+  the legacy backbones (the Time/Freq-MoE DiT cut over heads and frequency
+  experts, through ``cli.train --n_model``; a ConcatDiT kept whole);
 * AudioLDM's best-of-N generation -- the classic samplers (DDIM, PLMS, the
   ancestral loop) over the shipped DiT, decode, HiFi-GAN and the CLAP rerank
   (Cnn14 and a BERT caption tower at their published geometry);
@@ -228,15 +230,31 @@ Phases (any failure raises and exits non-zero):
      model-axis all-reduces and bytes a step, parameter and Adam bytes per
      rank against one process (ranks sharing one card: not a multi-card
      figure);
- 27. prints the whole run's wall time, the kernel table as JSON, then
+ 27. [tp-legacy] (after phase 26) the model axis for the legacy backbones,
+     ranks sharing cuda:0 over gloo, fp32, TF32 off, Adam eps 1e-3, LR 1e-3:
+     (a) ``VideoFlagLargeDiT`` at its published widths, depth cut to 4,
+     through ``cli.train --devices 2 --n_model 2`` (the ranks started as a
+     launcher starts them) on configs/vocal2music.yaml with ``unet_config``
+     swapped (batch 4, 1536-frame mels, no validation set or loggers), 3
+     steps against the same CLI run in this process, its whole checkpoint
+     resumed here for a 4th step on fixed draws; then ``CFMTrainer(mesh=)``
+     at (2, 2) on fixed draws against the same steps here; each rank holds
+     8 of 16 heads and 4 of 8 frequency experts per block and all 8 time
+     experts, 0 K1/K2/K3 (asserted); (b) a ConcatDiT at hidden 1152, depth
+     2, (1, 2): nothing cut, bytes per rank the one process's; (c) rank 0's
+     parameters, gradients and Adam state at depth 28, cut at (1, 2) and
+     (1, 4), allocated on the card against the arithmetic (bars as [tp]);
+ 28. prints the whole run's wall time, the kernel table as JSON, then
      ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import ctypes
+import functools
 import importlib.util
 import json
 import math
@@ -3641,7 +3659,8 @@ def _tp_on_card(x, dev):
 
 def _tp_step(trainer, batch, given, dev, place=lambda b: b):
     given = dict(_tp_on_card(place(given), dev))
-    given["gumbel"] = iter(given["gumbel"])
+    if "gumbel" in given:
+        given["gumbel"] = iter(given["gumbel"])
     return trainer.train_step(trainer.state, _tp_on_card(place(batch), dev), given=given)
 
 
@@ -3656,6 +3675,18 @@ def _tp_checksum(module) -> float:
     return float(sum(p.double().sum() for p in module.state_dict().values()))
 
 
+def _card_rank(rank: int, world: int, rendezvous: str) -> torch.device:
+    """Join the gloo group through ``rendezvous`` as ``rank`` of ``world``,
+    on cuda:0 (every rank shares the card; NCCL takes one card a rank),
+    TF32 off; returns the rank's device."""
+    from versband_tpu_torch import parallel
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return parallel.init_from_env("cuda", init_method=f"file://{rendezvous}", backend="gloo")
+
+
 def _tp_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
     """One rank of [tp]: every layout of TP_LAYOUTS it belongs to, TP_STEPS
     steps each through ``CFMTrainer``'s step on its slice; the first layout
@@ -3663,10 +3694,7 @@ def _tp_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
     from versband_tpu_torch import parallel
     from versband_tpu_torch.parallel.sharding import gather_state_dict, shard_batch
 
-    os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = parallel.init_from_env("cuda", init_method=f"file://{rendezvous}", backend="gloo")
+    dev = _card_rank(rank, world, rendezvous)
     out = {}
     try:
         for layout in TP_LAYOUTS:
@@ -3827,6 +3855,467 @@ def phase_tp(dev) -> dict:
     return {"launches": tuple(k123)}
 
 
+# [tp-legacy]: the model axis for the legacy backbones on one card, ranks over
+# gloo as in [tp]. The Time/Freq DiT (VideoFlagLargeDiT) at its published
+# widths with its depth cut to 4: two ranks of the full depth would need
+# 2 x 58.3 GiB of parameters, gradients and Adam state on one card (part (c)
+# measures one rank of the full depth alone); a ConcatDiT at hidden 1152,
+# 16 heads, depth 2. fp32, TF32 off, Adam eps 1e-3, a constant LR 1e-3 ([tp]'s
+# bars), draws fixed where no CLI draws them.
+TPL_TIMEFREQ = {**TIMEFREQ, "depth": 4}
+TPL_CONCAT = dict(in_channels=20, context_dim=1024, hidden_size=1152, depth=2, num_heads=16,
+                  max_len=1000)
+TPL_B, TPL_STEPS = 4, 3  # the global batch (1536-frame mels: latent 768)
+TPL_WORK = Path("build") / "chip_smoke_tp_legacy"
+
+
+def _tpl_unet(kind: str) -> dict:
+    if kind == "timefreq":
+        return {"target": TIMEFREQ_TARGET, "params": dict(TPL_TIMEFREQ)}
+    return {"target": "ldm.modules.diffusionmodules.concatDiT.ConcatDiT",
+            "params": dict(TPL_CONCAT)}
+
+
+def _tpl_cfm(kind: str, dev) -> CFM:
+    """The CFM over ``kind``'s backbone (random weights from SEED, its
+    all-zero layers drawn) and the shipped VAE, fp32 on ``dev``, alike in
+    every process."""
+    torch.manual_seed(SEED)
+    _, vae = training_configs()
+    cfm = CFM(unet_config=_tpl_unet(kind), first_stage_config=vae, mel_dim=VAE["embed_dim"],
+              scale_by_std=False, scale_factor=0.7, device=dev, dtype=torch.float32)
+    perturb_zeros(cfm.model, SEED + 80)
+    return cfm
+
+
+def _tpl_steps(n: int, seed: int) -> list:
+    """``n`` global batches (mels, caption embeddings at T5-large's width,
+    midi, beats) with their draws (posterior, t, noise)."""
+    rng = np.random.RandomState(seed)
+    T, z = TP_T_MEL // 2, VAE["embed_dim"]
+    steps = []
+    for _ in range(n):
+        batch = {"image": rng.randn(TPL_B, 80, TP_T_MEL).astype(np.float32),
+                 "caption": rng.randn(TPL_B, 80, FLAN_T5_LARGE["d_model"]).astype(np.float32),
+                 "midi": rng.randint(0, 128, (TPL_B, 1, TP_T_MEL)).astype(np.int32),
+                 "beats": rng.randint(0, 2, (TPL_B, 1, TP_T_MEL)).astype(np.int32)}
+        given = {"posterior": rng.randn(TPL_B, z, T).astype(np.float32),
+                 "t": rng.randint(0, 1000, TPL_B).astype(np.int64),
+                 "noise": rng.randn(TPL_B, z, T).astype(np.float32)}
+        steps.append((batch, given))
+    return steps
+
+
+def _tpl_held(model) -> list:
+    """Per Time/Freq block: this rank's heads, frequency experts and time
+    experts."""
+    return [(b.attention.n_local, b.feed_forward.freq_experts.local(),
+             b.feed_forward.time_experts.local()) for b in model.layers]
+
+
+def _param_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params)
+
+
+@contextlib.contextmanager
+def _tpl_patched():
+    """For the phase's CLI runs: each dataset item's draws seeded by its
+    index (the datasets' own draws are not seeded, ROADMAP Queue 3: as in
+    [ddp]), and the trainer's AdamW at eps TP_EPS."""
+    from versband_tpu_torch.data.vocal2accomp import JoinManifestSpecs
+    from versband_tpu_torch.train import trainer as tmod
+
+    real_item, real_adamw = JoinManifestSpecs.__getitem__, tmod.make_adamw
+
+    def seeded_item(ds, idx):
+        ds.rng.reseed([SEED, int(idx)])
+        return real_item(ds, idx)
+
+    JoinManifestSpecs.__getitem__ = seeded_item
+    tmod.make_adamw = functools.partial(real_adamw, eps=TP_EPS)
+    try:
+        yield
+    finally:
+        JoinManifestSpecs.__getitem__, tmod.make_adamw = real_item, real_adamw
+
+
+def _tpl_cli(argv: list) -> tuple:
+    """``cli.train.main(argv)`` from ``CLI_WORK`` under the phase's patches
+    and a probe; returns (rc, run, probe, model-axis all-reduces and bytes
+    of the run)."""
+    from versband_tpu_torch import parallel
+    from versband_tpu_torch.cli import train as cli
+
+    run, cwd = {}, os.getcwd()
+    r0 = (parallel.MODEL_REDUCES, parallel.MODEL_REDUCE_BYTES)
+    try:
+        os.chdir(CLI_WORK)
+        with _tpl_patched(), _TrainCliProbe() as probe:
+            rc = cli.main(argv, run=run)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    return rc, run, probe, (parallel.MODEL_REDUCES - r0[0], parallel.MODEL_REDUCE_BYTES - r0[1])
+
+
+def _tpl_cli_rank(rank: int, world: int, rendezvous: str, out_dir: str, argv: list) -> None:
+    """A rank of ``cli.train --devices 2 --n_model 2`` as a launcher would
+    start it: the environment of its rank, the group joined (gloo, every
+    rank on cuda:0), then the CLI, which finds the group."""
+    from versband_tpu_torch import parallel
+
+    _card_rank(rank, world, rendezvous)
+    try:
+        reset_launches()
+        rc, run, probe, reduces = _tpl_cli(argv)
+        trainer = run["trainer"]
+        out = {"rc": rc, "coords": (trainer.mesh.data_rank, trainer.mesh.model_rank),
+               "metrics": [{k: v.item() for k, v in m.items()} for m in probe.metrics],
+               "ms": [ev[0].elapsed_time(ev[1]) for _, _, ev in probe.steps],
+               "launches": launches(), "reduces": reduces, "logdir": run["logdir"],
+               "held": _tpl_held(trainer.cfm.model),
+               "state_bytes": 3 * _param_bytes(trainer.state.params)}
+    finally:
+        parallel.leave()
+    torch.save(out, os.path.join(out_dir, f"cli_rank{rank}.pt"))
+
+
+def _tpl_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
+    """A rank of ``CFMTrainer(mesh=)``: the Time/Freq DiT at (2 data, 2
+    model), then the ConcatDiT at (1, 2), TPL_STEPS steps each on fixed
+    draws; the first rank of each writes the gathered weights."""
+    from versband_tpu_torch import parallel
+    from versband_tpu_torch.parallel.sharding import gather_state_dict, shard_batch
+
+    dev = _card_rank(rank, world, rendezvous)
+    out = {}
+    try:
+        for kind, layout, seed in (("timefreq", (2, 2), SEED + 82), ("concat", (1, 2), SEED + 83)):
+            mesh = parallel.make_mesh(*layout)
+            out[kind] = None
+            if not mesh.member:
+                continue
+            cfm, steps = _tpl_cfm(kind, "cuda"), _tpl_steps(TPL_STEPS, seed)
+            trainer = _tp_trainer(cfm, Path(out_dir) / f"run_{kind}", mesh)
+            trainer.init_state({"image": steps[0][0]["image"]})
+            cut = trainer.state.layout
+            row = {"coords": (mesh.data_rank, mesh.model_rank), "metrics": [], "ms": [],
+                   "launches": [], "reduces": [],
+                   "state_bytes": 3 * _param_bytes(trainer.state.params),
+                   "slices": len(cut.slices), "owned": len(cut.owned), "absent": len(cut.absent),
+                   "held": _tpl_held(cfm.model) if kind == "timefreq" else None}
+            for batch, given in steps:
+                torch.cuda.synchronize()
+                reset_launches()
+                r0 = (parallel.MODEL_REDUCES, parallel.MODEL_REDUCE_BYTES)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                m = _tp_step(trainer, batch, given, dev, lambda b, mesh=mesh: shard_batch(b, mesh))
+                ev[1].record()
+                torch.cuda.synchronize()
+                row["ms"].append(ev[0].elapsed_time(ev[1]))
+                row["launches"].append(launches())
+                row["reduces"].append((parallel.MODEL_REDUCES - r0[0],
+                                       parallel.MODEL_REDUCE_BYTES - r0[1]))
+                row["metrics"].append({k: v.item() for k, v in m.items()})
+            params = gather_state_dict(cfm.model)
+            if mesh.data_rank == 0 and mesh.model_rank == 0:
+                torch.save({k: v.cpu() for k, v in params.items()},
+                           os.path.join(out_dir, f"{kind}_params.pt"))
+            out[kind] = row
+            del trainer, cfm, params
+            free_card()
+    finally:
+        parallel.leave()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _tpl_one(kind: str, dev, seed: int) -> dict:
+    """The same steps as ``_tpl_rank``'s in this process, without a group."""
+    cfm, steps = _tpl_cfm(kind, dev), _tpl_steps(TPL_STEPS, seed)
+    trainer = _tp_trainer(cfm, TPL_WORK / f"one_{kind}")
+    trainer.init_state({"image": steps[0][0]["image"]})
+    metrics, ms = [], []
+    for batch, given in steps:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+        ev[0].record()
+        m = _tp_step(trainer, batch, given, dev)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        metrics.append({k: v.item() for k, v in m.items()})
+    out = {"metrics": metrics, "ms": ms, "state_bytes": 3 * _param_bytes(trainer.state.params),
+           "params": {k: v.detach().cpu().clone() for k, v in cfm.model.state_dict().items()}}
+    del trainer, cfm
+    free_card()
+    return out
+
+
+def _tpl_agree(tag: str, runs: list, want: list, params, want_params) -> tuple:
+    """Each rank's steps (``runs``: a list of metrics per step for each
+    rank) against the one-process run's losses and gradient norm (relative,
+    TP_LOSS_TOL), and each leaf of ``params`` against ``want_params`` in
+    units of LR x the leaf's scale (TP_PARAM_TOL); returns the two worst
+    gaps."""
+    worst = 0.0
+    for run in runs:
+        for g, w in zip(run, want, strict=True):
+            for k in ("loss", "loss_simple", "lb_loss", "grad_norm"):
+                worst = max(worst, abs(g[k] - w[k]) / max(abs(w[k]), 1e-30))
+    if worst > TP_LOSS_TOL:
+        raise AssertionError(f"[tp-legacy] {tag}: losses or gradient norm {worst:.3e} from the "
+                             f"one-process steps (bar {TP_LOSS_TOL})")
+    if set(params) != set(want_params):
+        raise AssertionError(f"[tp-legacy] {tag}: gathered names differ from the one-process")
+    gaps = []
+    for k, v in want_params.items():
+        v = v.float()
+        d = float((params[k].to(v.device).float() - v).abs().max())
+        gaps.append((d / (TP_LR * max(1.0, float(v.abs().max()))), k))
+    gaps.sort(reverse=True)
+    print(f"[tp-legacy] {tag}: the largest parameter gaps (x LR x the leaf's scale): "
+          + ", ".join(f"{k} {g:.3e}" for g, k in gaps[:3]))
+    if gaps[0][0] > TP_PARAM_TOL:
+        raise AssertionError(f"[tp-legacy] {tag}: gathered parameters {gaps[0][0]:.3e} x LR x "
+                             f"scale from the one-process steps (bar {TP_PARAM_TOL})")
+    return worst, gaps[0][0]
+
+
+def _tpl_check_held(tag: str, coords, held: list) -> None:
+    """8 of 16 heads and 4 of 8 frequency experts per block (this rank's),
+    all 8 time experts."""
+    E, H, r = TIMEFREQ["num_experts"], TIMEFREQ["num_heads"], coords[1]
+    want = (H // 2, list(range(r * E // 2, (r + 1) * E // 2)), list(range(E)))
+    if len(held) != TPL_TIMEFREQ["depth"] or any(tuple(b) != want for b in held):
+        raise AssertionError(f"[tp-legacy] {tag} rank {coords}: holds {held}, want {want} "
+                             f"per block")
+
+
+def _card_bytes() -> tuple:
+    """The caching allocator's (requested, allocated) bytes: what tensors
+    asked for, and the blocks that hold them (a block is not split for a
+    remainder under 1 MiB, so it can be larger)."""
+    st = torch.cuda.memory_stats()
+    return st["requested_bytes.all.current"], st["allocated_bytes.all.current"]
+
+
+def _tpl_rank_bytes(dev, m: int) -> tuple:
+    """Rank 0's part of the Time/Freq DiT at depth 28 cut at (1, m) by a mesh
+    without a group (cutting needs no collective), with its gradients and
+    Adam state made; returns (its parameters, the bytes its tensors
+    requested, the allocator's bytes, seconds). Its tensors are freed when
+    this returns."""
+    from versband_tpu_torch.models.dit_timefreq import TimeFreqMoeDiT
+    from versband_tpu_torch.parallel.mesh import Mesh
+    from versband_tpu_torch.parallel.sharding import shard_module_
+
+    base, t0 = _card_bytes(), time.perf_counter()
+    with torch.device(dev):
+        model = TimeFreqMoeDiT(**TIMEFREQ)
+    shard_module_(model, Mesh(1, m, 0, 0))
+    state = TrainState(model, make_adamw(TP_LR, eps=TP_EPS, grad_clip=1.0))
+    for p in state.params:
+        p.grad = torch.zeros_like(p)
+    for group in state.optimizer.param_groups:
+        group["foreach"] = False  # no temporaries the size of every parameter
+    state.optimizer.step()  # Adam's moments, made as its first step makes them
+    torch.cuda.synchronize()
+    req, got = (b - a for a, b in zip(base, _card_bytes()))
+    return sum(p.numel() for p in state.params), req, got, time.perf_counter() - t0
+
+
+def _tpl_full_depth(dev, smi: str) -> dict:
+    """(c): one rank's part of the Time/Freq DiT at depth 28, at (1, 2) and
+    (1, 4): the bytes its parameters, gradients and Adam state take on the
+    card against the arithmetic (4 x 4 bytes a parameter), the allocator's
+    blocks against the card's memory, and the one process's arithmetic."""
+    from versband_tpu_torch.models.dit_timefreq import TimeFreqMoeDiT
+
+    with torch.device("meta"):
+        whole = sum(p.numel() for p in TimeFreqMoeDiT(**TIMEFREQ).parameters())
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"whole_params": whole}
+    for m in (2, 4):
+        free_card()
+        n, req, got, secs = _tpl_rank_bytes(dev, m)
+        want = 16 * n  # fp32 parameter, gradient, Adam's two moments
+        print(f"[tp-legacy] (c) {TIMEFREQ_TARGET} depth {TIMEFREQ['depth']}, rank 0 of (1 data, "
+              f"{m} model): {n:,} parameters; parameters + gradients + Adam state "
+              f"{req / 2 ** 30:.2f} GiB requested on the card (arithmetic "
+              f"{want / 2 ** 30:.2f} GiB), {got / 2 ** 30:.2f} GiB in the allocator's blocks, "
+              f"of the card's {total / 2 ** 30:.2f} GiB (total_memory); one process "
+              f"{16 * whole / 2 ** 30:.2f} GiB, {whole:,} parameters, by arithmetic only; "
+              f"built, cut and stepped in {secs:.1f} s; {smi}")
+        # the cut's index tensors aside (under 1 MiB), the tensors are the arithmetic
+        if not 0 <= req - want < 2 ** 20 or got >= total:
+            raise AssertionError(f"[tp-legacy] (c) model {m}: {req} bytes requested against "
+                                 f"{want} by arithmetic, {got} allocated of {total}")
+        out[m] = {"params": n, "requested": req, "allocated": got}
+    free_card()
+    return out
+
+
+def phase_tp_legacy(dev, smi: str) -> dict:
+    """[tp-legacy]: the model axis for the legacy backbones, ranks sharing
+    cuda:0 over gloo. (a) The Time/Freq DiT (``TPL_TIMEFREQ``): ``cli.train
+    --devices 2 --n_model 2`` on configs/vocal2music.yaml with its
+    ``unet_config`` swapped, 3 steps, against the same CLI run in this
+    process, its whole checkpoint resumed here for a 4th step; then
+    ``CFMTrainer(mesh=)`` at (2, 2) on fixed draws against the same steps
+    here. (b) A ConcatDiT (``TPL_CONCAT``) at (1, 2): nothing cut, each
+    rank holding the whole model. (c) One rank's bytes at the full depth.
+    Returns the phase's K1/K2/K3 launches (none: the attention is plain, as
+    in JAX)."""
+    import torch.multiprocessing as mp
+
+    from versband_tpu_torch import parallel
+    from versband_tpu_torch.cli import train as cli
+    from versband_tpu_torch.train.checkpoints import CheckpointManager
+    from versband_tpu_torch.utils.config import config_to_yaml, load_config
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TPL_WORK, ignore_errors=True)
+    TPL_WORK.mkdir(parents=True)
+    work, out_dir = CLI_WORK.resolve(), TPL_WORK.resolve()
+    # (a) the shipped YAML, the backbone swapped; batch 4, a constant LR 1e-3,
+    # no validation set and no loggers (the phase times the steps)
+    cfg = load_config(str(CLI_CONFIG))
+    params = cfg["model"]["params"]
+    params["unet_config"] = _tpl_unet("timefreq")
+    params.pop("scheduler_config")
+    cfg["model"]["base_learning_rate"] = TP_LR
+    cfg["data"]["params"]["batch_size"] = TPL_B
+    cfg["data"]["params"].pop("validation")
+    cfg.pop("lightning")
+    (work / "tp_legacy.yaml").write_text(config_to_yaml(cfg))
+    data = work / "train_data"
+    argv = ["-b", str(work / "tp_legacy.yaml"), "-t", "-l", str(out_dir / "logs"),
+            "-s", str(SEED), "--no-test", "--scale_lr", "false",
+            "--max_steps", str(TPL_STEPS), "--max_epochs", "1",
+            f"data.params.main_spec_dir_path={data / 'manifests'}",
+            f"data.params.other_condition={data / 'midi.npy'}",
+            f"model.params.first_stage_config.params.ckpt_path={work / 'vae.pt'}"]
+    t0 = time.perf_counter()
+    mp.start_processes(_tpl_cli_rank, args=(2, str(out_dir / "rdzv_cli"), str(out_dir),
+                                            argv + ["--devices", "2", "--n_model", "2",
+                                                    "-n", "model2"]),
+                       nprocs=2, join=True, start_method="spawn")
+    cli_s = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"cli_rank{r}.pt", weights_only=False) for r in range(2)]
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, run, probe, _ = _tpl_cli(argv + ["-n", "one"])
+    one_s = time.perf_counter() - t0
+    if parallel.active() or rc != 0 or any(r["rc"] != 0 for r in ranks):
+        raise AssertionError(f"[tp-legacy] cli.train returned {rc}, ranks "
+                             f"{[r['rc'] for r in ranks]}")
+    one = [{k: v.item() for k, v in m.items()} for m in probe.metrics]
+    trainer = run["trainer"]
+    k123 = [launches()] + [r["launches"] for r in ranks]
+    for r in ranks:
+        _tpl_check_held("cli (1, 2)", r["coords"], r["held"])
+    ckpt_dir = Path(ranks[0]["logdir"]) / "checkpoints"
+    saved = torch.load(ckpt_dir / "last.pt", map_location="cpu", mmap=True, weights_only=False)
+    worst, p_gap = _tpl_agree("cli (1, 2)", [r["metrics"] for r in ranks], one,
+                              saved["model"], trainer.cfm.model.state_dict())
+    n_red, b_red = ranks[0]["reduces"]
+    one_bytes = 3 * _param_bytes(trainer.state.params)
+    for r in sorted(ranks, key=lambda r: r["coords"]):
+        print(f"[tp-legacy] cli.train --devices 2 --n_model 2, rank {r['coords']}: event ms "
+              f"per step {['%.2f' % x for x in r['ms']]}; per block {r['held'][0][0]} of "
+              f"{TIMEFREQ['num_heads']} heads, frequency experts {r['held'][0][1]}, all "
+              f"{len(r['held'][0][2])} time experts; params + Adam state "
+              f"{r['state_bytes'] / 2 ** 30:.2f} GiB (one process "
+              f"{one_bytes / 2 ** 30:.2f} GiB); {n_red / TPL_STEPS:.0f} model-axis "
+              f"all-reduces, {b_red / TPL_STEPS / 2 ** 20:.1f} MiB a step; K1/K2/K3 "
+              f"{r['launches']}; {smi}")
+    print(f"[tp-legacy] cli (1 data, 2 model) against the same CLI run in one process: "
+          f"losses and gradient norm within {worst:.3e} (bar "
+          f"{TP_LOSS_TOL}), the checkpoint's weights within {p_gap:.3e} x LR "
+          f"x scale (bar {TP_PARAM_TOL}); one-process event ms per step "
+          f"{['%.2f' % (ev[0].elapsed_time(ev[1])) for _, _, ev in probe.steps]}; the 2 ranks "
+          f"took {cli_s:.1f} s, the one-process run {one_s:.1f} s (process starts, the T5 "
+          f"tower's load, the whole checkpoint's write included)")
+
+    # the (1, 2) checkpoint resumed in this process, a 4th step on fixed draws
+    # against the one-process run's 4th step on the same draws
+    (batch, given), = _tpl_steps(1, SEED + 81)
+    want = _tp_step(trainer, batch, given, dev)["loss"].item()
+    del run, trainer, probe, saved
+    free_card()
+    cfm = _tpl_cfm("timefreq", dev)
+    cli.load_first_stage(cfm, str(work / "vae.pt"))
+    resumed = _tp_trainer(cfm, out_dir / "resume")
+    resumed.init_state({"image": batch["image"]})
+    resumed.ckpt = CheckpointManager(str(ckpt_dir))
+    resumed._restore()
+    got = _tp_step(resumed, batch, given, dev)["loss"].item()
+    gap = abs(got - want) / abs(want)
+    print(f"[tp-legacy] the cli (1, 2) checkpoint resumed in one process at step "
+          f"{resumed.global_step}: step {TPL_STEPS + 1} loss {got:.6f}, the one-process run's "
+          f"{want:.6f} (|d| {gap:.2e} relative, bar {TP_LOSS_TOL})")
+    if resumed.global_step != TPL_STEPS or gap > TP_LOSS_TOL or launches() != (0, 0, 0):
+        raise AssertionError(f"[tp-legacy] resume: step {resumed.global_step}, loss {got} "
+                             f"against {want}, launches {launches()}")
+    del resumed, cfm
+    free_card()
+    shutil.rmtree(out_dir / "logs", ignore_errors=True)
+
+    # (a) at (2, 2) and (b) through CFMTrainer(mesh=), four ranks; the
+    # one-process steps here (the Time/Freq ones first: the card holds one
+    # side at a time; the ConcatDiT ones while the ranks run)
+    ref = {"timefreq": _tpl_one("timefreq", dev, SEED + 82)}
+    t0 = time.perf_counter()
+    procs = mp.start_processes(_tpl_rank, args=(4, str(out_dir / "rdzv"), str(out_dir)),
+                               nprocs=4, join=False, start_method="spawn")
+    ref["concat"] = _tpl_one("concat", dev, SEED + 83)
+    while not procs.join(timeout=600):
+        pass
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(4)]
+    for kind, layout in (("timefreq", (2, 2)), ("concat", (1, 2))):
+        members = [r[kind] for r in got if r[kind] is not None]
+        if len(members) != layout[0] * layout[1]:
+            raise AssertionError(f"[tp-legacy] {kind} {layout}: {len(members)} ranks reported")
+        gathered = torch.load(out_dir / f"{kind}_params.pt", mmap=True, weights_only=False)
+        worst, p_gap = _tpl_agree(f"{kind} {layout}", [m["metrics"] for m in members],
+                                  ref[kind]["metrics"], gathered, ref[kind]["params"])
+        for m in members:
+            k123 += m["launches"]
+            if kind == "timefreq":
+                _tpl_check_held(f"{kind} {layout}", m["coords"], m["held"])
+            elif (m["slices"], m["owned"], m["absent"]) != (0, 0, 0) \
+                    or m["state_bytes"] != ref[kind]["state_bytes"]:
+                raise AssertionError(f"[tp-legacy] {kind} rank {m['coords']}: cut "
+                                     f"{m['slices']}/{m['owned']}/{m['absent']}, "
+                                     f"{m['state_bytes']} bytes against "
+                                     f"{ref[kind]['state_bytes']} in one process")
+        n, b = members[0]["reduces"][-1]
+        for m in sorted(members, key=lambda m: m["coords"]):
+            print(f"[tp-legacy] {kind} ({layout[0]} data, {layout[1]} model) rank "
+                  f"{m['coords']}: event ms per step {['%.2f' % x for x in m['ms']]}; params + "
+                  f"Adam state {m['state_bytes'] / 2 ** 30:.3f} GiB (one process "
+                  f"{ref[kind]['state_bytes'] / 2 ** 30:.3f} GiB); cut leaves "
+                  f"{m['slices']}, experts owned {m['owned'] // 3} and absent "
+                  f"{m['absent'] // 3}; K1/K2/K3 per step {m['launches'][-1]}")
+        print(f"[tp-legacy] {kind} ({layout[0]} data, {layout[1]} model): {n} model-axis "
+              f"all-reduces, {b / 2 ** 20:.1f} MiB a step per rank; losses and gradient norm "
+              f"within {worst:.3e}, gathered parameters within "
+              f"{p_gap:.3e} x LR x scale of the one-process steps (event ms "
+              f"{['%.2f' % x for x in ref[kind]['ms']]}); {smi}")
+    if any(tuple(c) != (0, 0, 0) for c in k123):
+        raise AssertionError(f"[tp-legacy] K1/K2/K3 launched on a plain-attention path: {k123}")
+    del ref, got
+    free_card()
+
+    full = _tpl_full_depth(dev, smi)
+    shutil.rmtree(TPL_WORK, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[tp-legacy] phase {wall:.1f} s (the CLI ranks {cli_s:.1f} s, the trainer ranks "
+          f"{ranks_s:.1f} s); processes that share one card over gloo, not a multi-card "
+          f"figure; {smi}")
+    return {"launches": (0, 0, 0), "wall_s": wall, "full": full}
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_card()
@@ -3850,6 +4339,7 @@ def main() -> None:
     ddp = phase_ddp(dev)
     ddp["wall_s"] = time.perf_counter() - t_phase
     tp = phase_tp(dev)
+    tp_legacy = phase_tp_legacy(dev, smi)
     t_phase = time.perf_counter()
     timefreq = phase_timefreq_cli(dev)
     timefreq["wall_s"] = time.perf_counter() - t_phase
@@ -3916,7 +4406,8 @@ def main() -> None:
     print(f"kernels: {[k['name'] for k in table]}; K1 launches: serving {n_serve['k1']}, "
           f"training {trained['launches'][0]}, cli {n_cli}, train-cli {n_train_cli[0]}, "
           f"prep-cli {prep['launches'][0]}, ddp {ddp['launches'][0]}, tp {tp['launches'][0]} "
-          f"(its ranks' K2/K3 {tp['launches'][1]}/{tp['launches'][2]}), "
+          f"(its ranks' K2/K3 {tp['launches'][1]}/{tp['launches'][2]}; tp-legacy "
+          f"{tp_legacy['launches']}), "
           f"vae-train-cli's cli.generate {n_vae_gen} "
           f"(train-cli's K2/K3 {n_train_cli[1]}/{n_train_cli[2]}), audioldm {audioldm['k1']}; "
           f"K4 {n_serve['k4']} (bigvgan) + "

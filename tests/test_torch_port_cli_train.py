@@ -8,8 +8,9 @@ config; ``-r <logdir>`` resumes at step 4 and ends at step 6; the port's
 ``cli.generate`` then serves the archived config and that checkpoint. Also:
 the LR line is the JAX CLI's formula and text, the archived YAML reads (under
 ``yaml.safe_load``) as the JAX writer's text of the same config, the model
-axis (``--n_model``) raises naming its ROADMAP item (data parallelism is in
-tests/test_torch_port_ddp.py), and the logged PNGs hold
+axis (``--n_model``) takes every backbone and raises for ``qk_norm`` before
+any rank starts (data parallelism is in tests/test_torch_port_ddp.py), and
+the logged PNGs hold
 ``matplotlib.cm.magma``'s pixels. (Stage 1's CLI runs are in
 tests/test_torch_port_vae_gan_trainer.py.)
 """
@@ -23,6 +24,7 @@ import pytest
 import yaml
 
 from versband_tpu_torch.cli import train as cli
+from versband_tpu_torch.utils.config import apply_dot_overrides, load_config, resolve_target
 from versband_tpu_torch.utils.png import mel_to_rgb, write_png
 from torch_port_helpers import write_v2a_manifest
 
@@ -142,21 +144,60 @@ def test_lr_line_is_the_jax_formula(capsys):
             assert lr == base and line == f"Using base learning rate {base:.2e}"
 
 
-TIMEFREQ_UNET = ("model.params.unet_config.target="
-                 "ldm.modules.diffusionmodules.flag_large_dit_moe.VideoFlagLargeDiT")
+def unet_override(target: str, **params) -> str:
+    """A ``key=value`` override that replaces the whole ``unet_config``."""
+    flow = ", ".join(f"{k}: {str(v).lower() if isinstance(v, bool) else v}"
+                     for k, v in params.items())
+    return f"model.params.unet_config={{target: {target}, params: {{{flow}}}}}"
+
+
+TIMEFREQ_QK_NORM = unet_override(
+    "ldm.modules.diffusionmodules.flag_large_dit_moe.VideoFlagLargeDiT", in_channels=20,
+    context_dim=1024, hidden_size=64, num_heads=4, depth=1, num_experts=4, multiple_of=8,
+    qk_norm=True)
 
 
 @pytest.mark.parametrize("args,item", [
-    # the data axis and the Band-MoE DiT's model axis are ported
-    # (tests/test_torch_port_ddp.py, tests/test_torch_port_tp_*.py); the model
-    # axis of another backbone is refused before any rank starts
+    # the model axis of every backbone is ported (tests/test_torch_port_tp_*.py);
+    # qk_norm over it is not (its statistics span every head), and raises
+    # before any rank starts
     (["-b", "configs/vocal2music.yaml", "-t", "--devices", "2", "--n_model", "2",
-      TIMEFREQ_UNET], "item 12"),
-    (["-b", "configs/vocal2music.yaml", "-t", "--n_model", "2", TIMEFREQ_UNET], "item 12"),
+      TIMEFREQ_QK_NORM], "qk_norm"),
+    (["-b", "configs/vocal2music.yaml", "-t", "--n_model", "2", TIMEFREQ_QK_NORM], "qk_norm"),
 ])
 def test_what_is_not_ported_raises(args, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         cli.main([*args, "-l", str(tmp_path), "--platform", "cpu"])
+
+
+# the eight backbone classes of the alias table, by a reference target each,
+# at small widths (the Band-MoE DiT as the shipped YAML has it)
+BACKBONES = {
+    "BandMoeDiT": None,
+    "TimeFreqMoeDiT": unet_override(
+        "ldm.modules.diffusionmodules.flag_large_dit_moe.VideoFlagLargeDiT", in_channels=20,
+        context_dim=1024, hidden_size=64, num_heads=4, depth=2, num_experts=4, multiple_of=8),
+    **{name: unet_override(f"ldm.modules.diffusionmodules.concatDiT.{name}", in_channels=20,
+                           context_dim=1024, hidden_size=64, num_heads=4, depth=2, **extra)
+       for name, extra in (("ConcatDiT", {}), ("ConcatDiT2MLP", {}), ("HybridDiT2MLP", {}),
+                           ("HybridDiT2MLP2", {"cond_fuse": "concat_proj"}),
+                           ("ConcatOrderDiT", {}), ("ConcatOrderDiT2", {}))},
+}
+
+
+@pytest.mark.parametrize("name", list(BACKBONES))
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_check_model_axis_accepts_every_backbone(name, n_model):
+    """``--n_model`` takes every backbone target that JAX's CLI takes (it
+    builds the mesh for any ``unet_config``): the check cuts the backbone on
+    the meta device and raises nothing."""
+    config = load_config("configs/vocal2music.yaml")
+    if BACKBONES[name] is not None:
+        config = apply_dot_overrides(config, [BACKBONES[name]])
+    module = {"BandMoeDiT": "dit", "TimeFreqMoeDiT": "dit_timefreq"}.get(name, "concat_dit")
+    target = config["model"]["params"]["unet_config"]["target"]
+    assert resolve_target(target) == f"versband_tpu_torch.models.{module}.{name}"
+    cli.check_model_axis(config, n_model)
 
 
 def test_no_base_config_is_an_error(capsys):

@@ -55,7 +55,12 @@ Tensor and expert parallelism on one card: two ranks share cuda:0 over gloo
 ``BandMoE`` of a small Band-MoE DiT (head dim 32) against the whole ones,
 output and input gradient within K1's fp32 bar of scale, one K1, K2 and K3
 on each rank's heads; ``flash_attention_sharded`` over heads and over rows
-against the plain version, one K1 a rank.
+against the plain version, one K1 a rank. The model axis of a small
+Time/Freq-MoE DiT (head dim 32, 4 + 4 experts): two CFM steps at (1 data,
+2 model) on cuda:0 against the same steps on the CPU in one process, losses
+and gradient norm within 1e-4 relative, the gathered weights within 1e-2 x
+LR (fp32, TF32 off), each rank holding 2 of 4 heads and 2 of 4 frequency
+experts a block and every time expert.
 """
 
 import math
@@ -1040,3 +1045,81 @@ def test_flash_attention_sharded_against_plain(cuda, tp_ranks, layout):
         assert n == 1  # one K1 on this rank's block
         scale = max(1.0, float(ref.abs().max()))
         assert float((out - ref).abs().max()) <= TOL[torch.float32] * scale
+
+
+# --- the model axis of the Time/Freq-MoE DiT on one card -----------------------
+TP_TIMEFREQ = dict(in_channels=4, context_dim=64, hidden_size=128, depth=2, num_heads=4,
+                   max_len=64, num_experts=4, multiple_of=32)
+TP_VAE = dict(embed_dim=4, ddconfig=dict(
+    double_z=True, in_channels=80, out_ch=80, z_channels=4, kernel_size=5, ch=8, ch_mult=[1, 2],
+    num_res_blocks=1, attn_layers=[], down_layers=[0], dropout=0.0))
+TP_LR = 1e-3
+
+
+@pytest.fixture(scope="module")
+def tp_timefreq_ranks(tmp_path_factory):
+    """Two ranks on cuda:0 over gloo (``tests/torch_port_tp_worker.py``,
+    ``layout_cases``) take two CFM steps of a small Time/Freq DiT at (1, 2);
+    the same steps here on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the ranks share cuda:0")
+    import torch.multiprocessing as mp
+
+    from versband_tpu_torch.models.cfm import CFM
+    from versband_tpu_torch.train.state import TrainState, make_adamw
+    from versband_tpu_torch.train.step import make_cfm_train_step
+    import torch_port_tp_worker as worker
+
+    root = tmp_path_factory.mktemp("tp_timefreq_card")
+    cfm_kw = dict(unet_config={"target": "versband_tpu.models.dit_timefreq.TimeFreqMoeDiT",
+                               "params": TP_TIMEFREQ},
+                  first_stage_config={"target": "versband_tpu.models.autoencoder.AutoencoderKL",
+                                      "params": TP_VAE},
+                  mel_dim=4, scale_by_std=False, scale_factor=0.7)
+    torch.manual_seed(0)
+    cfm = CFM(**cfm_kw, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in cfm.model.named_parameters():
+            if "adaLN" in name or "final_layer" in name or name.endswith("gate"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.2)
+    rng = np.random.RandomState(3)
+    B, T_MEL = 4, 32
+    batches, givens = [], []
+    for _ in range(2):
+        batches.append({"image": torch.from_numpy(rng.randn(B, 80, T_MEL).astype(np.float32)),
+                        "caption": torch.from_numpy(rng.randn(B, 6, 64).astype(np.float32))})
+        givens.append({"posterior": torch.from_numpy(rng.randn(B, 4, T_MEL // 2)
+                                                     .astype(np.float32)),
+                       "t": torch.from_numpy(rng.permutation(4) * 250 + rng.randint(0, 250, 4)),
+                       "noise": torch.from_numpy(rng.randn(B, 4, T_MEL // 2).astype(np.float32))})
+    torch.save({"kind": "layouts", "device": "cuda", "cfm_kwargs": cfm_kw,
+                "dit": cfm.model.state_dict(), "vae": cfm.first_stage.state_dict(),
+                "lr": TP_LR, "eps": 1e-3, "layouts": [(1, 2)], "batches": batches,
+                "givens": givens}, root / "inputs.pt")
+    mp.start_processes(worker.main, args=(2, str(root / "rendezvous"), str(root / "inputs.pt"),
+                                          str(root), "cuda"),
+                       nprocs=2, join=True, start_method="spawn")
+    state = TrainState(cfm.model, make_adamw(TP_LR, eps=1e-3, grad_clip=1.0))
+    step, metrics, params = make_cfm_train_step(cfm), [], None
+    for i, (batch, given) in enumerate(zip(batches, givens)):
+        metrics.append({k: v.item() for k, v in step(state, batch, given=given).items()})
+        if i == 0:
+            params = {k: v.detach().clone() for k, v in cfm.model.state_dict().items()}
+    return {"metrics": metrics, "params": params}, [
+        torch.load(root / f"rank{r}.pt", weights_only=False)[(1, 2)] for r in range(2)]
+
+
+def test_timefreq_model_axis_on_one_card_matches_the_cpu(cuda, tp_timefreq_ranks):
+    ref, ranks = tp_timefreq_ranks
+    assert sorted(r["coords"] for r in ranks) == [(0, 0), (0, 1)]
+    for r in ranks:
+        for got, want in zip(r["metrics"], ref["metrics"], strict=True):
+            for k, v in want.items():
+                assert abs(got[k] - v) <= 1e-4 * max(1.0, abs(v)), (k, got[k], v)
+        for k, p in ref["params"].items():
+            assert float((r["params"][k] - p).abs().max()) <= 1e-2 * TP_LR, k
+        local, m = r["local"], r["coords"][1]
+        assert local["layers.0.attention.wq.weight"] == (64, 128)
+        assert {int(k.split(".")[4]) for k in local if ".freq_experts." in k} == {2 * m, 2 * m + 1}
+        assert {int(k.split(".")[4]) for k in local if ".time_experts." in k} == {0, 1, 2, 3}

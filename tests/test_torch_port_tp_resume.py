@@ -85,7 +85,8 @@ def _step(step, state, batch, given):
 def run(tmp_path_factory):
     root = tmp_path_factory.mktemp("tp_resume")
     cfm, batches, givens = _case()
-    torch.save({"kind": "resume", "cfm_kwargs": CFM_KW, "dit": cfm.model.state_dict(),
+    torch.save({"kind": "layouts", "layouts": [(1, 2), (2, 1)], "resume": True,
+                "cfm_kwargs": CFM_KW, "dit": cfm.model.state_dict(),
                 "vae": cfm.first_stage.state_dict(), "lr": LR, "eps": EPS, "ema": EMA,
                 "batches": batches, "givens": givens}, root / "inputs.pt")
     ranks = mp.start_processes(worker.main, args=(WORLD, str(root / "rendezvous"),
@@ -110,7 +111,8 @@ def run(tmp_path_factory):
 
 def test_the_mesh_run_is_the_uninterrupted_run(run):
     for r in run["ranks"]:
-        np.testing.assert_allclose(r["losses"], run["losses"], rtol=LOSS_TOL)
+        np.testing.assert_allclose([m["loss"] for m in r[(1, 2)]["metrics"]], run["losses"],
+                                   rtol=LOSS_TOL)
 
 
 def test_resumes_at_another_layout_and_without_a_group(run):

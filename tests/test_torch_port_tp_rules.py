@@ -6,7 +6,8 @@ against JAX's (``versband_tpu/parallel/sharding.py``), and the mesh.
   number, carried through the port's name map (``state_dict_from_jax``), and
   a JAX leaf is split exactly when a port parameter holding its number is.
   On the tiny Time/Freq DiT they pick the same too, and the test names
-  what: the attention and the frequency experts, not the time experts.
+  what: the attention and the frequency experts, not the time experts;
+  ``shard_module_`` cuts exactly those.
 * The divisibility fallback: at model 3 nothing of width 32 or of 4
   experts divides, so everything is replicated on both sides; and
   ``shard_module_`` keeps an attention whole when its heads do not divide
@@ -115,9 +116,21 @@ def test_rules_on_the_time_freq_dit():
     assert {k.split(".", 2)[2] for k in picked if ".attention." in k} == {
         "attention.wq.weight", "attention.wk.weight", "attention.wv.weight",
         "attention.wk_y.weight", "attention.wv_y.weight", "attention.wo.weight"}
-    # shard_module_ covers the Band-MoE DiT alone (ROADMAP item 12's remainder)
-    with pytest.raises(NotImplementedError, match="Band-MoE DiT only"):
-        shard_module_(ttf.TimeFreqMoeDiT(**TIMEFREQ), Mesh(1, 2, 0, 0))
+    # shard_module_ cuts what the rules pick, as rank 1 of a (1, 2) mesh
+    # holds it (cutting needs no collective): its 2 of 4 heads and its 2 of 4
+    # frequency experts per block, every time expert whole
+    model = ttf.TimeFreqMoeDiT(**TIMEFREQ)
+    shard_module_(model, Mesh(1, 2, 0, 1))
+    layout = model.tp_layout
+    assert sorted(layout.slices) == [k for k in picked if ".attention." in k]
+    assert sorted(layout.owned + layout.absent) == [k for k in picked if "_experts." in k]
+    assert {int(k.split(".")[4]) for k in layout.owned} == {2, 3}
+    local = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    assert local["layers.0.attention.wq.weight"] == (16, 32)
+    assert local["layers.0.attention.wk_y.weight"] == (16, 32)
+    assert local["layers.0.attention.wo.weight"] == (32, 16)
+    assert not any(".freq_experts.0." in k or ".freq_experts.1." in k for k in local)
+    assert sum(".time_experts." in k for k in local) == 2 * 4 * 3
 
 
 def test_an_attention_whose_heads_do_not_divide_stays_whole():

@@ -16,10 +16,10 @@ import torch
 from versband_tpu_torch import parallel
 
 
-def _cfm(case):
+def _cfm(case, device="cpu"):
     from versband_tpu_torch.models.cfm import CFM
 
-    cfm = CFM(**case["cfm_kwargs"], device="cpu")
+    cfm = CFM(**case["cfm_kwargs"], device=device)
     cfm.model.load_state_dict(case["dit"])
     cfm.first_stage.load_state_dict(case["vae"])
     return cfm
@@ -34,8 +34,17 @@ def _state(cfm, case):
 
 def _given(given, place):
     out = dict(place(given))
-    out["gumbel"] = iter(out["gumbel"])
+    if "gumbel" in out:
+        out["gumbel"] = iter(out["gumbel"])
     return out
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 def tp_step(case, n_data, n_model, variant=None):
@@ -138,44 +147,6 @@ def flash_cases(case):
     return out
 
 
-def resume_cases(case, out_dir):
-    """Three steps at (1, 2), a checkpoint after the second (rank 0 writes
-    the whole state), then the third again from that checkpoint at (2, 1)."""
-    from versband_tpu_torch.train.checkpoints import CheckpointManager
-    from versband_tpu_torch.train.step import make_cfm_train_step, shard_train_step
-
-    out = {}
-    mesh = parallel.make_mesh(1, 2)
-    cfm = _cfm(case)
-    state = _state(cfm, case)
-    step, place_state, place_batch = shard_train_step(make_cfm_train_step(cfm), state,
-                                                      case["batches"][0], mesh)
-    state = place_state(state)
-    ckpt = CheckpointManager(os.path.join(out_dir, "ckpt"))
-    losses = []
-    for i, (batch, given) in enumerate(zip(case["batches"], case["givens"])):
-        losses.append(step(state, place_batch(batch), given=_given(given, place_batch))
-                      ["loss"].item())
-        if i == 1:
-            whole = state.state_dict()  # every rank of the row gathers
-            if parallel.world()[1] == 0:
-                ckpt.save_last(_Fixed(whole), state.step)
-    out["losses"] = losses
-    dist_barrier()
-
-    mesh = parallel.make_mesh(2, 1)
-    cfm = _cfm(case)
-    state = _state(cfm, case)
-    step, place_state, place_batch = shard_train_step(make_cfm_train_step(cfm), state,
-                                                      case["batches"][2], mesh)
-    state = place_state(state)
-    assert ckpt.restore_last(state) is not None
-    out["resumed_step"] = state.step
-    out["resumed_loss"] = step(state, place_batch(case["batches"][2]),
-                               given=_given(case["givens"][2], place_batch))["loss"].item()
-    return out
-
-
 def card_cases(case):
     """On cuda:0 over gloo (each rank's heads through K1-K3): layer 0's
     ``JointAttention`` and ``BandMoE`` of a small Band-MoE DiT cut at (1, 2)
@@ -221,6 +192,77 @@ def card_cases(case):
     return out
 
 
+def _recording_grads(state, seen: list) -> None:
+    """Make ``state.apply_gradients`` first record, per call, the gradients
+    of the parameters every rank of the model group holds whole (after the
+    data group's average, before the clip and AdamW)."""
+    apply = state.apply_gradients
+
+    def recording():
+        seen.append({k: p.grad.clone() for k, p in state.named.items()
+                     if not state.layout.sharded(k)})
+        return apply()
+
+    state.apply_gradients = recording
+
+
+def layout_cases(case, out_dir):
+    """The CFM steps of ``case["batches"]`` at each of ``case["layouts"]``,
+    from the same weights: each rank's metrics, the gathered weights after
+    the first step, the replicated parameters' gradients of the first step
+    and what the rank holds. With ``case["resume"]``, rank 0 writes the whole
+    state of the first layout after its second step, and the second layout
+    resumes it for the third."""
+    from versband_tpu_torch.parallel.sharding import gather_state_dict
+    from versband_tpu_torch.train.checkpoints import CheckpointManager
+    from versband_tpu_torch.train.step import make_cfm_train_step, shard_train_step
+
+    ckpt = CheckpointManager(os.path.join(out_dir, "ckpt"))
+    out = {}
+    layouts, device = case["layouts"], case.get("device", "cpu")
+
+    def placed(mesh, batch):
+        cfm = _cfm(case, device)
+        state = _state(cfm, case)
+        step, place_state, place_batch = shard_train_step(make_cfm_train_step(cfm), state,
+                                                          batch, mesh)
+        return step, place_state(state), lambda b: _to(place_batch(b), device)
+
+    for i, layout in enumerate(layouts):
+        mesh = parallel.make_mesh(*layout)
+        out[layout] = None
+        if not mesh.member:
+            continue
+        step, state, place = placed(mesh, case["batches"][0])
+        grads, metrics, params = [], [], None
+        _recording_grads(state, grads)
+        for j, (batch, given) in enumerate(zip(case["batches"], case["givens"])):
+            metrics.append({k: v.item() for k, v in step(
+                state, place(batch), given=_given(given, place)).items()})
+            if j == 0:
+                params = {k: v.cpu() for k, v in gather_state_dict(state.model).items()}
+            if j == 1 and i == 0 and case.get("resume"):
+                whole = state.state_dict()  # every rank of the row gathers
+                if parallel.world()[1] == 0:
+                    ckpt.save_last(_Fixed(whole), state.step)
+        cut = state.layout
+        out[layout] = {"coords": (mesh.data_rank, mesh.model_rank), "metrics": metrics,
+                       "params": params, "grads": {k: g.cpu() for k, g in grads[0].items()},
+                       "local": {k: tuple(v.shape) for k, v in state.model.state_dict().items()},
+                       "slices": sorted(cut.slices), "owned": list(cut.owned),
+                       "absent": list(cut.absent),
+                       "param_bytes": sum(p.numel() * p.element_size() for p in state.params)}
+    dist_barrier()
+    if case.get("resume"):
+        mesh = parallel.make_mesh(*layouts[1])
+        step, state, place = placed(mesh, case["batches"][2])
+        assert ckpt.restore_last(state) is not None
+        out["resumed_step"] = state.step
+        out["resumed_loss"] = step(state, place(case["batches"][2]),
+                                   given=_given(case["givens"][2], place))["loss"].item()
+    return out
+
+
 class _Fixed:
     def __init__(self, sd):
         self.sd = sd
@@ -242,6 +284,7 @@ def main(rank, world, rendezvous, inputs, out_dir, device="cpu"):
     torch.set_num_threads(1)
     if device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     parallel.init_from_env(device, init_method=f"file://{rendezvous}", backend="gloo")
     try:
         case = torch.load(inputs, weights_only=False)
@@ -252,10 +295,10 @@ def main(rank, world, rendezvous, inputs, out_dir, device="cpu"):
             out = rules_cases(case)
         elif kind == "flash":
             out = flash_cases(case)
-        elif kind == "resume":
-            out = resume_cases(case, out_dir)
         elif kind == "card":
             out = card_cases(case)
+        elif kind == "layouts":
+            out = layout_cases(case, out_dir)
         else:
             raise ValueError(kind)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))

@@ -34,11 +34,13 @@ process per rank over gloo), as Lightning's DDP trained the reference:
 * each rank loads ``batch_size`` from its shard, so the global batch and the
   LR's ``devices`` factor are the world size; rank 0 writes the run's files.
 
-``--n_model M`` adds tensor and expert parallelism for the CFM backbone
-(the Band-MoE DiT): the ranks form a ``(world / M, M)`` mesh
-(``parallel.make_mesh``), as JAX ``cli/train.py:190-198`` builds it; each
-model row of M ranks holds one model cut over its attention heads and
-experts and loads one batch, so the global batch and the LR's ``devices``
+``--n_model M`` adds tensor and expert parallelism for the CFM backbone,
+whichever it is: the ranks form a ``(world / M, M)`` mesh
+(``parallel.make_mesh``), as JAX ``cli/train.py:186-198`` builds it for any
+``unet_config``; each model row of M ranks holds one model cut by
+``parallel.sharding``'s rules (the Band-MoE DiT over its heads and experts,
+the Time/Freq DiT over its heads and frequency experts, a ConcatDiT not at
+all) and loads one batch, so the global batch and the LR's ``devices``
 factor are ``world / M``. Checkpoints are whole, the file a one-process run
 writes. Stage 1 trains over the data axis only and ignores ``--n_model``
 (JAX ``cli/train.py:170-176``), and says so.
@@ -60,8 +62,7 @@ import torch
 
 from versband_tpu_torch import parallel
 from versband_tpu_torch.utils.config import (
-    Config, apply_dot_overrides, instantiate_from_config, load_config, merge_configs,
-    resolve_target)
+    Config, apply_dot_overrides, instantiate_from_config, load_config, merge_configs)
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -78,9 +79,9 @@ def get_parser() -> argparse.ArgumentParser:
                         "--platform cpu); under torchrun, its world size")
     p.add_argument("--n_model", type=int, default=1,
                    help="model axis of the (data, model) mesh: tensor parallelism over the "
-                        "DiT's attention heads and expert parallelism over its experts; the "
-                        "ranks (--devices or torchrun's) must divide by it; stage 1 "
-                        "ignores it")
+                        "backbone's attention heads and expert parallelism over its experts, "
+                        "as the sharding rules pick them; the ranks (--devices or "
+                        "torchrun's) must divide by it; stage 1 ignores it")
     p.add_argument("--scale_lr", type=str, default="true")
     p.add_argument("--max_steps", type=int, default=10 ** 9)
     p.add_argument("--max_epochs", type=int, default=1000)
@@ -128,7 +129,7 @@ def main(argv: Optional[List[str]] = None, run: Optional[Dict[str, Any]] = None)
     from versband_tpu_torch.device import resolve_device
 
     if opt.n_model > 1:
-        check_model_axis(load_run_config(opt, unknown))
+        check_model_axis(load_run_config(opt, unknown), opt.n_model)
 
     device_type = "cpu" if opt.platform == "cpu" else "cuda"
     joined = False
@@ -169,16 +170,20 @@ def is_stage1(config: Config) -> bool:
     return "autoencoder" in target.lower() or target.endswith("AutoencoderKL")
 
 
-def check_model_axis(config: Optional[Config]) -> None:
-    """``--n_model`` above 1 cuts the Band-MoE DiT only: another backbone
-    raises here, before any rank starts (stage 1 ignores the flag)."""
+def check_model_axis(config: Optional[Config], n_model: int) -> None:
+    """``--n_model`` above 1: cut the backbone, built on the meta device, as
+    one rank of a ``(1, n_model)`` mesh cuts it, so that a backbone the model
+    axis cannot cut (``qk_norm``; a parameter the rules pick in a module
+    ``shard_module_`` does not know) raises here, before any rank starts.
+    Stage 1 ignores the flag."""
+    from versband_tpu_torch.parallel.mesh import Mesh
+    from versband_tpu_torch.parallel.sharding import shard_module_
+
     if config is None or is_stage1(config):
         return
-    unet = resolve_target(config["model"]["params"]["unet_config"]["target"])
-    if unet != "versband_tpu_torch.models.dit.BandMoeDiT":
-        raise NotImplementedError(
-            f"--n_model above 1 cuts the Band-MoE DiT only, not {unet} (ROADMAP Queue 1 "
-            f"item 12's remainder)")
+    with torch.device("meta"):
+        unet = instantiate_from_config(config["model"]["params"]["unet_config"])
+    shard_module_(unet, Mesh(1, n_model, 0, 0))
 
 
 def _train(opt, unknown: List[str], device: torch.device,

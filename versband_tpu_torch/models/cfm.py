@@ -53,13 +53,18 @@ def cfm_p_losses(model: nn.Module, x_start: torch.Tensor, cond: Dict[str, Any],
     """OT-CFM loss. ``x_start``: [B, C, T] latents (x1); ``noise``: x0;
     ``t``: int [B] in [0, num_timesteps). Training routing (soft, Gumbel noise
     from ``gumbel``) when ``gumbel`` is given, eval routing otherwise, as the
-    JAX function ties ``train`` to its Gumbel key."""
+    JAX function ties ``train`` to its Gumbel key. Only the Band-MoE DiT
+    draws Gumbel noise; the legacy backbones route by hard rules and answer
+    ``(out, 0.0)``, whose 0.0 becomes a tensor here (flax's ``apply`` ignores
+    the unused ``gumbel`` rng, and jnp takes the float)."""
     x1, x0 = x_start, noise
     ut = x1 - (1.0 - sigma_min) * x0
     t_frac = (t.float() / num_timesteps)[:, None, None]
     x_noisy = t_frac * x1 + (1.0 - (1.0 - sigma_min) * t_frac) * x0
+    draws = {"gumbel": gumbel} if isinstance(model, BandMoeDiT) else {}
     model_out, lb_loss = model(x_noisy, t, _cond_to_context(cond), step=step,
-                               train=gumbel is not None, gumbel=gumbel)
+                               train=gumbel is not None, **draws)
+    lb_loss = torch.as_tensor(lb_loss, dtype=model_out.dtype, device=model_out.device)
     loss_simple = ((model_out - ut) ** 2).mean(dim=tuple(range(1, ut.ndim)))
     loss = l_simple_weight * loss_simple.mean() + lb_loss
     return loss, {"loss_simple": loss_simple.mean(), "lb_loss": lb_loss, "loss": loss}

@@ -117,11 +117,12 @@ class StackedSwiGLU(nn.ModuleList):
         """Every expert on the shared input ``[B, T, d]``, or expert e on its
         own input ``x[e]`` of ``[E, B, T, d]`` -> ``[E, B, T, d]`` (E: the
         experts this rank holds)."""
+        own = self.local()
         if x.ndim == 4:
-            if x.shape[0] != len(self):
-                raise ValueError(f"{x.shape[0]} expert inputs for {len(self)} experts")
-            return torch.stack([expert(xe) for expert, xe in zip(self, x)])
-        return torch.stack([self[e](x) for e in self.local()])
+            if x.shape[0] != len(own):
+                raise ValueError(f"{x.shape[0]} expert inputs for {len(own)} experts")
+            return torch.stack([self[e](xe) for e, xe in zip(own, x)])
+        return torch.stack([self[e](x) for e in own])
 
     def routed(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Token ``(b, t)`` through expert ``idx[b, t]`` only -> ``[B, T, d]``

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from versband_tpu_torch.models.dit import BandMoeDiT, FinalLayer, StackedSwiGLU
 from versband_tpu_torch.nn.core import (
     ConditionEmbedder, JointAttention, RMSNorm, TimestepEmbedder, modulate)
+from versband_tpu_torch.parallel import copy_to_model, reduce_from_model
 
 
 def time_expert_index(t: torch.Tensor, num_experts: int, num_timesteps: int = 1000
@@ -39,7 +40,15 @@ def time_expert_index(t: torch.Tensor, num_experts: int, num_timesteps: int = 10
 
 
 class TimeFreqMoE(nn.Module):
-    """Hard time-routed experts, then frequency-band experts."""
+    """Hard time-routed experts, then frequency-band experts.
+
+    Cut by ``parallel.sharding.shard_module_`` (``tp_group`` set), a rank
+    holds ``E / n_model`` of the frequency experts and every time expert (no
+    rule names them, in JAX neither): the time experts' output, whole on
+    every rank, enters this rank's frequency experts through
+    ``copy_to_model`` (the backward sums the ranks' parts of its gradient, so
+    the time experts' gradients are whole and alike), and the bands' mix is
+    summed over the model group."""
 
     def __init__(self, dim: int, hidden_dim: int, num_experts: int = 4, multiple_of: int = 256,
                  num_timesteps: int = 1000):
@@ -47,6 +56,7 @@ class TimeFreqMoE(nn.Module):
         self.num_experts, self.num_timesteps = num_experts, num_timesteps
         self.time_experts = StackedSwiGLU(num_experts, dim, hidden_dim, multiple_of)
         self.freq_experts = StackedSwiGLU(num_experts, dim, hidden_dim, multiple_of)
+        self.tp_group = None  # the model group sharing the frequency experts
 
     def band_mask(self, dim: int, like: torch.Tensor) -> torch.Tensor:
         """``[E, dim]``: 1 on expert e's channels ``[e band, (e+1) band)``."""
@@ -61,8 +71,11 @@ class TimeFreqMoE(nn.Module):
                            self.num_experts).to(x.dtype)  # [B, E]
         y = torch.einsum("ebtd,be->btd", self.time_experts.dense(x), onehot)
         mask = self.band_mask(x.shape[-1], y)
+        group = self.tp_group
+        if group is not None:
+            y, mask = copy_to_model(y, group), mask[self.freq_experts.local()]
         freq_out = self.freq_experts.dense(y[None] * mask[:, None, None, :])
-        return torch.einsum("ebtd,ed->btd", freq_out, mask)
+        return reduce_from_model(torch.einsum("ebtd,ed->btd", freq_out, mask), group)
 
 
 class TimeFreqBlock(nn.Module):

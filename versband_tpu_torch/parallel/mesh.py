@@ -4,8 +4,9 @@
 * ``data``: the batch. Each data index loads its own rows, and the
   gradients are averaged over the ranks of a data group.
 * ``model``: tensor parallelism over attention heads and expert parallelism
-  over the Band-MoE's stacked experts (``sharding.py``). The ranks of a
-  model group hold slices of one model and see the same rows.
+  over stacked experts, as ``sharding.py``'s rules pick them in the
+  backbone (a backbone they pick nothing of runs whole on each rank). The
+  ranks of a model group hold slices of one model and see the same rows.
 
 Rank r has data index ``r // n_model`` and model index ``r % n_model``, so a
 model row lies on neighbouring ranks, as JAX's mesh keeps ``model`` on

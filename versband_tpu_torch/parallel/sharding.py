@@ -8,8 +8,10 @@ JAX's rules pick over the flax paths (through the name map of
 ``versband_tpu_torch/utils/convert.py``):
 
 * ``expert``: the stacked Band-MoE experts
-  ``(caption|acoustic|freq)_experts.{e}.w[123].weight``, split over the
-  expert index (EP): a rank holds ``E / n_model`` whole experts;
+  ``(caption|acoustic|freq)_experts.{e}.w[123].weight`` (of them the
+  Time/Freq DiT has the frequency experts; its time experts stay whole, as
+  in JAX), split over the expert index (EP): a rank holds ``E / n_model``
+  whole experts;
 * ``column``: the attention's ``wq/wk/wv(_y)`` and a dense feed-forward's
   ``w1/w3``, split over their output rows (torch's ``[out, in]`` layout;
   JAX's ``P(None, 'model')`` on a ``[in, out]`` kernel);
@@ -28,13 +30,17 @@ checks only that a dimension divides, so ``n_model = 3`` over 8 heads of
 heads divide by ``n_model``, and otherwise keeps it whole on every rank
 (the numbers are the same either way).
 
-:func:`shard_module_` cuts a :class:`~versband_tpu_torch.models.dit.BandMoeDiT`
-in place to this rank's slices (the experts of other ranks leave the
-module; the names of the rest stay the one-process names) and records its
-layout; :func:`gather_state_dict` and :func:`load_whole_` go between that
-module and the one-process state_dict, so a checkpoint is whole whatever
-the layout that wrote it. :func:`shard_batch` takes this data index's rows
-(``batch_shardings``).
+:func:`shard_module_` cuts any backbone in place to this rank's slices: the
+modules it knows (``JointAttention``, the Band-MoE's ``CaptionCrossAttention``
+and ``BandMoE``, the Time/Freq DiT's ``TimeFreqMoE``) lose the heads and
+experts of other ranks (the names of the rest stay the one-process names),
+and a parameter the rules pick in any other module raises. A backbone whose
+parameters no rule picks (the ConcatDiT variants) is cut to nothing and runs
+whole on every rank of its model group, as under JAX's rules. The layout is
+recorded either way; :func:`gather_state_dict` and :func:`load_whole_` go
+between the cut module and the one-process state_dict, so a checkpoint is
+whole whatever the layout that wrote it. :func:`shard_batch` takes this data
+index's rows (``batch_shardings``).
 """
 
 from __future__ import annotations
@@ -122,18 +128,18 @@ def _heads_split(n_heads: int, n_model: int) -> bool:
 
 
 def shard_module_(module: nn.Module, mesh: Mesh) -> nn.Module:
-    """Cut ``module`` (a ``BandMoeDiT``) to this rank's part of ``mesh`` in
-    place, and record its :class:`Layout` as ``module.tp_layout``. Before
-    the optimizer is made: the parameters keep their identity, only their
-    data shrinks. With ``n_model`` 1 nothing is cut, but the load-balancing
-    usage still sums over the data group."""
-    from versband_tpu_torch.models.dit import BandMoE, BandMoeDiT, CaptionCrossAttention
+    """Cut ``module`` (any backbone) to this rank's part of ``mesh`` in place,
+    and record its :class:`Layout` as ``module.tp_layout``. Before the
+    optimizer is made: the parameters keep their identity, only their data
+    shrinks. With ``n_model`` 1 nothing is cut, but the Band-MoE's
+    load-balancing usage still sums over the data group. A parameter that
+    :data:`PARAM_RULES` pick outside the module kinds this function cuts
+    raises ``NotImplementedError`` before anything is cut."""
+    from versband_tpu_torch.models.dit import BandMoE, CaptionCrossAttention
+    from versband_tpu_torch.models.dit_timefreq import TimeFreqMoE
     from versband_tpu_torch.nn.core import JointAttention
 
-    if type(module) is not BandMoeDiT:
-        raise NotImplementedError(
-            f"tensor and expert parallelism cover the Band-MoE DiT only, not "
-            f"{type(module).__name__} (ROADMAP Queue 1 item 12's remainder)")
+    cutters = (JointAttention, CaptionCrossAttention, BandMoE, TimeFreqMoE)
     if getattr(module, "tp_layout", None) is not None:
         raise ValueError("the module is sharded already")
     if not mesh.member:
@@ -143,6 +149,12 @@ def shard_module_(module: nn.Module, mesh: Mesh) -> nn.Module:
     whole = OrderedDict((k, v.shape) for k, v in module.state_dict().items())
     params = [(k, p.requires_grad) for k, p in module.named_parameters()]
     specs = param_specs(whole, m)
+    owners = [f"{p}." for p, sub in module.named_modules() if p and isinstance(sub, cutters)]
+    for name, kind in specs.items():
+        if kind is not None and not name.startswith(tuple(owners)):
+            raise NotImplementedError(
+                f"the rules pick {name} ({kind}), but no module that shard_module_ cuts "
+                f"({', '.join(c.__name__ for c in cutters)}) holds it")
     slices: Dict[str, Tuple[int, torch.Tensor]] = {}
     owned: List[str] = []
     absent: List[str] = []
@@ -155,6 +167,22 @@ def shard_module_(module: nn.Module, mesh: Mesh) -> nn.Module:
         index = index.to(p.device)
         p.data = p.data.index_select(dim, index).contiguous()
         slices[full] = (dim, index)
+
+    def keep_experts(owner: nn.Module, prefix: str, groups: Sequence[str]) -> None:
+        """This rank's ``E / m`` experts of each group; the others' become
+        None entries, so every name stays the one-process name."""
+        E = owner.num_experts
+        own = range(r * E // m, (r + 1) * E // m)
+        for g in groups:
+            experts = getattr(owner, g)
+            for e in range(E):
+                names = [f"{prefix}.{g}.{e}.{k}" for k in experts[e].state_dict()]
+                if e in own:
+                    owned.extend(names)
+                else:
+                    absent.extend(names)
+                    experts._modules[str(e)] = None
+        owner.tp_group = group
 
     for prefix, sub in module.named_modules():
         if isinstance(sub, JointAttention):
@@ -182,20 +210,13 @@ def shard_module_(module: nn.Module, mesh: Mesh) -> nn.Module:
             sub.tp_group, sub.n_local, sub.head_offset = group, hl, r * hl
         elif isinstance(sub, BandMoE):
             sub.data_group = mesh.data_group
-            E = sub.num_experts
-            if m == 1 or E % m:
-                continue
-            own = range(r * E // m, (r + 1) * E // m)
-            for g in ("caption_experts", "acoustic_experts", "freq_experts"):
-                experts = getattr(sub, g)
-                for e in range(E):
-                    names = [f"{prefix}.{g}.{e}.{k}" for k in experts[e].state_dict()]
-                    if e in own:
-                        owned += names
-                    else:
-                        absent += names
-                        experts._modules[str(e)] = None
-            sub.tp_group = group
+            if m > 1 and sub.num_experts % m == 0:
+                keep_experts(sub, prefix, ("caption_experts", "acoustic_experts",
+                                           "freq_experts"))
+        elif isinstance(sub, TimeFreqMoE):
+            # the time experts stay whole: no rule names them (JAX's neither)
+            if m > 1 and sub.num_experts % m == 0:
+                keep_experts(sub, prefix, ("freq_experts",))
     module.tp_layout = Layout(mesh, whole, slices, owned, absent, params)
     return module
 
