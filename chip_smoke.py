@@ -74,6 +74,18 @@ Phases (any failure raises and exits non-zero):
      30 K5 (pwg); [nsf]: ``NSFHifiGanGenerator()``'s defaults from a
      ``model_ckpt_steps_1.ckpt``, f0 estimated from each mel, every clip
      481,280 finite samples at -23 +/- 0.5 LUFS after normalisation;
+ 8b. [bf16-serve] bf16 serving against fp32 serving on the card (TF32 off),
+     on the same weights made on the CPU from SEED (shipped-width DiT, VAE,
+     HiFi-GAN in fp32, its conv weights N(0, 1/fan_in); the bf16 models cast
+     as the serving path casts them)
+     and the same request and bf16 start noise: the relative L2 gap of the
+     latent (sampler from the start noise, 96 K1 launches in the bf16 run),
+     the mel (decode of the fp32 latent rounded to bf16) and the waveform
+     (vocode of the fp32 mel rounded to bf16), each stage fed one input in
+     both dtypes, and end to end; each must stay under 1.5x the JAX
+     package's own bf16-against-fp32 gap for that stage at this width
+     (``BF16_JAX_GAPS``), and the end-to-end gap must exceed the waveform
+     stage's 1.2-fold (the waveform follows the mel);
   9. trains 5 steps at full width (fp32, batch 8, 1500-frame mels padded to
      1536) through ``CFMTrainer.fit`` with the shipped LR scaling and
      schedule; checks finite losses, moved weights, a ``last`` checkpoint
@@ -345,6 +357,19 @@ K5_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
 # fp32 modules on the card against the CPU (TF32 off): summation order over
 # 768-1536-wide products through 4 blocks / ~30 conv layers.
 MODULE_TOL = 2e-3
+# [bf16-serve]: the JAX package's own bf16-against-fp32 gaps, relative L2,
+# of bench.py's jitted composition at this width on bf16_serve_inputs(), stage
+# by stage as phase_bf16_serve takes them; measured on the CPU by
+# tests/test_torch_port_bf16_serving.py's slow case. The card's bf16 serving
+# must stay within BF16_BAR_FACTOR of each.
+BF16_JAX_GAPS = {"latent": 0.01033885984112623, "mel": 0.019253403687978607,
+                 "waveform": 0.00542955584753499, "end_to_end": 0.007883096133353406}
+BF16_BAR_FACTOR = 1.5
+# The end-to-end gap must exceed the waveform stage's by this factor: it adds
+# the mel's own gap to the vocoder's rounding, so a vocoder whose output does
+# not follow its mel (an init that renders a near-silent click gave 1.0005)
+# fails it. The JAX package's ratio on these weights is 1.45.
+BF16_E2E_OVER_WAVEFORM = 1.2
 # The fp32 T5 tower on the card against the CPU, max|d| over hidden states of
 # O(1) (after the final RMS norm): summation order over 1024- and 2816-wide
 # products through 24 blocks, TF32 off.
@@ -1072,6 +1097,95 @@ def phase_serve(dev, families=VOCODERS) -> dict:
         served[family] = serve_family(family, cfm, voc, uncond, requests)
     shutil.rmtree(NSF_DIR, ignore_errors=True)
     return served
+
+
+def bf16_serve_inputs() -> dict:
+    """[bf16-serve]'s weights and request, made on the CPU from SEED (so the
+    JAX package's gaps can be measured on the same ones): the shipped-width
+    DiT (zero-init layers drawn), VAE and HiFi-GAN in fp32 (its conv weights
+    drawn N(0, 1/fan_in), so that the waveform follows the mel), one clip's
+    cond and uncond, and the start noise in bf16."""
+    torch.manual_seed(SEED + 40)
+    dit = BandMoeDiT(**DIT).eval()
+    perturb_zero_init(dit, SEED + 40)
+    vae = AutoencoderKL(**VAE).eval()
+    voc = HifiGanGenerator().eval()
+    voc.load_state_dict(scaled_conv_weights(voc, SEED + 40))
+    g = torch.Generator().manual_seed(SEED + 41)
+    cond = {"caption": torch.randn(1, 80, 1024, generator=g).to(DTYPE),
+            "acoustic": {"midi": torch.randint(0, 128, (1, 1, T_MEL), generator=g),
+                         "beats": torch.randint(0, 2, (1, 1, T_MEL), generator=g)}}
+    uncond = {"caption": torch.zeros(1, 80, 1024, dtype=DTYPE),
+              "acoustic": {"midi": torch.full((1, 1, T_MEL), 128),
+                           "beats": torch.full((1, 1, T_MEL), 2)}}
+    z0 = torch.randn(1, 20, T_LAT, generator=g).to(DTYPE)
+    return dict(dit=dit, vae=vae, voc=voc, cond=cond, uncond=uncond, z0=z0)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+@torch.inference_mode()
+def phase_bf16_serve(dev) -> dict:
+    """[bf16-serve] (phase 8b): the bf16 serving path against the fp32 one on
+    one set of weights, stage by stage; returns the K1 launches."""
+    t0 = time.perf_counter()
+    w = bf16_serve_inputs()
+    cfm, voc = {}, {}
+    for dt in (torch.float32, DTYPE):
+        cfm[dt] = CFM(unet_config=dict(target="versband_tpu.models.dit.BandMoeDiT", params=DIT),
+                      first_stage_config=dict(
+                          target="versband_tpu.models.autoencoder.AutoencoderKL", params=VAE),
+                      mel_dim=20, scale_factor=1.0, device=dev, dtype=dt)
+        cfm[dt].model.load_state_dict(w["dit"].state_dict())
+        cfm[dt].first_stage.load_state_dict(w["vae"].state_dict())
+        voc[dt] = build_vocoder("hifigan", device=dev, dtype=dt)
+        voc[dt].model.load_state_dict(w["voc"].state_dict())
+
+    def tree(c, dt):
+        return {"caption": c["caption"].to(dev, dt),
+                "acoustic": {k: v.to(dev) for k, v in c["acoustic"].items()}}
+
+    z, mel, wav, end, k1 = {}, {}, {}, {}, {}
+    for dt in (torch.float32, DTYPE):
+        torch.cuda.synchronize()
+        n0 = fa.LAUNCHES
+        z[dt] = cfm[dt].sample_cfg(tree(w["cond"], dt), CFG_SCALE, tree(w["uncond"], dt),
+                                   x_latent=w["z0"].to(dev, dt), timesteps=STEPS)
+        torch.cuda.synchronize()
+        k1[dt] = fa.LAUNCHES - n0
+    # decode and vocode each take the fp32 stage's output rounded to bf16 in both dtypes
+    z_in = z[torch.float32].to(DTYPE)
+    for dt in (torch.float32, DTYPE):
+        mel[dt] = cfm[dt].decode_first_stage(z_in.to(dt))
+    mel_in = mel[torch.float32].to(DTYPE)
+    for dt in (torch.float32, DTYPE):
+        wav[dt] = voc[dt].waveform(mel_in.to(dt))
+        end[dt] = voc[dt].waveform(cfm[dt].decode_first_stage(z[dt]))
+    gaps = {name: _rel_l2(v[DTYPE], v[torch.float32])
+            for name, v in (("latent", z), ("mel", mel), ("waveform", wav), ("end_to_end", end))}
+    finite = all(bool(torch.isfinite(v[dt]).all()) for v in (z, mel, wav, end) for dt in v)
+    wall = time.perf_counter() - t0
+    for name, gap in gaps.items():
+        bar = BF16_BAR_FACTOR * BF16_JAX_GAPS[name]
+        print(f"[bf16-serve] {name}: bf16 against fp32 relative L2 {gap:.4e}, bar {bar:.4e} "
+              f"({BF16_BAR_FACTOR:g} x the JAX package's {BF16_JAX_GAPS[name]:.4e})")
+    print(f"[bf16-serve] K1 launches: bf16 clip {k1[DTYPE]}, fp32 clip {k1[torch.float32]}; "
+          f"finite {finite}; the phase took {wall:.1f} s")
+    bad = {k: v for k, v in gaps.items() if not v <= BF16_BAR_FACTOR * BF16_JAX_GAPS[k]}
+    follows = gaps["end_to_end"] > BF16_E2E_OVER_WAVEFORM * gaps["waveform"]
+    print(f"[bf16-serve] end to end over waveform {gaps['end_to_end'] / gaps['waveform']:.3f} "
+          f"(must exceed {BF16_E2E_OVER_WAVEFORM:g}: the waveform follows the mel)")
+    if bad or not follows or not finite or wav[DTYPE].shape != (1, T_MEL * HOP) \
+            or k1[DTYPE] != LAUNCHES_PER_CLIP or k1[torch.float32] != LAUNCHES_PER_CLIP:
+        raise AssertionError(f"[bf16-serve] gaps over their bars {bad}, end to end over "
+                             f"waveform {follows}, finite {finite}, K1 "
+                             f"{k1}, waveform {tuple(wav[DTYPE].shape)}")
+    del cfm, voc
+    torch.cuda.empty_cache()
+    return {"k1": k1[DTYPE] + k1[torch.float32], "gaps": gaps, "wall_s": wall}
 
 
 def scaled_conv_weights(model: torch.nn.Module, seed: int) -> dict:
@@ -4327,6 +4441,7 @@ def main() -> None:
     k5 = phase_k5(dev, parents.get("fused_wavenet"))
     phase_modules(dev)
     served = phase_serve(dev)
+    bf16 = phase_bf16_serve(dev)
     trained = phase_train(dev)
     phase_grad_parity(dev)
     n_cli = phase_cli(dev)
@@ -4377,7 +4492,8 @@ def main() -> None:
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/flash_attn_fwd.cu",
          "replaces": "versband_tpu/ops/flash_attention.py:57",
-         "launches": n_serve["k1"] + n_train[0] + n_cli + n_vae_gen + audioldm["k1"], **k1},
+         "launches": n_serve["k1"] + bf16["k1"] + n_train[0] + n_cli + n_vae_gen
+         + audioldm["k1"], **k1},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": bwd_src,
          "replaces": "versband_tpu/ops/flash_attention.py:162", "launches": n_train[1],
          **k23["dq"]},
@@ -4404,6 +4520,7 @@ def main() -> None:
           f"{ddp['launches']} (both in-process runs); the phases took {prep['wall_s']:.1f} s "
           f"and {ddp['wall_s']:.1f} s")
     print(f"kernels: {[k['name'] for k in table]}; K1 launches: serving {n_serve['k1']}, "
+          f"bf16-serve {bf16['k1']}, "
           f"training {trained['launches'][0]}, cli {n_cli}, train-cli {n_train_cli[0]}, "
           f"prep-cli {prep['launches'][0]}, ddp {ddp['launches'][0]}, tp {tp['launches'][0]} "
           f"(its ranks' K2/K3 {tp['launches'][1]}/{tp['launches'][2]}; tp-legacy "

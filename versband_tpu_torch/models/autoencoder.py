@@ -18,15 +18,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from versband_tpu_torch.models.distributions import DiagonalGaussian
+from versband_tpu_torch.nn.rounding import Conv1d, GroupNorm, silu
 
 
-def _norm(channels: int) -> nn.GroupNorm:
+def _norm(channels: int) -> GroupNorm:
     # GroupNorm(32); fewer groups at widths below 32 (tiny test models)
-    return nn.GroupNorm(32 if channels >= 32 else channels, channels, eps=1e-6)
+    return GroupNorm(32 if channels >= 32 else channels, channels, eps=1e-6)
 
 
-def _conv(cin: int, cout: int, k: int) -> nn.Conv1d:
-    return nn.Conv1d(cin, cout, k, padding=k // 2)
+def _conv(cin: int, cout: int, k: int) -> Conv1d:
+    return Conv1d(cin, cout, k, padding=k // 2)
 
 
 class ResnetBlock1D(nn.Module):
@@ -39,11 +40,11 @@ class ResnetBlock1D(nn.Module):
         self.norm2 = _norm(out_ch)
         self.dropout = nn.Dropout(dropout)
         self.conv2 = _conv(out_ch, out_ch, kernel_size)
-        self.nin_shortcut = nn.Conv1d(in_channels, out_ch, 1) if in_channels != out_ch else None
+        self.nin_shortcut = Conv1d(in_channels, out_ch, 1) if in_channels != out_ch else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(self.dropout(F.silu(self.norm2(h))))
+        h = self.conv1(silu(self.norm1(x)))
+        h = self.conv2(self.dropout(silu(self.norm2(h))))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -55,10 +56,10 @@ class AttnBlock1D(nn.Module):
     def __init__(self, in_channels: int):
         super().__init__()
         self.norm = _norm(in_channels)
-        self.q = nn.Conv1d(in_channels, in_channels, 1)
-        self.k = nn.Conv1d(in_channels, in_channels, 1)
-        self.v = nn.Conv1d(in_channels, in_channels, 1)
-        self.proj_out = nn.Conv1d(in_channels, in_channels, 1)
+        self.q = Conv1d(in_channels, in_channels, 1)
+        self.k = Conv1d(in_channels, in_channels, 1)
+        self.v = Conv1d(in_channels, in_channels, 1)
+        self.proj_out = Conv1d(in_channels, in_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.norm(x)
@@ -74,7 +75,7 @@ class Downsample1D(nn.Module):
 
     def __init__(self, in_channels: int):
         super().__init__()
-        self.conv = nn.Conv1d(in_channels, in_channels, 3, stride=2)
+        self.conv = Conv1d(in_channels, in_channels, 3, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.pad(x, (0, 1)))
@@ -151,7 +152,7 @@ class Encoder1D(nn.Module):
             if hasattr(lvl, "downsample"):
                 h = lvl.downsample(h)
         h = self.mid(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(silu(self.norm_out(h)))
 
 
 class Decoder1D(nn.Module):
@@ -187,7 +188,7 @@ class Decoder1D(nn.Module):
             h = lvl(h)
             if hasattr(lvl, "upsample"):
                 h = lvl.upsample(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(silu(self.norm_out(h)))
 
 
 class AutoencoderKL(nn.Module):
@@ -211,8 +212,8 @@ class AutoencoderKL(nn.Module):
                       dropout=dd.get("dropout", 0.0))
         self.encoder = Encoder1D(in_channels=dd["in_channels"], double_z=True, **common)
         self.decoder = Decoder1D(out_ch=dd["out_ch"], **common)
-        self.quant_conv = nn.Conv1d(2 * dd["z_channels"], 2 * embed_dim, 1)
-        self.post_quant_conv = nn.Conv1d(embed_dim, dd["z_channels"], 1)
+        self.quant_conv = Conv1d(2 * dd["z_channels"], 2 * embed_dim, 1)
+        self.post_quant_conv = Conv1d(embed_dim, dd["z_channels"], 1)
         self.downsample_factor = 2 ** len(common["down_layers"])
 
     def encode(self, x: torch.Tensor) -> DiagonalGaussian:

@@ -36,6 +36,7 @@ from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.models.dit import BandMoeDiT, GumbelSource
 from versband_tpu_torch.models.schedules import (
     DiffusionSchedule, make_ddim_sampling_parameters, make_ddim_timesteps)
+from versband_tpu_torch.nn.rounding import cast_module
 from versband_tpu_torch.utils.config import instantiate_from_config
 
 
@@ -180,12 +181,19 @@ class LatentDiffusion:
     def _build(self, config) -> Optional[nn.Module]:
         """The module of ``config``, its weights made and initialised on the
         model's device (a 5 B-parameter backbone takes ~50 s to initialise on
-        the host), then cast to its dtype."""
+        the host), then cast to its dtype (norms kept in float32, as flax
+        keeps them: ``nn/rounding.py``)."""
         if not config:
             return None
         with torch.device(self.device):
             module = instantiate_from_config(config)
-        return module.to(device=self.device, dtype=self.dtype).eval()
+        return cast_module(module.to(self.device), self.dtype).eval()
+
+    def apply_model(self, x_noisy: torch.Tensor, t: torch.Tensor, cond: Dict[str, Any],
+                    step: int = 0, train: bool = False, **kw) -> Tuple[torch.Tensor, Any]:
+        """The backbone's ``(out, aux)`` on a cond dict; ``kw`` (the Band-MoE
+        DiT's ``gumbel``) is handed on."""
+        return self.model(x_noisy, t, _cond_to_context(cond), step=step, train=train, **kw)
 
     @torch.no_grad()
     def encode_first_stage(self, mel: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -216,6 +224,10 @@ class LatentDiffusion:
         std = torch.sqrt(s2 / n - (s1 / n) ** 2)
         self.scale_factor = float(1.0 / std.item())
         return self.scale_factor
+
+    def get_loss(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """The elementwise squared error."""
+        return (pred - target) ** 2
 
     def latent_length(self, cond_length: int) -> int:
         """ceil(T_cond / 2): latent frames for a conditioning of T mel frames."""

@@ -52,3 +52,10 @@ class DiagonalGaussian:
         dims = tuple(range(1, sample.ndim))
         return 0.5 * torch.sum(math.log(2.0 * math.pi) + self.logvar
                                + (sample - self.mean) ** 2 / self.var, dim=dims)
+
+
+def normal_kl(mean1: torch.Tensor, logvar1: torch.Tensor, mean2: torch.Tensor,
+              logvar2: torch.Tensor) -> torch.Tensor:
+    """KL(N(mean1, e^logvar1) || N(mean2, e^logvar2)) per element, broadcasting."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + (mean1 - mean2) ** 2 * torch.exp(-logvar2))

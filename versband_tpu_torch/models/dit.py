@@ -13,7 +13,11 @@ Parameter names are the reference checkpoint's (``layers.{i}.attention.wq``,
 package does at 4 experts. ``moe_eval_routed`` selects, at eval only, the
 routed path (JAX's ``ragged_dot`` one, off by default there too): each
 token runs only its argmax expert, the tokens sorted by expert and each
-expert's segment one ``torch.matmul`` per projection.
+expert's segment one ``torch.matmul`` per projection. In bf16 every expert
+keeps its products in float32 (``jnp.einsum``'s ``preferred_element_type``)
+and the gates' probabilities are float32 where JAX divides by its float32
+temperature, so the mixed output stays float32 up to the frequency
+experts; ``nn/rounding.py`` says where the rest rounds.
 
 Training routing (``train=True``) is soft. Its Gumbel noise comes from the
 ``gumbel`` argument of :meth:`BandMoeDiT.forward`: a ``torch.Generator`` to
@@ -50,6 +54,9 @@ from versband_tpu_torch.nn.core import (
     ConditionEmbedder, FeedForward, JointAttention, RMSNorm, TimestepEmbedder,
     modulate, precompute_rope, sdpa,
 )
+from versband_tpu_torch.nn.rounding import (
+    Conv1d, LayerNorm, LeakyReLU, Linear, SiLU, layer_norm, linear, linear_f32, softmax,
+)
 from versband_tpu_torch.parallel import copy_to_model, global_sum, reduce_from_model
 
 
@@ -84,15 +91,17 @@ def draw_gumbel(source: GumbelSource, shape: Tuple[int, ...], like: torch.Tensor
 
 
 def gumbel_softmax(logits: torch.Tensor, temperature: float, hard: bool,
-                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   noise: Optional[torch.Tensor] = None, fp32: bool = False) -> torch.Tensor:
     """Gumbel-softmax, straight-through when ``hard``. Without ``noise`` it is
     the deterministic limit (the sampler's routing): soft -> softmax, hard ->
-    one-hot argmax."""
+    one-hot argmax. ``fp32``: divide by the temperature in float32, as JAX
+    does with its annealed temperature (a float32 array, which promotes
+    low-precision logits)."""
     y = logits if noise is None else logits + noise
-    y_soft = torch.softmax(y / temperature, dim=-1)
+    y_soft = softmax((y.float() if fp32 else y) / temperature, dim=-1)
     if hard:
         idx = y_soft.argmax(dim=-1)
-        y_hard = F.one_hot(idx, logits.shape[-1]).to(logits.dtype)
+        y_hard = F.one_hot(idx, logits.shape[-1]).to(y_soft.dtype)
         return y_hard - y_soft.detach() + y_soft
     return y_soft
 
@@ -113,16 +122,31 @@ class StackedSwiGLU(nn.ModuleList):
         """The indices of the experts this rank holds."""
         return [e for e, expert in enumerate(self) if expert is not None]
 
+    def _expert(self, e: int, x: torch.Tensor, band: slice = slice(None)) -> torch.Tensor:
+        """Expert e on ``x`` (its input channels and outputs cut to ``band``) as
+        JAX's ``StackedSwiGLU`` computes it: w1 and w3 products kept in float32,
+        ``silu(a) * b`` rounded once to the weights' type, the w2 product in
+        float32."""
+        ex = self[e]
+        w1, w3, w2 = ex.w1.weight[:, band], ex.w3.weight[:, band], ex.w2.weight[band]
+        inner = F.silu(linear_f32(x, w1)) * linear_f32(x, w3)
+        return linear_f32(inner.to(w1.dtype), w2)
+
+    def _dtype(self) -> torch.dtype:
+        return self[self.local()[0]].w1.weight.dtype
+
     def dense(self, x: torch.Tensor) -> torch.Tensor:
         """Every expert on the shared input ``[B, T, d]``, or expert e on its
-        own input ``x[e]`` of ``[E, B, T, d]`` -> ``[E, B, T, d]`` (E: the
-        experts this rank holds)."""
+        own input ``x[e]`` of ``[E, B, T, d]`` -> ``[E, B, T, d]`` in the
+        weights' type (E: the experts this rank holds)."""
         own = self.local()
         if x.ndim == 4:
             if x.shape[0] != len(own):
                 raise ValueError(f"{x.shape[0]} expert inputs for {len(own)} experts")
-            return torch.stack([self[e](xe) for e, xe in zip(own, x)])
-        return torch.stack([self[e](x) for e in own])
+            outs = [self._expert(e, xe) for e, xe in zip(own, x)]
+        else:
+            outs = [self._expert(e, x) for e in own]
+        return torch.stack(outs).to(self._dtype())
 
     def routed(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Token ``(b, t)`` through expert ``idx[b, t]`` only -> ``[B, T, d]``
@@ -130,42 +154,37 @@ class StackedSwiGLU(nn.ModuleList):
 
         The tokens are sorted by expert (a stable argsort, ``jnp.argsort``'s
         order), counted per expert (read on the host: the segments' sizes
-        slice the products), run segment by segment through w1 / w3, SiLU
-        gate, w2, and put back in their places."""
+        slice the products), run segment by segment through the expert, and
+        put back in their places."""
         B, T, d = x.shape
         xf, idf = x.reshape(B * T, d), idx.reshape(B * T)
         order = torch.argsort(idf, stable=True)
         counts = torch.bincount(idf, minlength=len(self)).tolist()
-        out = torch.empty_like(xf) if len(self.local()) == len(self) else torch.zeros_like(xf)
+        whole = len(self.local()) == len(self)
+        out = (xf.new_empty if whole else xf.new_zeros)(xf.shape, dtype=self._dtype())
         start = 0
-        for expert, n in zip(self, counts):
-            if expert is not None:
-                xs = xf[order[start: start + n]]
-                a = torch.matmul(xs, expert.w1.weight.t())
-                b = torch.matmul(xs, expert.w3.weight.t())
-                out[start: start + n] = torch.matmul(F.silu(a) * b, expert.w2.weight.t())
+        for e, n in enumerate(counts):
+            if self[e] is not None:
+                out[start: start + n] = self._expert(e, xf[order[start: start + n]])
             start += n
         return out[torch.argsort(order)].reshape(B, T, d)
 
     def band_diagonal(self, x: torch.Tensor) -> torch.Tensor:
         """Expert e on channel band e only, its band-e outputs kept -> ``[B, T, d]``
-        (zero on the bands of another rank's experts).
+        in the weights' type (zero on the bands of another rank's experts).
 
         Equals running expert e on x masked to band e and keeping band e of its
         output, with the matmuls contracted over the band alone.
         """
         band = x.shape[-1] // len(self)
-        outs = []
-        for e in self.local():
-            expert, sl = self[e], slice(e * band, (e + 1) * band)
-            xb = x[..., sl]
-            a = F.linear(xb, expert.w1.weight[:, sl])
-            b = F.linear(xb, expert.w3.weight[:, sl])
-            outs.append(F.linear(F.silu(a) * b, expert.w2.weight[sl]))
+        own = self.local()
+        outs = [self._expert(e, x[..., e * band:(e + 1) * band], slice(e * band, (e + 1) * band))
+                for e in own]
+        dtype = self._dtype()
         if len(outs) == len(self):
-            return torch.cat(outs, dim=-1)
-        out = x.new_zeros(x.shape)
-        for e, o in zip(self.local(), outs):
+            return torch.cat(outs, dim=-1).to(dtype)
+        out = x.new_zeros(x.shape, dtype=dtype)
+        for e, o in zip(own, outs):
             out[..., e * band:(e + 1) * band] = o
         return out
 
@@ -184,7 +203,7 @@ class CaptionCrossAttention(nn.Module):
         self.dim, self.num_heads = dim, num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
-        self.out_proj = nn.Linear(dim, dim)
+        self.out_proj = Linear(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
         self.tp_group = None
         self.n_local, self.head_offset = num_heads, 0
@@ -200,9 +219,9 @@ class CaptionCrossAttention(nn.Module):
             x, caption = copy_to_model(x, group), copy_to_model(caption, group)
             cols = slice(self.head_offset * hd, (self.head_offset + H) * hd)
             bq, bk, bv = (b[cols] for b in copy_to_model(self.in_proj_bias, group).chunk(3))
-        q = F.linear(x, wq, bq).view(B, T, H, hd)
-        k = F.linear(caption, wk, bk).view(B, caption.shape[1], H, hd)
-        v = F.linear(caption, wv, bv).view(B, caption.shape[1], H, hd)
+        q = linear(x, wq, bq).view(B, T, H, hd)
+        k = linear(caption, wk, bk).view(B, caption.shape[1], H, hd)
+        v = linear(caption, wv, bv).view(B, caption.shape[1], H, hd)
         out = sdpa(q, k, v).reshape(B, T, H * hd)
         if group is None:
             return self.out_proj(out)
@@ -220,9 +239,9 @@ class BandMoE(nn.Module):
         self.eval_routed = eval_routed
         self.temperature_init = temperature_init
         self.cross_attention = CaptionCrossAttention(dim)
-        self.high_level_gating_network = nn.Linear(dim, 2)
-        self.caption_gating_network = nn.Linear(dim, num_experts)
-        self.acoustic_gating_network = nn.Linear(dim, num_experts)
+        self.high_level_gating_network = Linear(dim, 2)
+        self.caption_gating_network = Linear(dim, num_experts)
+        self.acoustic_gating_network = Linear(dim, num_experts)
         for lin in (self.high_level_gating_network, self.caption_gating_network,
                     self.acoustic_gating_network):
             nn.init.xavier_uniform_(lin.weight)
@@ -252,10 +271,11 @@ class BandMoE(nn.Module):
             ac_idx = self.acoustic_gating_network(acoustic).argmax(dim=-1)
             return (self.caption_experts.routed(x, cap_idx) * cap_mask
                     + self.acoustic_experts.routed(x, ac_idx) * ac_mask)
-        return (torch.einsum("ebtd,bte->btd", self.caption_experts.dense(x), cap_probs)
-                * cap_mask
-                + torch.einsum("ebtd,bte->btd", self.acoustic_experts.dense(x), ac_probs)
-                * ac_mask)
+        # JAX's einsum promotes the experts' outputs to the probabilities' type
+        cap = self.caption_experts.dense(x).to(cap_probs.dtype)
+        ac = self.acoustic_experts.dense(x).to(ac_probs.dtype)
+        return (torch.einsum("ebtd,bte->btd", cap, cap_probs) * cap_mask
+                + torch.einsum("ebtd,bte->btd", ac, ac_probs) * ac_mask)
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor, caption: torch.Tensor,
                 acoustic: torch.Tensor, step: int = 0, train: bool = False,
@@ -275,9 +295,9 @@ class BandMoE(nn.Module):
         ac_mask = hl_probs[:, 1][:, None, None]
 
         cap_probs = gumbel_softmax(self.caption_gating_network(cap_feat), temperature, hard,
-                                   cap_g)
+                                   cap_g, fp32=True)
         ac_probs = gumbel_softmax(self.acoustic_gating_network(acoustic), temperature, hard,
-                                  ac_g)
+                                  ac_g, fp32=True)
 
         group = self.tp_group
         if group is None:
@@ -317,15 +337,15 @@ class FinalLayer(nn.Module):
 
     def __init__(self, hidden_size: int, out_channels: int):
         super().__init__()
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 2 * hidden_size))
-        self.linear = nn.Linear(hidden_size, out_channels)
+        self.adaLN_modulation = nn.Sequential(SiLU(), Linear(hidden_size, 2 * hidden_size))
+        self.linear = Linear(hidden_size, out_channels)
         for lin in (self.adaLN_modulation[1], self.linear):
             nn.init.zeros_(lin.weight)
             nn.init.zeros_(lin.bias)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
-        x = F.layer_norm(x, x.shape[-1:], eps=1e-6)
+        x = layer_norm(x, x.shape[-1:], eps=1e-6)
         return self.linear(modulate(x, shift, scale))
 
 
@@ -337,7 +357,7 @@ class TransformerBlock(nn.Module):
                  norm_eps: float = 1e-5, qk_norm: bool = False, use_flash: bool = False,
                  moe_eval_routed: bool = False):
         super().__init__()
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(dim, 6 * dim))
+        self.adaLN_modulation = nn.Sequential(SiLU(), Linear(dim, 6 * dim))
         nn.init.zeros_(self.adaLN_modulation[1].weight)
         nn.init.zeros_(self.adaLN_modulation[1].bias)
         self.attention_norm = RMSNorm(dim, norm_eps)
@@ -365,9 +385,8 @@ class ConvLeakyPool(nn.Sequential):
     """conv(k5) -> LeakyReLU(0.01) -> AvgPool1d(2) over ``[B, C, T]`` (key ``0`` is the conv)."""
 
     def __init__(self, hidden_size: int, kernel_size: int = 5, pool: int = 2):
-        super().__init__(nn.Conv1d(hidden_size, hidden_size, kernel_size,
-                                   padding=kernel_size // 2),
-                         nn.LeakyReLU(0.01), nn.AvgPool1d(pool))
+        super().__init__(Conv1d(hidden_size, hidden_size, kernel_size, padding=kernel_size // 2),
+                         LeakyReLU(0.01), nn.AvgPool1d(pool))
 
 
 class BandMoeDiT(nn.Module):
@@ -405,12 +424,12 @@ class BandMoeDiT(nn.Module):
         self.beats_embedding = nn.Embedding(beats_vocab, hidden_size)
         self.midi_proj = ConvLeakyPool(hidden_size)
         self.beats_proj = ConvLeakyPool(hidden_size)
-        self.final_proj = nn.Conv1d(hidden_size, hidden_size, 1)
+        self.final_proj = Conv1d(hidden_size, hidden_size, 1)
         self.c_embedder = ConditionEmbedder(ori_dim, hidden_size)
-        self.cap_embedder = nn.Sequential(nn.LayerNorm(hidden_size, eps=1e-6),
-                                          nn.Linear(hidden_size, hidden_size))
+        self.cap_embedder = nn.Sequential(LayerNorm(hidden_size, eps=1e-6),
+                                          Linear(hidden_size, hidden_size))
         nn.init.xavier_uniform_(self.cap_embedder[1].weight)
-        self.proj_in = nn.Conv1d(in_channels, hidden_size, 5, padding=2)
+        self.proj_in = Conv1d(in_channels, hidden_size, 5, padding=2)
         self.t_embedder = TimestepEmbedder(hidden_size)
         self.layers = nn.ModuleList([
             TransformerBlock(hidden_size, num_heads, hidden_size, num_experts=num_experts,

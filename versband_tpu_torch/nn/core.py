@@ -13,8 +13,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from versband_tpu_torch.nn.rounding import GELU, LayerNorm, Linear, SiLU, silu
 from versband_tpu_torch.ops.flash_attention import flash_attention
 from versband_tpu_torch.parallel import copy_to_model, reduce_from_model
 
@@ -57,8 +57,8 @@ class TimestepEmbedder(nn.Module):
     def __init__(self, hidden_size: int, frequency_embedding_size: int = 256):
         super().__init__()
         self.frequency_embedding_size = frequency_embedding_size
-        self.mlp = nn.Sequential(nn.Linear(frequency_embedding_size, hidden_size),
-                                 nn.SiLU(), nn.Linear(hidden_size, hidden_size))
+        self.mlp = nn.Sequential(Linear(frequency_embedding_size, hidden_size),
+                                 SiLU(), Linear(hidden_size, hidden_size))
         for i in (0, 2):
             nn.init.normal_(self.mlp[i].weight, std=0.02)
             nn.init.zeros_(self.mlp[i].bias)
@@ -73,10 +73,10 @@ class ConditionEmbedder(nn.Module):
 
     def __init__(self, in_dim: int, hidden_size: int, gelu_tanh: bool = False):
         super().__init__()
-        self.mlp = nn.Sequential(nn.Linear(in_dim, hidden_size),
-                                 nn.GELU(approximate="tanh" if gelu_tanh else "none"),
-                                 nn.Linear(hidden_size, hidden_size))
-        self.norm = nn.LayerNorm(hidden_size, eps=1e-6)
+        self.mlp = nn.Sequential(Linear(in_dim, hidden_size),
+                                 GELU(approximate="tanh" if gelu_tanh else "none"),
+                                 Linear(hidden_size, hidden_size))
+        self.norm = LayerNorm(hidden_size, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(self.mlp(x))
@@ -105,7 +105,7 @@ class FeedForward(nn.Module):
             nn.init.xavier_uniform_(lin.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+        return self.w2(silu(self.w1(x)) * self.w3(x))
 
 
 def precompute_rope(dim: int, end: int, theta: float = 10000.0,
@@ -192,15 +192,16 @@ class JointAttention(nn.Module):
         self.wo = nn.Linear(n_heads * hd, dim, bias=False)
         lins = [self.wq, self.wk, self.wv, self.wo]
         if qk_norm:
-            self.q_norm = nn.LayerNorm(n_heads * hd, eps=1e-6)
-            self.k_norm = nn.LayerNorm(nkv * hd, eps=1e-6)
+            self.q_norm = LayerNorm(n_heads * hd, eps=1e-6)
+            self.k_norm = LayerNorm(nkv * hd, eps=1e-6)
         else:
             self.q_norm = self.k_norm = None
         if y_dim > 0:
             self.wk_y = nn.Linear(y_dim, nkv * hd, bias=False)
             self.wv_y = nn.Linear(y_dim, nkv * hd, bias=False)
-            self.ky_norm = nn.LayerNorm(nkv * hd, eps=1e-6) if qk_norm else None
+            self.ky_norm = LayerNorm(nkv * hd, eps=1e-6) if qk_norm else None
             self.gate = nn.Parameter(torch.zeros(n_heads))
+            self.fp32_params = ("gate",)  # tanh(gate) in float32, as JAX keeps it
             lins += [self.wk_y, self.wv_y]
         for lin in lins:
             nn.init.xavier_uniform_(lin.weight)

@@ -73,6 +73,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from versband_tpu_torch.utils.checkpoint import load_npz_params
 from versband_tpu_torch.vocoder.conv import fold_weight_norm_jax
 
 Repl = Union[str, Callable[[re.Match], str]]
@@ -423,3 +424,39 @@ def export_clap_bert(sd: Dict[str, Any], out_dir: str, tokenizer_src: Optional[s
                       "vocab.txt there or caption tokenization will fall back to hashing",
                       stacklevel=2)
     return out_dir
+
+
+def convert_checkpoint(npz_path: str, out_pt: str, family: str, bert_out: Optional[str] = None,
+                       **kw) -> None:
+    """A JAX ``.npz`` param tree of ``family`` -> a ``torch.save`` state_dict
+    at ``out_pt`` that ``train/checkpoints.py::load_model_checkpoint`` loads;
+    ``bert_out``: also write the CLAP tree's BERT caption tower
+    (``caption_encoder/base``) as a Hugging Face directory."""
+    sd = state_dict_from_jax(load_npz_params(npz_path), family, **kw)
+    torch.save(sd, out_pt)
+    if bert_out:
+        export_clap_bert(sd, bert_out)
+        print(f"exported BERT caption tower -> {bert_out}")
+    print(f"converted {len(sd)} tensors -> {out_pt}")
+
+
+def main(argv=None) -> int:
+    """``python -m versband_tpu_torch.utils.convert <jax_npz> <out_pt> --family F
+    [--bert_out DIR]``."""
+    import argparse
+
+    p = argparse.ArgumentParser("jax->torch checkpoint converter")
+    p.add_argument("jax_npz")
+    p.add_argument("out_pt")
+    p.add_argument("--family", required=True, choices=sorted(FAMILIES))
+    p.add_argument("--bert_out", default=None,
+                   help="also export the CLAP BERT caption tower (family 'clap' only) as a "
+                        "Hugging Face model directory")
+    a = p.parse_args(argv)
+    convert_checkpoint(a.jax_npz, a.out_pt, a.family,
+                       bert_out=a.bert_out if a.family == "clap" else None)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -25,6 +25,11 @@ def load_samples_from_tsv(path: str) -> List[Dict[str, str]]:
         return [dict(row) for row in reader]
 
 
+def load_dict_from_tsv(path: str, key: str) -> Dict[str, Dict[str, str]]:
+    """The rows of ``path`` keyed by their ``key`` column (a later row wins)."""
+    return {row[key]: row for row in load_samples_from_tsv(path)}
+
+
 def _cell(v: Any) -> str:
     if v is None or (isinstance(v, float) and math.isnan(v)):
         return ""

@@ -21,9 +21,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from versband_tpu_torch.device import DeviceLike, resolve_device
+from versband_tpu_torch.nn.rounding import leaky_relu
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
 from versband_tpu_torch.vocoder.conv import (LRELU_SLOPE, apply_weight_norm,
                                              fold_torch_weight_norm, get_padding)
@@ -46,7 +46,7 @@ class ResBlock1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c1, c2 in zip(self.convs1, self.convs2):
-            x = x + c2(F.leaky_relu(c1(F.leaky_relu(x, LRELU_SLOPE)), LRELU_SLOPE))
+            x = x + c2(leaky_relu(c1(leaky_relu(x, LRELU_SLOPE)), LRELU_SLOPE))
         return x
 
 
@@ -59,7 +59,7 @@ class ResBlock2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c in self.convs:
-            x = x + c(F.leaky_relu(x, LRELU_SLOPE))
+            x = x + c(leaky_relu(x, LRELU_SLOPE))
         return x
 
 
@@ -95,7 +95,7 @@ class HifiGanGenerator(nn.Module):
                        source: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Stage ``i``: leaky ReLU, upsample, ``+ source`` (NSF's excitation,
         cut to x's length) and the mean of the stage's residual blocks."""
-        x = self.ups[i](F.leaky_relu(x, LRELU_SLOPE))
+        x = self.ups[i](leaky_relu(x, LRELU_SLOPE))
         if source is not None:
             x = x + source[..., : x.shape[-1]]
         K = self.num_kernels
@@ -108,7 +108,7 @@ class HifiGanGenerator(nn.Module):
         x = self.conv_pre(mel.to(self.conv_pre.bias.dtype))
         for i in range(len(self.ups)):
             x = self.upsample_stage(i, x)
-        return torch.tanh(self.conv_post(F.leaky_relu(x, 0.01)))[:, 0]
+        return torch.tanh(self.conv_post(leaky_relu(x, 0.01)))[:, 0]
 
 
 def linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:

@@ -202,6 +202,12 @@ class ParallelWaveGANGenerator(nn.Module):
             z = f(z)
         return z
 
+    @staticmethod
+    def receptive_field_size(layers: int = 30, stacks: int = 3, kernel_size: int = 3) -> int:
+        """Samples one output sample sees: (k - 1) * sum of the dilations + 1."""
+        per_stack = layers // stacks
+        return (kernel_size - 1) * sum(2 ** (i % per_stack) for i in range(layers)) + 1
+
 
 class ParallelWaveGAN:
     """Runtime wrapper serving ``vocode(mel)`` like ``HifiGAN`` and
