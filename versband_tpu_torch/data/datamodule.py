@@ -5,7 +5,9 @@ batches (port of ``versband_tpu/data/datamodule.py``).
 IO releases the GIL) while a pool of batch threads keeps ``prefetch`` batches
 in flight; the batch sampler is :class:`IndexBatchSampler` and the collate is
 the dataset's own ``collater``. Batches are numpy trees; the trainer moves
-them to the card.
+them to the card. While spans are on (``utils/profiling.py``) the loader
+counts the batches it yields (``data.loader.batches``) and those not ready
+when asked for (``data.loader.waited``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from versband_tpu_torch.data.sampler import IndexBatchSampler
 from versband_tpu_torch.utils.config import instantiate_from_config
+from versband_tpu_torch.utils.profiling import count
 
 
 class DataLoader:
@@ -66,6 +69,9 @@ class DataLoader:
                     pending.put(batch_pool.submit(fetch, next(it)))
                 except StopIteration:
                     pass
+                count("data.loader.batches")
+                if not fut.done():
+                    count("data.loader.waited")
                 yield fut.result()
 
 

@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 import numpy as np
 from scipy.signal import lfilter
 
+from versband_tpu_torch.utils.profiling import annotate
+
 
 def _k_weighting_coeffs(sr: float) -> Tuple[Tuple[np.ndarray, np.ndarray],
                                             Tuple[np.ndarray, np.ndarray]]:
@@ -78,12 +80,13 @@ def normalize_loudness(wav: np.ndarray, target_lufs: float = -23.0,
     """Scale ``wav`` to the target integrated loudness; optional gain cap
     (the preprocess pipeline caps at +/-20 dB, ``mel_spec_24k.py:42-43``) and
     peak clamp."""
-    loud = integrated_loudness(wav, sr)
-    gain_db = target_lufs - loud
-    if max_gain_db is not None:
-        gain_db = float(np.clip(gain_db, -max_gain_db, max_gain_db))
-    out = np.asarray(wav, np.float32) * (10 ** (gain_db / 20.0))
-    peak = np.abs(out).max() if out.size else 0.0
-    if peak_limit and peak > peak_limit:
-        out = out / peak * peak_limit
-    return out
+    with annotate("dsp.normalize_loudness"):
+        loud = integrated_loudness(wav, sr)
+        gain_db = target_lufs - loud
+        if max_gain_db is not None:
+            gain_db = float(np.clip(gain_db, -max_gain_db, max_gain_db))
+        out = np.asarray(wav, np.float32) * (10 ** (gain_db / 20.0))
+        peak = np.abs(out).max() if out.size else 0.0
+        if peak_limit and peak > peak_limit:
+            out = out / peak * peak_limit
+        return out

@@ -38,6 +38,7 @@ from versband_tpu_torch.models.schedules import (
     DiffusionSchedule, make_ddim_sampling_parameters, make_ddim_timesteps)
 from versband_tpu_torch.nn.rounding import cast_module
 from versband_tpu_torch.utils.config import instantiate_from_config
+from versband_tpu_torch.utils.profiling import annotate
 
 
 def _cond_to_context(cond: Dict[str, Any]) -> Dict[str, Any]:
@@ -114,22 +115,25 @@ def euler_cfg_sample(model: nn.Module, x0: torch.Tensor, cond: Dict[str, Any],
         ctx = _tree_concat(ctx, _cond_to_context(uncond))
     n = 2 * B if use_cfg else B
     if encode_once:
-        enc = model(torch.zeros((n,) + tuple(x0.shape[1:]), dtype=x0.dtype, device=x0.device),
-                    torch.zeros((n,), dtype=torch.float32, device=x0.device),
-                    {**ctx, "encode_only": True})
+        with annotate("models.cfm.dit_encode"):
+            enc = model(torch.zeros((n,) + tuple(x0.shape[1:]), dtype=x0.dtype,
+                                    device=x0.device),
+                        torch.zeros((n,), dtype=torch.float32, device=x0.device),
+                        {**ctx, "encode_only": True})
         ctx = {"c_encoded": enc}
     t_int, dt = euler_schedule(num_steps, t_start, num_timesteps)
     x = x0
     for i in range(len(dt)):
-        t_in = torch.full((n,), float(t_int[i]), dtype=torch.float32, device=x0.device)
-        if use_cfg:
-            v, _ = model(torch.cat([x, x], dim=0), t_in, ctx)
-            v_c, v_u = v.chunk(2, dim=0)
-            v = v_u + guidance_scale * (v_c - v_u)
-        else:
-            v, _ = model(x, t_in, ctx)
-        # fp32 step as in the JAX loop (its dt is a float32 array)
-        x = (x.float() + float(dt[i]) * v.float()).to(x0.dtype)
+        with annotate("models.cfm.euler_step"):
+            t_in = torch.full((n,), float(t_int[i]), dtype=torch.float32, device=x0.device)
+            if use_cfg:
+                v, _ = model(torch.cat([x, x], dim=0), t_in, ctx)
+                v_c, v_u = v.chunk(2, dim=0)
+                v = v_u + guidance_scale * (v_c - v_u)
+            else:
+                v, _ = model(x, t_in, ctx)
+            # fp32 step as in the JAX loop (its dt is a float32 array)
+            x = (x.float() + float(dt[i]) * v.float()).to(x0.dtype)
     return x
 
 
@@ -208,7 +212,8 @@ class LatentDiffusion:
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
-        return self.first_stage.decode(z / self.scale_factor)
+        with annotate("models.autoencoder.decode_first_stage"):
+            return self.first_stage.decode(z / self.scale_factor)
 
     @torch.no_grad()
     def compute_scale_factor(self, mel: torch.Tensor,

@@ -52,6 +52,7 @@ from versband_tpu_torch.text.bert import BertModel, load_bert
 from versband_tpu_torch.text.t5 import T5Encoder, load_t5_encoder
 from versband_tpu_torch.text.tokenizer import (HashTokenizer, UnigramTokenizer,
                                                WordPieceTokenizer)
+from versband_tpu_torch.utils.profiling import annotate
 
 
 def _local_exists(version: str) -> bool:
@@ -102,10 +103,11 @@ class _FrozenT5Tower(nn.Module):
         autograd (``no_grad``, not ``inference_mode``: a trainer feeds them
         to layers it differentiates). On the card the ids go from pinned
         memory, so a caller on another thread does not wait for queued work."""
-        ids = torch.from_numpy(np.asarray(self.tokenize(text), np.int64))
-        if self.device.type == "cuda":
-            return self.model(ids.pin_memory().to(self.device, non_blocking=True))
-        return self.model(ids.to(self.device))
+        with annotate("text.tower"):
+            ids = torch.from_numpy(np.asarray(self.tokenize(text), np.int64))
+            if self.device.type == "cuda":
+                return self.model(ids.pin_memory().to(self.device, non_blocking=True))
+            return self.model(ids.to(self.device))
 
 
 class FlanT5Embedder(nn.Module):

@@ -35,6 +35,7 @@ from versband_tpu_torch.parallel import mean_metrics
 from versband_tpu_torch.parallel.mesh import Mesh
 from versband_tpu_torch.parallel.sharding import shard_batch, shard_module_
 from versband_tpu_torch.train.state import TrainState
+from versband_tpu_torch.utils.profiling import annotate, tag
 
 
 def _decompress_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -61,34 +62,44 @@ def make_cfm_train_step(cfm: CFM, accumulate_grad_batches: int = 1
     T_lat]) and 'gumbel' (an iterator of the model's Gumbel draws); what it
     lacks is drawn from ``generator``. Metrics stay on the device: 'loss',
     'loss_simple', 'lb_loss' and 'grad_norm' (of this micro-step's gradient).
+    Its spans: ``train.step`` (tagged with ``state.step``) around
+    ``train.step.vae_encode``, ``.forward``, ``.backward`` and ``.optimizer``.
     """
     accum = max(1, int(accumulate_grad_batches))
 
     def step_fn(state: TrainState, batch: Dict[str, Any],
                 generator: Optional[torch.Generator] = None,
                 given: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
-        given = given or {}
-        batch = _decompress_batch(batch)
-        if "image" in batch:
-            x_start = cfm.encode_first_stage(batch["image"], generator,
-                                             noise=given.get("posterior"))
-        else:
-            x_start = batch["latent"]
-        cond = {"caption": batch["caption"],
-                "acoustic": {k: batch[k] for k in ("acoustic", "midi", "beats") if k in batch}}
-        t = given.get("t")
-        if t is None:
-            t = torch.randint(0, cfm.num_timesteps, (x_start.shape[0],), generator=generator,
-                              device=x_start.device)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = cfm.p_losses(x_start, cond, t, generator, step=state.step // accum,
-                                     noise=given.get("noise"), gumbel=given.get("gumbel"))
-        loss.backward()
-        state.reduce_gradients()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = state.grad_norm(state.grads())
-        state.apply_gradients()
-        return mean_metrics(metrics, state.data_group)
+        with tag(state.step), annotate("train.step"):
+            given = given or {}
+            batch = _decompress_batch(batch)
+            if "image" in batch:
+                with annotate("train.step.vae_encode"):
+                    x_start = cfm.encode_first_stage(batch["image"], generator,
+                                                     noise=given.get("posterior"))
+            else:
+                x_start = batch["latent"]
+            cond = {"caption": batch["caption"],
+                    "acoustic": {k: batch[k] for k in ("acoustic", "midi", "beats")
+                                 if k in batch}}
+            t = given.get("t")
+            if t is None:
+                t = torch.randint(0, cfm.num_timesteps, (x_start.shape[0],),
+                                  generator=generator, device=x_start.device)
+            state.optimizer.zero_grad(set_to_none=True)
+            with annotate("train.step.forward"):
+                loss, metrics = cfm.p_losses(x_start, cond, t, generator,
+                                             step=state.step // accum,
+                                             noise=given.get("noise"),
+                                             gumbel=given.get("gumbel"))
+            with annotate("train.step.backward"):
+                loss.backward()
+            with annotate("train.step.optimizer"):
+                state.reduce_gradients()
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                metrics["grad_norm"] = state.grad_norm(state.grads())
+                state.apply_gradients()
+            return mean_metrics(metrics, state.data_group)
 
     return step_fn
 

@@ -55,6 +55,13 @@ when the state is made, the ranks of one model row draw alike (their
 generator's seed is the data index's), and a checkpoint is whole: every rank
 gathers, rank 0 writes the file a one-process run writes. ``VAETrainer``
 keeps the data axis only, as JAX does.
+
+Both trainers' spans (``utils/profiling.py``): ``data.loader.next`` around
+each fetch of a batch, ``train.log_metrics``, ``train.callbacks`` around a
+callback dispatch; ``CFMTrainer`` adds ``train.assemble`` (a step's or a
+group's device batch, on the prefetch thread where there is one) and
+``train.prefetch.wait`` (waiting for it). The steps' own spans are in
+``train/step.py`` and ``train/vae_step.py``.
 """
 
 from __future__ import annotations
@@ -83,6 +90,7 @@ from versband_tpu_torch.train.step import (_decompress_batch, make_cfm_multi_ste
 from versband_tpu_torch.train.vae_step import (make_vae_eval_step, make_vae_train_step,
                                                vae_forward)
 from versband_tpu_torch.utils.config import instantiate_from_config
+from versband_tpu_torch.utils.profiling import annotate
 
 MIDI_PAD, BEATS_PAD = 128, 2
 VAL_SEED = 17  # validation batch i draws from a generator seeded VAL_SEED * 2**32 + i
@@ -173,16 +181,17 @@ class BaseTrainer:
     def log_metrics(self, metrics: Dict[str, Any], step: int, prefix: str = ""):
         """Write scalar metrics every ``log_every_n_steps`` (val/test always);
         device tensors are read only on the steps that log."""
-        eval_call = any(str(k).startswith(("val", "test")) for k in [prefix, *metrics])
-        if not self.is_main or (step % self.log_every_n_steps and not eval_call):
-            return
-        scal = {f"{prefix}{k}": float(v) for k, v in metrics.items() if np.ndim(v) == 0}
-        if self.writer is not None:
-            for k, v in scal.items():
-                self.writer.add_scalar(k, v, step)
-        if eval_call or step % (self.log_every_n_steps * 10) == 0:
-            print(f"[step {step}] " + ", ".join(f"{k}={v:.4f}" for k, v in
-                                                 list(scal.items())[:6]))
+        with annotate("train.log_metrics"):
+            eval_call = any(str(k).startswith(("val", "test")) for k in [prefix, *metrics])
+            if not self.is_main or (step % self.log_every_n_steps and not eval_call):
+                return
+            scal = {f"{prefix}{k}": float(v) for k, v in metrics.items() if np.ndim(v) == 0}
+            if self.writer is not None:
+                for k, v in scal.items():
+                    self.writer.add_scalar(k, v, step)
+            if eval_call or step % (self.log_every_n_steps * 10) == 0:
+                print(f"[step {step}] " + ", ".join(f"{k}={v:.4f}" for k, v in
+                                                     list(scal.items())[:6]))
 
     def save_checkpoint(self, name: str):
         raise NotImplementedError
@@ -204,8 +213,20 @@ class BaseTrainer:
         return {k: float(sums[j] / sums[-1]) for j, k in enumerate(values)}
 
     def _dispatch(self, fn_name: str, *args):
-        for cb in self.callbacks:
-            getattr(cb, fn_name)(self, *args)
+        with annotate("train.callbacks"):
+            for cb in self.callbacks:
+                getattr(cb, fn_name)(self, *args)
+
+    @staticmethod
+    def _batches(loader):
+        """The loader's batches, each fetch inside a ``data.loader.next`` span."""
+        it = iter(loader)
+        while True:
+            with annotate("data.loader.next"):
+                batch = next(it, None)
+            if batch is None:
+                return
+            yield batch
 
 
 class _Whole:
@@ -289,7 +310,7 @@ class VAETrainer(BaseTrainer):
         try:
             for epoch in range(self.max_epochs):
                 self._dispatch("on_epoch_start", epoch)
-                for batch in train_loader:
+                for batch in self._batches(train_loader):
                     batch = pad_batch_time(batch, self.time_bucket)
                     metrics = self.train_step(self.gen_state, self.disc_state,
                                               {"image": self._put(batch["image"])},
@@ -628,7 +649,7 @@ class CFMTrainer(BaseTrainer):
         try:
             for epoch in range(self.max_epochs):
                 self._dispatch("on_epoch_start", epoch)
-                for batch in train_loader:
+                for batch in self._batches(train_loader):
                     batch = self._pad(self._row_batch(batch))
                     if self.state is None:
                         self.init_state(batch)
@@ -688,13 +709,15 @@ class CFMTrainer(BaseTrainer):
         self._fed_steps += len(group)
         if len(group) == 1:
             def assemble():
-                return self._device_batch(group[0])
+                with annotate("train.assemble"):
+                    return self._device_batch(group[0])
 
             def dispatch(db):
                 self._dispatch_single(db, group[0])
         else:
             def assemble():
-                return self._assemble_group(group)
+                with annotate("train.assemble"):
+                    return self._assemble_group(group)
 
             def dispatch(db):
                 self._dispatch_group(db, group)
@@ -707,7 +730,9 @@ class CFMTrainer(BaseTrainer):
 
     def _dispatch_next(self):
         fut, dispatch = self._inflight.pop(0)
-        dispatch(fut.result())
+        with annotate("train.prefetch.wait"):
+            db = fut.result()
+        dispatch(db)
 
     def _drain(self):
         """Run every assembled step or group still waiting (global_step

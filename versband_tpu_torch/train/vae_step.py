@@ -41,6 +41,7 @@ from versband_tpu_torch.models.autoencoder import AutoencoderKL
 from versband_tpu_torch.parallel import average_, mean_metrics
 from versband_tpu_torch.train.gan_losses import VAEGANLoss, adaptive_d_weight, adopt_weight
 from versband_tpu_torch.train.state import TrainState
+from versband_tpu_torch.utils.profiling import annotate, tag
 
 
 def vae_forward(vae: AutoencoderKL, mel: torch.Tensor, generator: Optional[torch.Generator],
@@ -56,53 +57,58 @@ def vae_forward(vae: AutoencoderKL, mel: torch.Tensor, generator: Optional[torch
 def make_vae_train_step(vae: AutoencoderKL, loss: VAEGANLoss) -> Callable[..., Dict[str, Any]]:
     """Build ``step(gen_state, disc_state, batch, generator=None, given=None)
     -> metrics``; ``gen_state`` wraps ``vae``, ``disc_state`` wraps ``loss``.
-    Metrics stay on the device, but for ``disc_factor`` (a host float)."""
+    Metrics stay on the device, but for ``disc_factor`` (a host float). Its
+    spans: ``train.vae_step`` (tagged with ``gen_state.step``) around
+    ``train.vae_step.generator`` and ``train.vae_step.discriminator``."""
     last = vae.decoder.conv_out.weight
 
     def step(gen_state: TrainState, disc_state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              given: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
-        given = given or {}
-        mel = batch["image"]
-        disc_factor = adopt_weight(loss.disc_factor, gen_state.step, loss.disc_start)
+        with tag(gen_state.step), annotate("train.vae_step"):
+            given = given or {}
+            mel = batch["image"]
+            disc_factor = adopt_weight(loss.disc_factor, gen_state.step, loss.disc_start)
 
-        # generator update
-        recon, posterior = vae_forward(vae, mel, generator, given.get("posterior"))
-        stats = loss.nll_kl(mel, recon, posterior)
-        g = loss.g_loss(recon)
-        nll_grad, = torch.autograd.grad(stats["nll_loss"], last, retain_graph=True)
-        g_grad, = torch.autograd.grad(g, last, retain_graph=True)
-        average_([nll_grad, g_grad])
-        d_weight = adaptive_d_weight(torch.linalg.vector_norm(nll_grad),
-                                     torch.linalg.vector_norm(g_grad), loss.disc_weight)
-        aeloss = (stats["weighted_nll_loss"] + loss.kl_weight * stats["kl_loss"]
-                  + d_weight * disc_factor * g)
-        aeloss.backward(inputs=gen_state.params)  # no gradient reaches the discriminator
-        gen_state.reduce_gradients()
-        gen_state.apply_gradients()
+            # generator update
+            with annotate("train.vae_step.generator"):
+                recon, posterior = vae_forward(vae, mel, generator, given.get("posterior"))
+                stats = loss.nll_kl(mel, recon, posterior)
+                g = loss.g_loss(recon)
+                nll_grad, = torch.autograd.grad(stats["nll_loss"], last, retain_graph=True)
+                g_grad, = torch.autograd.grad(g, last, retain_graph=True)
+                average_([nll_grad, g_grad])
+                d_weight = adaptive_d_weight(torch.linalg.vector_norm(nll_grad),
+                                             torch.linalg.vector_norm(g_grad), loss.disc_weight)
+                aeloss = (stats["weighted_nll_loss"] + loss.kl_weight * stats["kl_loss"]
+                          + d_weight * disc_factor * g)
+                aeloss.backward(inputs=gen_state.params)  # no gradient reaches the discriminator
+                gen_state.reduce_gradients()
+                gen_state.apply_gradients()
 
-        # discriminator update, on the detached reconstruction
-        real = mel.detach().requires_grad_(True)
-        logits_fake = loss.disc_forward(recon.detach())
-        logits_real = loss.disc_forward(real)
-        r1_grad, = torch.autograd.grad(logits_real.sum(), real, create_graph=True)
-        r1 = r1_grad.square().mean()
-        discloss = (disc_factor * loss.d_loss(logits_real, logits_fake)
-                    + loss.r1_reg_weight * r1)
-        discloss.backward(inputs=disc_state.params)
-        disc_state.reduce_gradients()
-        disc_state.apply_gradients()
+            # discriminator update, on the detached reconstruction
+            with annotate("train.vae_step.discriminator"):
+                real = mel.detach().requires_grad_(True)
+                logits_fake = loss.disc_forward(recon.detach())
+                logits_real = loss.disc_forward(real)
+                r1_grad, = torch.autograd.grad(logits_real.sum(), real, create_graph=True)
+                r1 = r1_grad.square().mean()
+                discloss = (disc_factor * loss.d_loss(logits_real, logits_fake)
+                            + loss.r1_reg_weight * r1)
+                discloss.backward(inputs=disc_state.params)
+                disc_state.reduce_gradients()
+                disc_state.apply_gradients()
 
-        metrics = {"aeloss": aeloss.detach(), "discloss": discloss.detach(),
-                   "rec_loss": stats["rec_loss"].detach(),
-                   "nll_loss": stats["nll_loss"].detach(),
-                   "kl_loss": stats["kl_loss"].detach(), "g_loss": g.detach(),
-                   "d_weight": d_weight, "disc_factor": disc_factor,
-                   "disc_loss": discloss.detach(), "r1_penalty": r1.detach(),
-                   "logits_real": logits_real.detach().mean(),
-                   "logits_fake": logits_fake.detach().mean()}
-        means = mean_metrics({k: v for k, v in metrics.items() if torch.is_tensor(v)})
-        return {k: means.get(k, v) for k, v in metrics.items()}
+            metrics = {"aeloss": aeloss.detach(), "discloss": discloss.detach(),
+                       "rec_loss": stats["rec_loss"].detach(),
+                       "nll_loss": stats["nll_loss"].detach(),
+                       "kl_loss": stats["kl_loss"].detach(), "g_loss": g.detach(),
+                       "d_weight": d_weight, "disc_factor": disc_factor,
+                       "disc_loss": discloss.detach(), "r1_penalty": r1.detach(),
+                       "logits_real": logits_real.detach().mean(),
+                       "logits_fake": logits_fake.detach().mean()}
+            means = mean_metrics({k: v for k, v in metrics.items() if torch.is_tensor(v)})
+            return {k: means.get(k, v) for k, v in metrics.items()}
 
     return step
 

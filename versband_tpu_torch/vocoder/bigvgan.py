@@ -38,6 +38,7 @@ from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.ops.fused_act1d import (downsample1d, fused_alias_free_snake,
                                                 kaiser_sinc_filter1d, snake, upsample1d)
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
+from versband_tpu_torch.utils.profiling import annotate
 from versband_tpu_torch.vocoder.conv import apply_weight_norm
 from versband_tpu_torch.vocoder.hifigan import _conv, load_generator_state_dict
 
@@ -241,7 +242,8 @@ class VocoderBigVGAN:
     def waveform(self, mel: torch.Tensor) -> torch.Tensor:
         """mel ``[B, num_mels, T]`` on the wrapper's device -> ``[B, T*hop]``
         there, queued without waiting."""
-        return self.model(mel)
+        with annotate("vocoder.waveform"):
+            return self.model(mel)
 
     def vocode(self, spec) -> np.ndarray:
         spec = torch.as_tensor(np.asarray(spec) if not torch.is_tensor(spec) else spec)

@@ -25,6 +25,7 @@ import torch.nn as nn
 from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.nn.rounding import leaky_relu
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
+from versband_tpu_torch.utils.profiling import annotate
 from versband_tpu_torch.vocoder.conv import (LRELU_SLOPE, apply_weight_norm,
                                              fold_torch_weight_norm, get_padding)
 
@@ -234,7 +235,8 @@ class HifiGAN:
     def waveform(self, mel: torch.Tensor) -> torch.Tensor:
         """mel ``[B, in_channels, T]`` on the wrapper's device -> ``[B, T*hop]``
         there, queued without waiting."""
-        return self.model(mel)
+        with annotate("vocoder.waveform"):
+            return self.model(mel)
 
     def spec2wav(self, mel) -> np.ndarray:
         mel = torch.as_tensor(np.asarray(mel) if not torch.is_tensor(mel) else mel)

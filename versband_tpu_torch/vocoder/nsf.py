@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.dsp.mel import mel_filterbank
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
+from versband_tpu_torch.utils.profiling import annotate
 from versband_tpu_torch.vocoder.hifigan import HifiGanGenerator, load_generator_state_dict
 
 
@@ -203,13 +204,14 @@ class HifiGAN_NSF:
         """mel ``[B, 80, T]`` on the wrapper's device -> ``[B, T*hop]`` there.
         Without ``f0`` (and with ``use_nsf``) it is estimated from each mel
         on the host."""
-        if f0 is None and self.use_nsf:
-            f0 = torch.from_numpy(np.stack([estimate_f0_from_mel(m, self.sr)
-                                            for m in mel.float().cpu().numpy()]))
-        if f0 is not None:
-            f0 = torch.as_tensor(f0, dtype=torch.float32).reshape(mel.shape[0], -1)
-            f0 = f0.to(self.device)
-        return self.model(mel.to(self.dtype), f0, generator=self.generator)
+        with annotate("vocoder.waveform"):
+            if f0 is None and self.use_nsf:
+                f0 = torch.from_numpy(np.stack([estimate_f0_from_mel(m, self.sr)
+                                                for m in mel.float().cpu().numpy()]))
+            if f0 is not None:
+                f0 = torch.as_tensor(f0, dtype=torch.float32).reshape(mel.shape[0], -1)
+                f0 = f0.to(self.device)
+            return self.model(mel.to(self.dtype), f0, generator=self.generator)
 
     def spec2wav(self, mel, f0=None, denoise_v: float = 0.0) -> np.ndarray:
         mel = torch.as_tensor(np.asarray(mel) if not torch.is_tensor(mel) else mel)

@@ -46,6 +46,7 @@ from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.dsp.mel import reflect_pad
 from versband_tpu_torch.ops.fused_wavenet import PackCache, fused_wavenet_layer
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
+from versband_tpu_torch.utils.profiling import annotate
 from versband_tpu_torch.vocoder.conv import apply_weight_norm
 from versband_tpu_torch.vocoder.hifigan import load_generator_state_dict
 
@@ -250,11 +251,12 @@ class ParallelWaveGAN:
     def waveform(self, mel: torch.Tensor) -> torch.Tensor:
         """mel ``[B, aux, T']`` on the wrapper's device -> ``[B, T' * hop]``
         there, queued without waiting; draws the noise."""
-        w = self.model.aux_context_window
-        mel = F.pad(mel.to(self.dtype), (w, w), mode="replicate")
-        noise = torch.randn((mel.shape[0], 1, (mel.shape[-1] - 2 * w) * self.hop),
-                            generator=self.generator, device=self.device, dtype=self.dtype)
-        return self.model(noise, mel)[:, 0]
+        with annotate("vocoder.waveform"):
+            w = self.model.aux_context_window
+            mel = F.pad(mel.to(self.dtype), (w, w), mode="replicate")
+            noise = torch.randn((mel.shape[0], 1, (mel.shape[-1] - 2 * w) * self.hop),
+                                generator=self.generator, device=self.device, dtype=self.dtype)
+            return self.model(noise, mel)[:, 0]
 
     def spec2wav(self, mel) -> np.ndarray:
         mel = torch.as_tensor(np.asarray(mel) if not torch.is_tensor(mel) else mel)
