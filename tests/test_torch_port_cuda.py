@@ -61,6 +61,13 @@ Time/Freq-MoE DiT (head dim 32, 4 + 4 experts): two CFM steps at (1 data,
 and gradient norm within 1e-4 relative, the gathered weights within 1e-2 x
 LR (fp32, TF32 off), each rank holding 2 of 4 heads and 2 of 4 frequency
 experts a block and every time expert.
+
+The served sampler through CUDA graphs (``CFMSampler``, the shipped DiT in
+bf16, 20 s clips, CFG 2.0, 25 timesteps, B 1 and B 4): the eager, capturing
+and replaying calls each equal the eager loop bit for bit (the graph runs
+the same kernels on the same inputs) and add (25 - 1) x depth = 96 K1
+launches; a z kept by the caller survives the next replay; a weight changed
+in place shows in the next replay, and new storage drops the graphs.
 """
 
 import math
@@ -1123,3 +1130,131 @@ def test_timefreq_model_axis_on_one_card_matches_the_cpu(cuda, tp_timefreq_ranks
         assert local["layers.0.attention.wq.weight"] == (64, 128)
         assert {int(k.split(".")[4]) for k in local if ".freq_experts." in k} == {2 * m, 2 * m + 1}
         assert {int(k.split(".")[4]) for k in local if ".time_experts." in k} == {0, 1, 2, 3}
+
+
+def _served_cfm(cuda):
+    """The served DiT (``configs/vocal2music.yaml``'s widths, bf16, zero-init
+    layers drawn) on the card, without a VAE or caption tower."""
+    import chip_smoke
+    from versband_tpu_torch.models.cfm import CFM
+
+    torch.manual_seed(0)
+    cfm = CFM(unet_config=dict(target="versband_tpu.models.dit.BandMoeDiT",
+                               params=chip_smoke.DIT),
+              mel_dim=20, device=cuda, dtype=torch.bfloat16)
+    chip_smoke.perturb_zero_init(cfm.model, 0)
+    return cfm
+
+
+def _served_request(cuda, i, B):
+    """A 20 s request's cond, uncond and float32 start noise (T_mel 1504)."""
+    g = torch.Generator(device=cuda).manual_seed(100 + i)
+    cond = {"caption": torch.randn(B, 80, 1024, generator=g, device=cuda).to(torch.bfloat16),
+            "acoustic": {"midi": torch.randint(0, 128, (B, 1, 1504), generator=g, device=cuda),
+                         "beats": torch.randint(0, 2, (B, 1, 1504), generator=g, device=cuda)}}
+    uncond = {"caption": torch.zeros(B, 80, 1024, device=cuda, dtype=torch.bfloat16),
+              "acoustic": {"midi": torch.full((B, 1, 1504), 128, device=cuda),
+                           "beats": torch.full((B, 1, 1504), 2, device=cuda)}}
+    return cond, uncond, torch.randn(B, 20, 752, generator=g, device=cuda)
+
+
+def _eager_z(cfm, req):
+    from versband_tpu_torch.models.cfm import euler_cfg_sample
+
+    cond, uncond, x0 = req
+    return euler_cfg_sample(cfm.model, x0, cond, uncond, 2.0, num_steps=25, encode_once=True)
+
+
+def _served_calls(sampler, reqs, B):
+    """Each request through ``sampler``: its z, the K1 launches it added and
+    the graph counters of the calls."""
+    from versband_tpu_torch.utils import profiling
+
+    out = []
+    profiling.spans_on()
+    try:
+        for cond, uncond, x0 in reqs:
+            n = fa.LAUNCHES
+            z = sampler.sample_cfg(cond, 2.0, uncond, batch_size=B, x_latent=x0)
+            torch.cuda.synchronize()
+            out.append((z, fa.LAUNCHES - n))
+    finally:
+        profiling.spans_off()
+    return out, profiling.drain()[1]
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_served_sample_replays_its_graph_bit_for_bit(cuda, B):
+    """The served sampler at B 1 and B 4 (bf16, CFG 2.0, 25 timesteps):
+    the first request runs eagerly, the second captures, the third and fourth
+    replay; each z equals the eager loop's bit for bit and adds exactly
+    (25 - 1) x depth K1 launches."""
+    from versband_tpu_torch.models.cfm import CFMSampler
+
+    cfm = _served_cfm(cuda)
+    reqs = [_served_request(cuda, i, B) for i in range(4)]
+    want = [_eager_z(cfm, r) for r in reqs]
+    calls, counts = _served_calls(CFMSampler(cfm, 25), reqs, B)
+    assert counts == {"models.cfm.graph.eager": 1, "models.cfm.graph.captures": 1,
+                      "models.cfm.graph.replays": 2}
+    for (z, k1), ref in zip(calls, want):
+        assert k1 == 24 * cfm.model.depth
+        assert torch.equal(z, ref)
+    assert not torch.equal(want[2], want[3])
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_pipelined_requests_keep_their_z_after_the_next_replay(cuda, B):
+    """Four requests through ``PipelinedGenerator`` at depth 2: each returned
+    z, kept by the caller while later requests replay the same graph, still
+    equals its eager value at the end, as does what the pipeline collected."""
+    from versband_tpu_torch.models.cfm import CFMSampler
+    from versband_tpu_torch.sample.pipeline import PipelinedGenerator
+
+    cfm = _served_cfm(cuda)
+    reqs = [_served_request(cuda, i, B) for i in range(4)]
+    want = [_eager_z(cfm, r) for r in reqs]
+    sampler, kept = CFMSampler(cfm, 25), []
+
+    def sample(req, _generator):
+        cond, uncond, x0 = req
+        kept.append(sampler.sample_cfg(cond, 2.0, uncond, batch_size=B, x_latent=x0))
+        return kept[-1]
+
+    collected = list(PipelinedGenerator(sample, lambda z: z, depth=2).generate(
+        (r, None) for r in reqs))
+    torch.cuda.synchronize()
+    assert len(sampler.graphs.graphs) == 1
+    for z, host, ref in zip(kept, collected, want, strict=True):
+        assert torch.equal(z, ref)
+        assert np.array_equal(host, ref.float().cpu().numpy())
+
+
+def test_a_replay_sees_weights_changed_in_place_and_new_storage_drops_the_graphs(cuda):
+    """A weight changed in place (as ``load_state_dict`` and the benchmark's
+    fill do) shows in the next replay; a parameter given new storage drops the
+    graphs, so the next call runs eagerly on the new weights."""
+    from versband_tpu_torch.models.cfm import CFMSampler
+
+    cfm = _served_cfm(cuda)
+    sampler, req = CFMSampler(cfm, 25), _served_request(cuda, 0, 1)
+    before = _eager_z(cfm, req)
+    calls, counts = _served_calls(sampler, [req] * 3, 1)
+    assert all(torch.equal(z, before) for z, _ in calls)
+    assert counts["models.cfm.graph.replays"] == 1
+    w = cfm.model.layers[1].feed_forward.freq_experts[0].w2.weight
+    with torch.no_grad():
+        w.mul_(1.5)
+        cfm.model.final_layer.linear.bias.add_(0.05)
+    after = _eager_z(cfm, req)
+    assert not torch.equal(after, before)
+    calls, counts = _served_calls(sampler, [req], 1)
+    assert counts == {"models.cfm.graph.replays": 1} and torch.equal(calls[0][0], after)
+    with torch.no_grad():
+        w.data = w.data * 0.5  # new storage
+    fresh = _eager_z(cfm, req)
+    calls, counts = _served_calls(sampler, [req] * 3, 1)
+    assert counts == {"models.cfm.graph.eager": 1, "models.cfm.graph.captures": 1,
+                      "models.cfm.graph.replays": 1}
+    assert all(torch.equal(z, fresh) for z, _ in calls)
+    assert all(k1 == 24 * cfm.model.depth for _, k1 in calls)

@@ -8,6 +8,14 @@ it waits for the card, so a caller can queue several requests. The schedule
 (floored timesteps and step sizes) is computed in float32 exactly as
 ``jnp.linspace`` and the JAX loop compute it.
 
+Serving (:class:`CFMSampler`) on a card replays each request's sample from a
+CUDA graph: the Band-MoE DiT's dense eval forward reads nothing back to the
+host and a request's shapes are static, so the conditioning encode and the
+Euler steps are captured once per input signature (:func:`graph_key`) and
+launched as one graph thereafter. :class:`GraphSlots` decides which call
+runs eagerly, captures or replays; every other model or device runs the
+eager loop.
+
 Training: the OT flow-matching loss (:func:`cfm_p_losses`) plus the MoE
 load-balance loss, ``t`` drawn as randint(0, 1000), latents from the frozen
 VAE's posterior sample scaled by ``scale_factor`` (``scale_by_std``: 1/std of
@@ -25,7 +33,8 @@ runs the same tower on each step's captions (``train/trainer.py``).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from collections import OrderedDict
+from typing import Any, Dict, Hashable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +46,9 @@ from versband_tpu_torch.models.dit import BandMoeDiT, GumbelSource
 from versband_tpu_torch.models.schedules import (
     DiffusionSchedule, make_ddim_sampling_parameters, make_ddim_timesteps)
 from versband_tpu_torch.nn.rounding import cast_module
+from versband_tpu_torch.ops import flash_attention as fa
 from versband_tpu_torch.utils.config import instantiate_from_config
-from versband_tpu_torch.utils.profiling import annotate
+from versband_tpu_torch.utils.profiling import annotate, count
 
 
 def _cond_to_context(cond: Dict[str, Any]) -> Dict[str, Any]:
@@ -296,6 +306,19 @@ class CFM(LatentDiffusion):
                                 dtype=x0.dtype)
         return torch.sqrt(a) * x0 + torch.sqrt(1.0 - a) * noise
 
+    def start_latent(self, cond: Dict[str, Any], generator: Optional[torch.Generator] = None,
+                     batch_size: Optional[int] = None, shape: Optional[Tuple[int, ...]] = None,
+                     x_latent: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x_latent``, or float32 normal noise from ``generator``; the latent
+        length derives from the acoustic cond unless ``shape`` is given."""
+        if x_latent is not None:
+            return x_latent
+        if shape is None:
+            ac = cond["acoustic"]
+            ref = next(ac[k] for k in ("acoustic", "midi", "beats") if ac.get(k) is not None)
+            shape = (batch_size or ref.shape[0], self.mel_dim, self.latent_length(ref.shape[2]))
+        return torch.randn(shape, generator=generator, device=self.device, dtype=torch.float32)
+
     def sample_cfg(self, cond: Dict[str, Any], guidance_scale: float,
                    uncond: Optional[Dict[str, Any]] = None,
                    generator: Optional[torch.Generator] = None,
@@ -305,12 +328,7 @@ class CFM(LatentDiffusion):
         """Latent length derives from the acoustic cond; start noise is float32
         normal from ``generator`` unless ``x_latent`` is given."""
         steps = 25 if timesteps is None else timesteps
-        if shape is None:
-            ac = cond["acoustic"]
-            ref = next(ac[k] for k in ("acoustic", "midi", "beats") if ac.get(k) is not None)
-            shape = (batch_size or ref.shape[0], self.mel_dim, self.latent_length(ref.shape[2]))
-        x0 = x_latent if x_latent is not None else torch.randn(
-            shape, generator=generator, device=self.device, dtype=torch.float32)
+        x0 = self.start_latent(cond, generator, batch_size, shape, x_latent)
         return euler_cfg_sample(self.model, x0, cond, uncond, guidance_scale,
                                 num_steps=steps, t_start=t_start,
                                 num_timesteps=self.num_timesteps,
@@ -321,15 +339,168 @@ class CFM(LatentDiffusion):
         return self.sample_cfg(cond, 1.0, None, generator, **kw)
 
 
+GRAPH_SLOTS = 4  # CUDA graphs a sampler keeps (distinct request signatures)
+_GRAPH_COUNTERS = {"eager": "models.cfm.graph.eager", "capture": "models.cfm.graph.captures",
+                   "replay": "models.cfm.graph.replays"}
+Named = List[Tuple[Tuple[str, ...], torch.Tensor]]
+
+
+def _cond_tensors(which: str, cond: Dict[str, Any]) -> Named:
+    """The tensors ``_cond_to_context`` takes from a cond dict, named by path."""
+    ctx = _cond_to_context(cond)
+    return ([((which, "caption"), ctx["c_crossattn"])]
+            + [((which, "acoustic", k), v) for k, v in ctx["c_concat"].items()])
+
+
+def _cond_tree(which: str, named: Dict[Tuple[str, ...], torch.Tensor]) -> Dict[str, Any]:
+    """The cond dict ``which`` back from its named tensors."""
+    return {"caption": named[(which, "caption")],
+            "acoustic": {n[2]: t for n, t in named.items() if n[:2] == (which, "acoustic")}}
+
+
+def graph_inputs(x0: torch.Tensor, cond: Dict[str, Any], uncond: Optional[Dict[str, Any]],
+                 use_cfg: bool) -> Named:
+    """Every tensor a sample reads, named: the start latent, the cond's and,
+    under CFG, the uncond's."""
+    out = [(("x0",), x0)] + _cond_tensors("cond", cond)
+    return out + _cond_tensors("uncond", uncond) if use_cfg else out
+
+
+def graph_key(inputs: Named, use_cfg: bool, guidance_scale: float,
+              num_steps: int, t_start: int, num_timesteps: int) -> Hashable:
+    """What fixes a sample's captured work: each input's name, shape, dtype and
+    device, CFG and its scale, the schedule, and the float32 matmul and cuDNN
+    precision in force."""
+    return (tuple((name, tuple(t.shape), t.dtype, t.device) for name, t in inputs),
+            use_cfg, float(guidance_scale), num_steps, t_start, num_timesteps,
+            torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+
+
+def takes_graph(model: nn.Module, device: torch.device) -> bool:
+    """A backbone on ``device`` samples through a CUDA graph: a Band-MoE DiT on
+    its dense eval path (the routed one reads expert counts on the host), on
+    a CUDA device."""
+    return (device.type == "cuda" and isinstance(model, BandMoeDiT)
+            and not any(block.feed_forward.eval_routed for block in model.layers))
+
+
+class GraphSlots:
+    """Which sampler call runs eagerly, captures or replays.
+
+    The first call with a key runs eagerly (it is also the warm-up that a
+    capture needs: lazy library set-up, K1's shared-memory attribute, the
+    RoPE tables); the second captures; later ones replay. At most ``size``
+    graphs are kept, and ``size`` keys seen once, the least recently used
+    dropped first."""
+
+    def __init__(self, size: int = GRAPH_SLOTS):
+        self.size = size
+        self.seen: "OrderedDict[Hashable, None]" = OrderedDict()
+        self.graphs: "OrderedDict[Hashable, Any]" = OrderedDict()
+
+    def decide(self, key: Hashable) -> str:
+        """``"replay"``, ``"capture"`` or ``"eager"`` for a call with ``key``."""
+        if key in self.graphs:
+            self.graphs.move_to_end(key)
+            return "replay"
+        if key in self.seen:
+            del self.seen[key]
+            return "capture"
+        self.seen[key] = None
+        if len(self.seen) > self.size:
+            self.seen.popitem(last=False)
+        return "eager"
+
+    def put(self, key: Hashable, graph: Any) -> None:
+        self.graphs[key] = graph
+        if len(self.graphs) > self.size:
+            self.graphs.popitem(last=False)
+
+    def clear(self) -> None:
+        self.graphs.clear()
+
+
+class _Graph:
+    """A captured sample: the graph, its static inputs and output, and the K1
+    launches it holds."""
+
+    __slots__ = ("graph", "inputs", "out", "k1")
+
+    def __init__(self, graph, inputs: List[torch.Tensor], out: torch.Tensor, k1: int):
+        self.graph, self.inputs, self.out, self.k1 = graph, inputs, out, k1
+
+    def replay(self, inputs: List[torch.Tensor]) -> torch.Tensor:
+        """Copy ``inputs`` in, launch, and return a copy of the output (the next
+        replay overwrites the static one), all on the caller's stream."""
+        for static, t in zip(self.inputs, inputs):
+            static.copy_(t)
+        self.graph.replay()
+        fa.LAUNCHES += self.k1  # the K1 kernels the graph ran
+        return self.out.clone()
+
+
 class CFMSampler:
-    """Standalone inference sampler with a fixed step count."""
+    """Standalone inference sampler with a fixed step count.
+
+    On a card, a Band-MoE DiT on its dense eval path samples through CUDA
+    graphs (:func:`takes_graph`, :class:`GraphSlots`), sharing one memory
+    pool: the first request of a signature runs eagerly, the second captures,
+    later ones replay with their inputs copied into the graph's. A weight
+    changed in place shows in the next replay; if a parameter's storage is
+    replaced, the graphs are dropped. Elsewhere it runs
+    :func:`euler_cfg_sample` as is."""
 
     def __init__(self, model: CFM, num_timesteps: int = 25):
         self.model = model
         self.num_timesteps = num_timesteps
+        self.graphs = GraphSlots()
+        self._pool = None
+        self._storage: Tuple[int, ...] = ()
 
     def sample_cfg(self, cond, guidance_scale, uncond=None, generator=None,
                    batch_size=None, shape=None, x_latent=None, t_start: int = 0):
-        return self.model.sample_cfg(cond, guidance_scale, uncond, generator,
-                                     batch_size=batch_size, timesteps=self.num_timesteps,
-                                     shape=shape, x_latent=x_latent, t_start=t_start)
+        cfm = self.model
+        x0 = cfm.start_latent(cond, generator, batch_size, shape, x_latent)
+        if not takes_graph(cfm.model, next(cfm.model.parameters()).device):
+            return self._eager(x0, cond, uncond, guidance_scale, t_start)
+        use_cfg = uncond is not None and guidance_scale != 1.0
+        inputs = graph_inputs(x0, cond, uncond, use_cfg)
+        key = graph_key(inputs, use_cfg, guidance_scale, self.num_timesteps, t_start,
+                        cfm.num_timesteps)
+        storage = tuple(p.data_ptr() for p in cfm.model.parameters())
+        if storage != self._storage:  # the graphs read the replaced storage
+            self.graphs.clear()
+            self._storage = storage
+        action = self.graphs.decide(key)
+        count(_GRAPH_COUNTERS[action])
+        if action == "eager":
+            return self._eager(x0, cond, uncond, guidance_scale, t_start)
+        tensors = [t for _, t in inputs]
+        if action == "replay":
+            with annotate("models.cfm.graph_replay"):
+                return self.graphs.graphs[key].replay(tensors)
+        with annotate("models.cfm.graph_capture"):
+            graph = self._capture(inputs, use_cfg, guidance_scale, t_start)
+            self.graphs.put(key, graph)
+            return graph.replay(tensors)
+
+    def _eager(self, x0, cond, uncond, guidance_scale, t_start: int) -> torch.Tensor:
+        return self.model.sample_cfg(cond, guidance_scale, uncond, timesteps=self.num_timesteps,
+                                     x_latent=x0, t_start=t_start)
+
+    def _capture(self, inputs: Named, use_cfg: bool,
+                 guidance_scale: float, t_start: int) -> _Graph:
+        """Capture one sample over static copies of ``inputs``. Nothing runs
+        while capturing, so the K1 launches counted then are taken back and
+        counted again at each replay."""
+        static = {name: t.clone(memory_format=torch.contiguous_format) for name, t in inputs}
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        k1 = fa.LAUNCHES
+        with torch.cuda.graph(graph, pool=self._pool):
+            out = self._eager(static[("x0",)], _cond_tree("cond", static),
+                              _cond_tree("uncond", static) if use_cfg else None,
+                              guidance_scale, t_start)
+        k1, fa.LAUNCHES = fa.LAUNCHES - k1, k1
+        return _Graph(graph, list(static.values()), out, k1)
