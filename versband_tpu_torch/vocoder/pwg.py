@@ -11,7 +11,11 @@ through the layers; otherwise the dense layers run as the reference's.
 (``weight_v``, ``weight_g``) in the JAX package's convention,
 ``vocoder/conv.py``; the upsampler's stencils stay plain, as in JAX), which
 ``train/vocoder_step.py`` trains unfused; ``use_pitch_embed`` adds the
-pitch embedding (``Embed(300)``, concatenated, ``c_proj``).
+pitch embedding (``Embed(300)``, concatenated, ``c_proj``). While the
+program's spans are on (``utils/profiling.py``) the generator's forward
+records ``vocoder.pwg.upsample`` (pitch embedding and mel upsampler),
+``vocoder.pwg.wavenet`` (the skip accumulator and the residual layers) and
+the counter ``vocoder.pwg.samples`` (B x T a call).
 
 Parameter names are the reference's: ``first_conv``;
 ``upsample_net.conv_in``; ``upsample_net.upsample.up_layers.{2j+1}`` (the
@@ -46,7 +50,7 @@ from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.dsp.mel import reflect_pad
 from versband_tpu_torch.ops.fused_wavenet import PackCache, fused_wavenet_layer
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
-from versband_tpu_torch.utils.profiling import annotate
+from versband_tpu_torch.utils.profiling import annotate, count
 from versband_tpu_torch.vocoder.conv import apply_weight_norm
 from versband_tpu_torch.vocoder.hifigan import load_generator_state_dict
 
@@ -177,27 +181,31 @@ class ParallelWaveGANGenerator(nn.Module):
         x = x.to(dtype)
         if c is not None:
             c = c.to(dtype)
-            if self.use_pitch_embed and pitch is not None:  # pitch [B, T'] ids < 300
-                c = self.c_proj(torch.cat([c.transpose(1, 2), self.pitch_embed(pitch.long())],
-                                          dim=-1)).transpose(1, 2)
-            if self.upsample_net is not None:
-                c = self.upsample_net(c)
+            with annotate("vocoder.pwg.upsample"):
+                if self.use_pitch_embed and pitch is not None:  # pitch [B, T'] ids < 300
+                    c = self.c_proj(torch.cat([c.transpose(1, 2),
+                                               self.pitch_embed(pitch.long())],
+                                              dim=-1)).transpose(1, 2)
+                if self.upsample_net is not None:
+                    c = self.upsample_net(c)
             if c.shape[-1] != x.shape[-1]:
                 raise ValueError(f"aux length {c.shape[-1]} != noise length {x.shape[-1]}")
         h = self.first_conv(x)
+        count("vocoder.pwg.samples", x.shape[0] * x.shape[-1])
         fused = self.fused_inference and c is not None and self.kernel_size == 3
-        if fused:  # fp32 skip accumulator threaded through K5
-            skips = torch.zeros(h.shape[0], self.skip_channels, h.shape[-1],
-                                dtype=torch.float32, device=h.device)
-            c = c.contiguous()
-            for layer in self.conv_layers:
-                h, skips = layer(h, c, skip=skips)
-            skips = skips.to(dtype)
-        else:
-            skips = 0.0
-            for layer in self.conv_layers:
-                h, s = layer(h, c)
-                skips = skips + s
+        with annotate("vocoder.pwg.wavenet"):
+            if fused:  # fp32 skip accumulator threaded through K5
+                skips = torch.zeros(h.shape[0], self.skip_channels, h.shape[-1],
+                                    dtype=torch.float32, device=h.device)
+                c = c.contiguous()
+                for layer in self.conv_layers:
+                    h, skips = layer(h, c, skip=skips)
+                skips = skips.to(dtype)
+            else:
+                skips = 0.0
+                for layer in self.conv_layers:
+                    h, s = layer(h, c)
+                    skips = skips + s
         z = skips * math.sqrt(1.0 / self.layers)
         for f in self.last_conv_layers:
             z = f(z)
