@@ -68,6 +68,10 @@ and replaying calls each equal the eager loop bit for bit (the graph runs
 the same kernels on the same inputs) and add (25 - 1) x depth = 96 K1
 launches; a z kept by the caller survives the next replay; a weight changed
 in place shows in the next replay, and new storage drops the graphs.
+
+``PipelinedGenerator``'s collect on the card: request i comes back from its
+own pinned copy while request i+1 still runs, bit-equal to
+``.float().cpu().numpy()``.
 """
 
 import math
@@ -1228,6 +1232,57 @@ def test_pipelined_requests_keep_their_z_after_the_next_replay(cuda, B):
     for z, host, ref in zip(kept, collected, want, strict=True):
         assert torch.equal(z, ref)
         assert np.array_equal(host, ref.float().cpu().numpy())
+
+
+SLEEP_CYCLES = 400_000_000  # ~200 ms of ``torch.cuda._sleep`` at the H100's ~2 GHz
+
+
+def test_pipelined_collect_waits_for_its_own_request_only(cuda):
+    """Three bf16 requests through ``PipelinedGenerator`` at depth 2, the
+    stage of each request after the first holding the stream ~200 ms
+    (``torch.cuda._sleep``) before an event and its output: request i comes
+    back while request i+1's event is still pending, each array equals
+    ``.float().cpu().numpy()`` bit for bit, also once the later requests are
+    collected, and every collect came from a pinned copy."""
+    from versband_tpu_torch.sample.pipeline import PipelinedGenerator
+    from versband_tpu_torch.utils import profiling
+
+    n = 3
+    refs = [torch.randn(4, 48_000, generator=torch.Generator().manual_seed(i)).to(
+        cuda, torch.bfloat16) for i in range(n)]
+    want = [r.float().cpu().numpy() for r in refs]
+    slept = []
+
+    def stage(i, _generator):
+        if i > 0:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        slept.append(torch.cuda.Event())
+        slept[-1].record()
+        return refs[i].clone()
+
+    # the caching host allocator holds a pinned block for each request, as a
+    # server's warm-up leaves it
+    warm = [torch.empty(refs[0].shape, dtype=torch.float32, pin_memory=True) for _ in range(n)]
+    del warm
+    torch.cuda.synchronize()
+    got = []
+    profiling.spans_on()
+    try:
+        for i, out in enumerate(PipelinedGenerator(stage, lambda z: z, depth=2).generate(
+                (i, None) for i in range(n))):
+            if i + 1 < n:
+                assert not slept[i + 1].query(), f"request {i} waited for request {i + 1}"
+            assert np.array_equal(out, want[i])
+            got.append(out)
+    finally:
+        profiling.spans_off()
+        _, counts = profiling.drain()
+    torch.cuda.synchronize()
+    for out, ref in zip(got, want, strict=True):
+        assert np.array_equal(out, ref)
+    assert counts["sample.pipeline.collect.async"] == n
+    # requests 1 and 2 are collected while their own ~200 ms still runs
+    assert 2 <= counts["sample.pipeline.collect.waited"] <= n
 
 
 def test_a_replay_sees_weights_changed_in_place_and_new_storage_drops_the_graphs(cuda):
