@@ -61,9 +61,6 @@ Phases (any failure raises and exits non-zero):
      over two runs; times one layer (weights packed once, as a
      ``ResidualBlock`` keeps them) against the three-pass TF32 bound (the
      fp32 FMA bound beside it);
-     where ``build/parent`` holds an unpacked tree of an earlier commit
-     (``git archive``), phases 5 and 6 also build that tree's K4 and K5 from
-     its sources and time them on the same inputs, beside these;
   7. the shipped-width DiT forward (fp32) on the card against the CPU, and
      the VAE decoder, HiFi-GAN, BigVGAN (73 K4), PWG (30 K5) and HiFi-GAN
      NSF (f0 estimated from the mel, the source's draws injected) likewise at
@@ -102,7 +99,7 @@ Phases (any failure raises and exits non-zero):
      T5 tower in fp32 on the card against the same tower on the CPU; 96 K1
      launches per (item, scale); every accompaniment wav 481,280 finite,
      non-silent samples at -23 +/- 0.5 LUFS; ``clap.csv`` with items x
-     scales rows; host wall and device time per item, scale and stage;
+     scales rows;
  12. [train-cli] the training CLI, ``versband_tpu_torch.cli.train.main``, in
      this process on the card with ``configs/vocal2music.yaml`` as committed
      and only path and run-length overrides, from the same scratch directory
@@ -121,9 +118,7 @@ Phases (any failure raises and exits non-zero):
      on the card and no K1 in it. Run 1 again with ``--prefetch_groups 0``;
      run 2 resumes with ``-r`` and ends at step 6; ``cli.generate`` then
      serves one item at ``--scales 1`` from the archived config and that
-     checkpoint: 481,280 finite samples at -23 +/- 0.5 LUFS. Prints per run
-     the event time per step, host wall per step, steps/s, the tower's time
-     per group, validation's wall and peak memory;
+     checkpoint: 481,280 finite samples at -23 +/- 0.5 LUFS;
  13. [vae-train-cli] the training CLI on ``configs/ae_accomp.yaml`` as
      committed (batch 20, 624-frame crops padded to 640, the full-width
      VAE and PatchGAN), with path and run-length overrides and
@@ -139,9 +134,7 @@ Phases (any failure raises and exits non-zero):
      PNGs and wavs, no K1-K3 and exactly 73 K4 per vocoded clip. Run 2
      resumes with ``-r`` to step 6; ``cli.generate --vae_ckpt`` then serves
      one item from phase 11's directory with that ``last.pt``: the decoder's
-     weights equal the checkpoint's, 481,280 samples at -23 +/- 0.5 LUFS.
-     Prints per run the event time per step, host wall per step, steps/s,
-     validation's wall, K4's device time per log event and peak memory;
+     weights equal the checkpoint's, 481,280 samples at -23 +/- 0.5 LUFS;
  14. [vae-step] one full-width VAE-GAN step (batch 2, 640 frames) on the
      card and on the CPU from the same weights, batch and posterior draw:
      losses, gradients and the updated parameters agree;
@@ -149,8 +142,7 @@ Phases (any failure raises and exits non-zero):
      ``HifiGanGenerator()`` trainable (weight norm as (v, g)), MPD (periods
      2, 3, 5, 7, 11) and MSD, the port's ``MelSpectrogram`` on the card as
      ``mel_fn``; batch 16 of 8,320 samples, AdamW(2e-4, (0.8, 0.99), 0.01),
-     5 steps: finite losses, both sides' weights moved; event time per step,
-     steps/s and peak memory;
+     5 steps: finite losses, both sides' weights moved;
  16. [voc-train-bigvgan] the same recipe with ``BigVGANGenerator()``'s
      geometry, trainable and unfused, MPD and MRD, batch 4, 4 steps; the
      recipe refuses the ``use_fused=True`` generator; the trained generator
@@ -174,15 +166,15 @@ Phases (any failure raises and exits non-zero):
      ``make_manifest`` (18 rows), ``mel_extract`` extract on the card (the
      silent pair skipped), ``addmel2tsv`` (16 rows kept, 2 dropped), the
      ``vocal_mel_path`` join, ``postprocess`` (8 items, 1500-frame midi and
-     beats); one clip's mel on the card against the port's CPU mel (1e-4)
-     and timed (CUDA events, median); then ``cli.train`` on the shipped YAML
+     beats); one clip's mel on the card against the port's CPU mel (1e-4);
+     then ``cli.train`` on the shipped YAML
      for 2 steps from ``total.tsv`` and ``midi.npy`` (300 copies of the rows
      as the held-out set), 4/4/4 K1-K3 launches per step;
  20. [ddp] ``cli.train`` on the shipped YAML for 4 steps in this process,
      without a process group and then under the torchrun environment
      (NCCL, world size 1), each item's draws seeded by its index: losses
-     within 1e-6, K1-K3 launches per step as phase 12, the DiT's gradient
-     all-reduce timed per step; ``python -m torch.distributed.run
+     within 1e-6, K1-K3 launches per step as phase 12, one gradient
+     all-reduce per step; ``python -m torch.distributed.run
      --standalone --nproc_per_node 1 -m versband_tpu_torch.cli.train`` for 2
      steps: exit 0, one run directory, one ``last.pt`` at step 2;
      ``--devices 2`` (one more than the host's cards) raises naming the
@@ -198,12 +190,10 @@ Phases (any failure raises and exits non-zero):
      B 1 without CFG over 500 timesteps (the schedule's 1000 cut to half, the
      same linear range); exactly 4 K1 launches per model
      call (4 S, 4 (S + 1), 4 T); every candidate 481,280 finite samples; K1
-     at ``[6, 752, 8, 96]`` fp32 against its plain version and timed with
-     its bound and SDPA; card against CPU at 5 steps over 256 mel frames
-     (latents after DDIM and PLMS, the candidates' CLAP embeddings, the BERT
-     states: 2e-3; the same chosen row); ms per step of each sampler, the
-     ``generate_batch`` wall, Cnn14 per candidate, BERT per call and the
-     rerank's share;
+     at ``[6, 752, 8, 96]`` fp32 against its plain version; card against CPU
+     at 5 steps over 256 mel frames (latents after DDIM and PLMS, the
+     candidates' CLAP embeddings, the BERT states: 2e-3; the same chosen
+     row);
  22. [timefreq-cli] (after phase 20, from phase 11's directory)
      ``cli.generate.main`` on configs/vocal2music.yaml with ``unet_config``
      swapped for ``VideoFlagLargeDiT`` (``TimeFreqMoeDiT``) at its published
@@ -211,8 +201,7 @@ Phases (any failure raises and exits non-zero):
      ~5.2 B parameters, built on the card), its zero-init layers from a
      partial checkpoint, 1 item at scale 2 (CFG, 24 Euler steps at B 2 x T
      752), BigVGAN: exactly 73 K4 and 0 K1 launches, the wav 481,280 samples
-     at -23 +/- 0.5 LUFS; parameter count, ms and TFLOP/s per Euler step,
-     host wall and device time per stage, the builds' wall, peak memory;
+     at -23 +/- 0.5 LUFS;
  23. [legacy-modules] (after phase 18) the six ConcatDiT variants
      (``HybridDiT2MLP2`` in both fuse modes), ``TimeFreqMoeDiT``,
      ``SpatialTransformer`` with and without context, ``VQModel`` and
@@ -220,15 +209,14 @@ Phases (any failure raises and exits non-zero):
      card against CPU within 2e-3 of scale, VQ indices equal, no K1;
  24. [ae2d] AudioLDM's first stage (``AutoencoderKL2D``, ch 128, ch_mult
      1-2-4, z 8) on a [2, 1, 1024, 64] log-mel image: ``encode().mode()`` and
-     ``decode`` timed on the card, card against CPU within 2e-3 of scale;
+     ``decode``, card against CPU within 2e-3 of scale;
  25. [concat-order] ``LatentDiffusionOrder`` (through the resolver) over
      ``ConcatOrderDiT`` at its class defaults (hidden 1152, depth 28, 16
      heads; ~4.4 B parameters) and the shipped VAE; two ``|``-separated
      instrument captions through the WordPiece tokenizer (bert-base-uncased's
      ids) and a BERT of bert-base-uncased's geometry (random) at 64 tokens,
      random orders; DDIM S 25, eta 0, batch 2, no CFG, decode, HiFi-GAN:
-     2 x 481,280 finite samples, no K1; ms and TFLOP/s per DDIM step, wall,
-     peak memory;
+     2 x 481,280 finite samples, no K1;
  26. [tp] (after phase 20) tensor and expert parallelism: 4 ranks share
      cuda:0 over a gloo group (``file://`` rendezvous), each builds the
      training phase's full-width CFM from SEED, and ``CFMTrainer(mesh=)``
@@ -238,10 +226,8 @@ Phases (any failure raises and exits non-zero):
      held to the same steps in this process (losses and gradient norm 1e-4
      relative, the gathered parameters 1e-3 x LR x each leaf's scale); the
      (1, 2) run's whole checkpoint resumed here without a group, its 4th
-     loss against the uninterrupted run's (1e-4); event ms a step per rank,
-     model-axis all-reduces and bytes a step, parameter and Adam bytes per
-     rank against one process (ranks sharing one card: not a multi-card
-     figure);
+     loss against the uninterrupted run's (1e-4); model-axis all-reduces and
+     bytes a step, parameter and Adam bytes per rank against one process;
  27. [tp-legacy] (after phase 26) the model axis for the legacy backbones,
      ranks sharing cuda:0 over gloo, fp32, TF32 off, Adam eps 1e-3, LR 1e-3:
      (a) ``VideoFlagLargeDiT`` at its published widths, depth cut to 4,
@@ -256,8 +242,7 @@ Phases (any failure raises and exits non-zero):
      2, (1, 2): nothing cut, bytes per rank the one process's; (c) rank 0's
      parameters, gradients and Adam state at depth 28, cut at (1, 2) and
      (1, 4), allocated on the card against the arithmetic (bars as [tp]);
- 28. prints the whole run's wall time, the kernel table as JSON, then
-     ``{"ok": true, ...}`` last.
+ 28. prints the kernel table as JSON, then ``{"ok": true, ...}`` last.
 """
 
 from __future__ import annotations
@@ -265,19 +250,14 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
-import ctypes
 import functools
-import importlib.util
 import json
 import math
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
-import time
-import types
 from pathlib import Path
 
 import numpy as np
@@ -507,17 +487,10 @@ def phase_card() -> str:
     return smi
 
 
-def phase_build() -> dict:
-    """Build the kernels (and, where ``build/parent`` holds an earlier tree,
-    that tree's K4 and K5, all compilers started together); print registers,
-    shared memory and spills; return the earlier tree's K4/K5 modules."""
-    t0 = time.perf_counter()
-    parent_jobs = start_parent_builds()
+def phase_build() -> None:
+    """Build the kernels; print registers, shared memory and spills."""
     libs = _build.build_all()
-    parents = finish_parent_builds(parent_jobs)
-    print(f"[build] {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s: "
-          + ", ".join(sorted(libs)) + (f"; from {PARENT}: " + ", ".join(sorted(parents))
-                                       if parents else f"; no {PARENT}: no earlier K4/K5 timed"))
+    print(f"[build] {len(libs)} kernel libraries: " + ", ".join(sorted(libs)))
     spilled = []
     for name, path in libs.items():  # ptxas -v: registers and spills per kernel
         log = path.with_suffix(".log")
@@ -536,35 +509,6 @@ def phase_build() -> dict:
                       f"{spills}")
     if spilled:  # K4, K5 and the attention kernels at the shipped head dim: 0 spill bytes
         raise AssertionError(f"kernels spill: {spilled}")
-    return parents
-
-
-PARENT = Path("build") / "parent"  # an earlier tree, unpacked there to be compared with
-PARENT_KERNELS = ("fused_act1d", "fused_wavenet")
-
-
-def start_parent_builds() -> list:
-    """Start one nvcc per K4/K5 source of the tree under ``PARENT`` (none
-    without such a tree)."""
-    csrc = PARENT / "versband_tpu_torch" / "ops" / "csrc"
-    if not csrc.is_dir():
-        return []
-    return _build.start({name: csrc / f"{name}.cu" for name in PARENT_KERNELS},
-                        Path("build") / "parent_kernels", include=csrc)
-
-
-def finish_parent_builds(jobs: list) -> dict:
-    """The earlier tree's K4/K5 wrapper modules, each loaded from that tree
-    and bound to the library built from its own source."""
-    mods = {}
-    for name, (lib, _) in _build.finish(jobs).items():
-        spec = importlib.util.spec_from_file_location(
-            f"parent_{name}", PARENT / "versband_tpu_torch" / "ops" / f"{name}.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        mod._build = types.SimpleNamespace(load=lambda _name, so=ctypes.CDLL(str(lib)): so)
-        mods[name] = mod
-    return mods
 
 
 def phase_k1(dev) -> dict:
@@ -727,9 +671,8 @@ def _snake_params(gen, C: int, dev, beta: bool, logscale: bool):
     return draw(), (draw() if beta else None)
 
 
-def phase_k4(dev, parent=None) -> dict:
-    """K4 against its plain version; timed at the serving shapes (and the
-    earlier tree's K4, ``parent``, on the same inputs where given)."""
+def phase_k4(dev) -> dict:
+    """K4 against its plain version; timed at the serving shapes."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     serving = k4_serving_shapes()
     cases = [(f"serving C{C}", 1, C, T, True, True) for (C, T), _ in serving]
@@ -758,7 +701,7 @@ def phase_k4(dev, parent=None) -> dict:
                 raise AssertionError(f"K4 disagrees with its plain version on {name} {dt}: {err}")
             errs[(name, dtype)] = err
 
-    timing, clip_ms, parent_clip_ms = {}, 0.0, 0.0
+    timing, clip_ms = {}, 0.0
     for (C, T), calls in serving:
         x = torch.randn(1, C, T, generator=gen, device=dev)
         alpha, b = _snake_params(gen, C, dev, True, True)
@@ -766,21 +709,13 @@ def phase_k4(dev, parent=None) -> dict:
         plain = cuda_ms(lambda: fa1.alias_free_snake_reference(x, alpha, b), 10)
         bound, by = k4_bound_ms(x)
         clip_ms += calls * ms
-        earlier = ""
-        if parent is not None:
-            pms = cuda_ms(lambda: parent.fused_alias_free_snake(x, alpha, b), 50)
-            parent_clip_ms += calls * pms
-            perr = (parent.fused_alias_free_snake(x, alpha, b)
-                    - fa1.fused_alias_free_snake(x, alpha, b)).abs().max().item()
-            earlier = f"; {PARENT}'s K4 {pms:.4f} ms (max|d| {perr:.2e} from this one)"
         print(f"[k4] serving float32 x[1, {C}, {T}] ({calls} per clip): kernel {ms:.4f} ms, "
               f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}), kernel at {bound / ms:.1%} "
-              f"of bound{earlier}")
+              f"of bound")
         if bound / ms > 1.0:
             raise AssertionError(f"K4 at [1, {C}, {T}]: the kernel beat its bound")
         timing[(C, T)] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
-    print(f"[k4] {K4_PER_CLIP} launches per clip: {clip_ms:.4f} ms of kernel time"
-          + (f" ({PARENT}'s K4: {parent_clip_ms:.4f} ms)" if parent is not None else ""))
+    print(f"[k4] {K4_PER_CLIP} launches per clip: {clip_ms:.4f} ms of kernel time")
     (C, T), _ = serving[-1]
     return {"max_abs_err": errs[(f"serving C{C}", torch.float32)], **timing[(C, T)],
             "library_ms": None}
@@ -800,10 +735,9 @@ def _k5_inputs(gen, dev, B: int, T: int, R: int, A: int, S: int, dtype):
 
 
 @torch.no_grad()
-def phase_k5(dev, parent=None) -> dict:
+def phase_k5(dev) -> dict:
     """K5 against its plain version, bit-equal over two runs; timed per
-    layer with its weights packed once (and the earlier tree's K5,
-    ``parent``, on the same inputs where given)."""
+    layer with its weights packed once."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     R, G2, S, A = PWG_R, PWG_GATE, PWG_S, PWG_A
     T = T_MEL * HOP
@@ -853,23 +787,10 @@ def phase_k5(dev, parent=None) -> dict:
         plain = cuda_ms(lambda: fw.wavenet_layer_reference(x, c, skip, *w, d), 5)
         bound, by = k5_bound_ms(x, A, S, G2 // 2)
         fma = k5_bound_ms(x, A, S, G2 // 2, products=False)[0]
-        earlier = ""
-        if parent is not None:
-            pms = cuda_ms(lambda: parent.fused_wavenet_layer(x, c, skip, *w, d), 20)
-            packed = parent.pack_weights(*w)
-            pack_every_call = parent.pack_weights
-            parent.pack_weights = lambda *_w: packed
-            try:
-                kernel_alone = cuda_ms(lambda: parent.fused_wavenet_layer(x, c, skip, *w, d), 20)
-            finally:
-                parent.pack_weights = pack_every_call
-            earlier = (f"; {PARENT}'s K5 {pms:.4f} ms with its packing every call, "
-                       f"{kernel_alone:.4f} ms packed once")
         print(f"[k5] serving float32 x[1, {R}, {T}] d={d}: kernel {ms:.4f} ms "
               f"(weights packed once), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}; "
               f"three-pass TF32) [fp32 FMA alone {fma:.4f}], kernel at {bound / ms:.1%} of "
-              f"bound [{fma / ms:.1%}]; {K5_PER_CLIP} layers per clip {K5_PER_CLIP * ms:.2f} ms"
-              + earlier)
+              f"bound [{fma / ms:.1%}]; {K5_PER_CLIP} layers per clip {K5_PER_CLIP * ms:.2f} ms")
         if bound / ms > 1.0:
             raise AssertionError(f"K5 d={d}: the kernel beat its bound")
         timing[d] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
@@ -1008,40 +929,27 @@ def build_serving(dev, n_requests: int = N_REQUESTS):
 
 def serve_family(family: str, cfm, voc, uncond, requests) -> dict:
     """Serve ``requests`` through ``PipelinedGenerator`` with vocoder ``voc``;
-    check the waveforms and the launches per clip; print the per-clip times."""
-    events, counts = [], []
+    check the waveforms and the launches per clip."""
+    counts = []
     want_k4 = K4_PER_CLIP if family == "bigvgan" else 0
     want_k5 = K5_PER_CLIP if family == "pwg" else 0
 
     def sample_fn(cond, generator):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        events.append(ev)
         n0 = fa.LAUNCHES
-        ev[0].record()
         z = cfm.sample_cfg(cond, CFG_SCALE, uncond, generator, timesteps=STEPS)
-        ev[1].record()
         counts.append([fa.LAUNCHES - n0])
         return z
-
-    def decode_fn(z):
-        mel = cfm.decode_first_stage(z)
-        events[-1][2].record()
-        return mel
 
     def vocode_fn(mel):
         n4, n5 = fa1.LAUNCHES, fw.LAUNCHES
         wav = voc.waveform(mel)[0]
-        events[-1][3].record()
         counts[-1] += [fa1.LAUNCHES - n4, fw.LAUNCHES - n5]
         return wav
 
-    pipe = PipelinedGenerator(sample_fn, decode_fn, vocode_fn, depth=2)
-    torch.cuda.synchronize()
+    pipe = PipelinedGenerator(sample_fn, cfm.decode_first_stage, vocode_fn, depth=2)
     reset_launches()  # count only the main path's launches
-    t0 = time.perf_counter()
     with torch.inference_mode():
         wavs = list(pipe.generate(requests))
-    wall = time.perf_counter() - t0
     main = {"k1": fa.LAUNCHES, "k4": fa1.LAUNCHES, "k5": fw.LAUNCHES}
 
     n = T_MEL * HOP
@@ -1065,21 +973,8 @@ def serve_family(family: str, cfm, voc, uncond, requests) -> dict:
             [sum(c[j] for c in counts) for j in range(3)]:
         raise AssertionError(f"{family}: K1/K4/K5 launches per request {counts}, total {main}; "
                              f"expected {want} each")
-    audio_s = n / SR
-    rows = []
-    for i, ev in enumerate(events):
-        r = dict(sample=ev[0].elapsed_time(ev[1]), decode=ev[1].elapsed_time(ev[2]),
-                 vocode=ev[2].elapsed_time(ev[3]), total=ev[0].elapsed_time(ev[3]))
-        rows.append(r)
-        print(f"[serve] {family} request {i}: waveform [{n}] finite, K1/K4/K5 launches "
-              f"{counts[i]}; " + ", ".join(f"{k} {v:.2f} ms" for k, v in r.items()))
-    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
-    print(f"[serve] per clip ({family}, median of {len(rows)}, device time): "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
-          + f"; rtf {audio_s / (med['total'] / 1e3):.2f}x for {audio_s:.3f} s of audio; "
-          f"vocoder rtf {audio_s / (med['vocode'] / 1e3):.2f}x")
-    print(f"[serve] {family}: host wall for {len(rows)} pipelined requests {wall * 1e3:.1f} ms "
-          f"({audio_s * len(rows) / wall:.2f}x real time)")
+    for i, c in enumerate(counts):
+        print(f"[serve] {family} request {i}: waveform [{n}] finite, K1/K4/K5 launches {c}")
     return main
 
 
@@ -1131,7 +1026,6 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 def phase_bf16_serve(dev) -> dict:
     """[bf16-serve] (phase 8b): the bf16 serving path against the fp32 one on
     one set of weights, stage by stage; returns the K1 launches."""
-    t0 = time.perf_counter()
     w = bf16_serve_inputs()
     cfm, voc = {}, {}
     for dt in (torch.float32, DTYPE):
@@ -1167,13 +1061,12 @@ def phase_bf16_serve(dev) -> dict:
     gaps = {name: _rel_l2(v[DTYPE], v[torch.float32])
             for name, v in (("latent", z), ("mel", mel), ("waveform", wav), ("end_to_end", end))}
     finite = all(bool(torch.isfinite(v[dt]).all()) for v in (z, mel, wav, end) for dt in v)
-    wall = time.perf_counter() - t0
     for name, gap in gaps.items():
         bar = BF16_BAR_FACTOR * BF16_JAX_GAPS[name]
         print(f"[bf16-serve] {name}: bf16 against fp32 relative L2 {gap:.4e}, bar {bar:.4e} "
               f"({BF16_BAR_FACTOR:g} x the JAX package's {BF16_JAX_GAPS[name]:.4e})")
     print(f"[bf16-serve] K1 launches: bf16 clip {k1[DTYPE]}, fp32 clip {k1[torch.float32]}; "
-          f"finite {finite}; the phase took {wall:.1f} s")
+          f"finite {finite}")
     bad = {k: v for k, v in gaps.items() if not v <= BF16_BAR_FACTOR * BF16_JAX_GAPS[k]}
     follows = gaps["end_to_end"] > BF16_E2E_OVER_WAVEFORM * gaps["waveform"]
     print(f"[bf16-serve] end to end over waveform {gaps['end_to_end'] / gaps['waveform']:.3f} "
@@ -1185,7 +1078,7 @@ def phase_bf16_serve(dev) -> dict:
                              f"{k1}, waveform {tuple(wav[DTYPE].shape)}")
     del cfm, voc
     torch.cuda.empty_cache()
-    return {"k1": k1[DTYPE] + k1[torch.float32], "gaps": gaps, "wall_s": wall}
+    return {"k1": k1[DTYPE] + k1[torch.float32], "gaps": gaps}
 
 
 def scaled_conv_weights(model: torch.nn.Module, seed: int) -> dict:
@@ -1259,28 +1152,10 @@ def phase_train(dev) -> dict:
                          logdir=str(logdir),
                          max_steps=TRAIN_STEPS, max_epochs=1, use_tensorboard=False,
                          log_every_n_steps=10 ** 9, callbacks=[probe], seed=SEED)
-    events = []
-    step_fn = trainer.train_step
-
-    def timed_step(*args, **kw):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = step_fn(*args, **kw)
-        ev[1].record()
-        events.append(ev)
-        return out
-
-    trainer.train_step = timed_step
     before = {k: v.detach().clone() for k, v in cfm.model.state_dict().items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()  # count only the main path's launches
-    t0 = time.perf_counter()
     trainer.fit(data)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     counts = launches()
-    peak = torch.cuda.max_memory_allocated()
 
     per_step = [tuple(b - a for a, b in zip((0, 0, 0) if i == 0 else probe.counts[i - 1], c))
                 for i, c in enumerate(probe.counts)]
@@ -1293,7 +1168,7 @@ def phase_train(dev) -> dict:
         if not all(math.isfinite(x) for x in vals.values()):
             raise AssertionError(f"training step {i + 1}: non-finite metrics {vals}")
         print(f"[train] step {i + 1}: " + ", ".join(f"{k} {x:.5f}" for k, x in vals.items())
-              + f"; K1/K2/K3 launches {per_step[i]}; device {events[i][0].elapsed_time(events[i][1]):.2f} ms")
+              + f"; K1/K2/K3 launches {per_step[i]}")
     moved, changed, total = 0.0, 0, 0
     for k, v in cfm.model.state_dict().items():
         d = (v - before[k]).abs()
@@ -1305,15 +1180,9 @@ def phase_train(dev) -> dict:
             and meta.get("step") == TRAIN_STEPS
             and meta.get("scale_factor") == cfm.scale_factor != 1.0):
         raise AssertionError(f"training: max|dparam| {moved}, checkpoint meta {meta}")
-    step_ms = [events[i][0].elapsed_time(events[i][1]) for i in range(1, TRAIN_STEPS)]
-    med = statistics.median(step_ms)
     print(f"[train] full width fp32, batch {TRAIN_B}, mel {TRAIN_T_MEL} -> latent {T_TRAIN}: "
           f"{trainer.global_step} steps, scale_factor {cfm.scale_factor:.5f}, weights moved "
           f"(max|d| {moved:.3e}, {changed / total:.1%} of elements), checkpoint 'last' written")
-    print(f"[train] device time per step (median of steps 2-{TRAIN_STEPS}) {med:.2f} ms, "
-          f"{1e3 / med:.3f} steps/s; host wall for fit {wall * 1e3:.1f} ms (first step "
-          f"and scale_by_std included); peak memory {peak / 2 ** 30:.2f} GiB "
-          f"(max_memory_allocated)")
     print(f"[train] launches on this path: K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]}")
     shutil.rmtree(logdir, ignore_errors=True)
     return {"launches": counts}
@@ -1515,10 +1384,9 @@ def phase_cli(dev) -> int:
     config = CLI_CONFIG.resolve()
     shutil.rmtree(CLI_WORK, ignore_errors=True)
     root = CLI_WORK.resolve()
-    t0 = time.perf_counter()
     write_t5_dir(root / T5_DIR, FLAN_T5_LARGE, SEED)
     inputs = write_cli_inputs(root, CLI_ITEMS, CLI_T_MEL, DIT, VAE, SEED)
-    print(f"[cli] inputs written in {time.perf_counter() - t0:.1f} s: {root / T5_DIR} "
+    print(f"[cli] inputs written: {root / T5_DIR} "
           f"(flan-t5-large geometry, {(root / T5_DIR / 'model.safetensors').stat().st_size / 2**30:.2f}"
           f" GiB safetensors), {CLI_ITEMS} items of {CLI_T_MEL} frames")
     argv = ["--config", str(config), "--ckpt", inputs["dit"], "--vae_ckpt", inputs["vae"],
@@ -1526,15 +1394,10 @@ def phase_cli(dev) -> int:
             "--scales", CLI_SCALES, "--num_items", str(CLI_ITEMS), "--seed", str(SEED),
             "--save_dir", "out"]
     cwd = os.getcwd()
-    stats = []
     try:
         os.chdir(root)  # the YAML's relative version: resolves here
-        torch.cuda.synchronize()
         reset_launches()  # count only this path's launches
-        t0 = time.perf_counter()
-        rc = cli.main(argv, stats=stats)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        rc = cli.main(argv)
         k1, k4, k5 = fa.LAUNCHES, fa1.LAUNCHES, fw.LAUNCHES
         with open(root / "out" / "clap.csv", newline="") as f:
             rows = list(csv.DictReader(f, delimiter="\t"))
@@ -1545,20 +1408,10 @@ def phase_cli(dev) -> int:
     finally:
         os.chdir(cwd)
     n_runs = CLI_ITEMS * len(CLI_SCALES.split("-"))
-    print(f"[cli] main() returned {rc} in {wall:.2f} s host wall ({wall / CLI_ITEMS:.2f} s per "
-          f"item, model build and checkpoint loads included); K1 launches {k1} "
-          f"(want {LAUNCHES_PER_CLIP} x {n_runs}), K4 {k4}, K5 {k5}")
+    print(f"[cli] main() returned {rc}; K1 launches {k1} (want {LAUNCHES_PER_CLIP} x {n_runs}), "
+          f"K4 {k4}, K5 {k5}")
     if rc != 0 or k1 != LAUNCHES_PER_CLIP * n_runs or k4 or k5:
         raise AssertionError(f"[cli] rc {rc}, launches K1 {k1}, K4 {k4}, K5 {k5}")
-    for r in stats:
-        print(f"[cli] item {r['item']} scale {r['scale']}: " + ", ".join(
-            f"{st} {r[st + '_ms']:.2f} ms host wall, {r[st + '_device_ms']:.2f} ms device"
-            for st in cli.STAGES if st + "_ms" in r))
-    for st in cli.STAGES:
-        runs = [r for r in stats if st + "_ms" in r]
-        print(f"[cli] stage {st}: median over {len(runs)} runs "
-              f"{statistics.median(r[st + '_ms'] for r in runs):.2f} ms host wall, "
-              f"{statistics.median(r[st + '_device_ms'] for r in runs):.2f} ms device")
 
     if len(rows) != n_runs or len(wavs) != n_runs:
         raise AssertionError(f"[cli] clap.csv has {len(rows)} rows and {len(wavs)} wavs, "
@@ -1570,13 +1423,10 @@ def phase_cli(dev) -> int:
         texts = captions[:1] + [""]
         ref = cpu({"caption": texts, "acoustic": {}})["caption"]
         out = gpu({"caption": texts, "acoustic": {}})["caption"]
-        torch.cuda.synchronize()
-        t5_ms = cuda_ms(lambda: gpu({"caption": texts, "acoustic": {}}), 5, warmup=1)
     err = _max_diff(out, ref)
     print(f"[cli] T5 tower fp32 {tuple(ref.shape)} ({FLAN_T5_LARGE['num_layers']} blocks, "
           f"d_model {FLAN_T5_LARGE['d_model']}) card vs CPU: "
-          f"max|d| {err:.3e} (tol {T5_TOL:g}), |out|max {ref.abs().max():.3f}; card "
-          f"{t5_ms:.2f} ms per call of 2 captions (tokenizer included)")
+          f"max|d| {err:.3e} (tol {T5_TOL:g}), |out|max {ref.abs().max():.3f}")
     if not err <= T5_TOL:
         raise AssertionError(f"T5 on the card disagrees with the CPU: {err}")
     del cpu, gpu
@@ -1626,19 +1476,13 @@ def write_train_manifest(root: Path, n_rows: int, n_unique: int, t_mel: int,
 
 class _CliProbe:
     """What the CLI probes share: methods patched for the duration of a
-    ``with`` (undone on exit), each timed (host wall, optionally with the
-    card synchronised around it) with the launches in it; each epoch's wall
-    from ``on_epoch_start`` to ``on_epoch_end`` (card synchronised there),
-    less the time of the methods marked ``side`` (image and audio logging)."""
+    ``with`` (undone on exit), each call recorded with the launches in it."""
 
     def __init__(self):
-        self.epochs, self.k4_calls, self.side_ms, self._saved = [], [], 0.0, []
+        self._saved = []
 
     def counts(self) -> tuple:
         return launches()
-
-    def n_steps(self) -> int:
-        raise NotImplementedError
 
     def _patch(self, owner, name, wrapper):
         self._saved.append((owner, name, getattr(owner, name)))
@@ -1648,24 +1492,16 @@ class _CliProbe:
         for owner, name, fn in reversed(self._saved):
             setattr(owner, name, fn)
 
-    def timed(self, log: list, synced: bool, side: bool = False, extra=None):
-        """A wrapper for a method: appends its wall ("ms"), launches and the
-        K4 calls made in it to ``log``, with ``extra(args, out)``."""
+    def recorded(self, log: list, extra=None):
+        """A wrapper for a method: appends the launches made in it to
+        ``log``, with ``extra(args, out)``."""
         probe = self
 
         def wrap(fn):
             def call(obj, *a, **k):
-                if synced:
-                    torch.cuda.synchronize()
-                n0, k0, t0 = probe.counts(), len(probe.k4_calls), time.perf_counter()
+                n0 = probe.counts()
                 out = fn(obj, *a, **k)
-                if synced:
-                    torch.cuda.synchronize()
-                row = {"ms": (time.perf_counter() - t0) * 1e3,
-                       "launches": tuple(b - a for a, b in zip(n0, probe.counts())),
-                       "k4_calls": probe.k4_calls[k0:]}
-                if side:
-                    probe.side_ms += row["ms"]
+                row = {"launches": tuple(b - a for a, b in zip(n0, probe.counts()))}
                 if extra is not None:
                     row.update(extra(a, out))
                 log.append(row)
@@ -1673,46 +1509,23 @@ class _CliProbe:
             return call
         return wrap
 
-    def epoch_clock(self, fn):
-        """A wrapper for the trainer's ``_dispatch``."""
-        probe = self
-
-        def call(trainer, name, *a):
-            if name == "on_epoch_start":
-                probe.epochs.append({"t0": time.perf_counter(), "side0": probe.side_ms,
-                                     "step0": probe.n_steps()})
-            out = fn(trainer, name, *a)
-            if name == "on_epoch_end":
-                torch.cuda.synchronize()
-                e = probe.epochs[-1]
-                e.update(ms=(time.perf_counter() - e["t0"]) * 1e3,
-                         side_ms=probe.side_ms - e["side0"], steps=probe.n_steps() - e["step0"])
-            return out
-        return call
-
 
 class _TrainCliProbe(_CliProbe):
-    """For the duration of a ``with``: the train steps' launches and events
+    """For the duration of a ``with``: the train steps' launches and metrics
     (the step functions the trainer builds are wrapped where the trainer
-    module makes them); the wall and launches of ``_validate``,
-    ``log_images``, ``AudioLogger.log_img`` (vocoding and writing the logs;
-    ``ImageLogger.log_img`` inside it, the PNGs), ``save_checkpoint`` and
-    the caption tower (``_encode_caption_list``, on the prefetch thread);
-    and each epoch's wall. The wrappers synchronise the card before
-    ``_validate``, ``log_images`` and ``save_checkpoint`` start, so the step
-    work queued before them is not counted as theirs."""
+    module makes them); the launches of ``_validate`` and ``log_images``;
+    and the device of the caption tower's output (``_encode_caption_list``,
+    on the prefetch thread)."""
 
     def __init__(self):
-        from versband_tpu_torch.train import callbacks as cmod
         from versband_tpu_torch.train import trainer as tmod
 
         super().__init__()
-        self.tmod, self.cmod = tmod, cmod
-        self.steps, self.vals, self.logs, self.writes, self.towers = [], [], [], [], []
-        self.pngs, self.saves, self.metrics = [], [], []
+        self.tmod = tmod
+        self.steps, self.vals, self.logs, self.towers, self.metrics = [], [], [], [], []
 
     def n_steps(self) -> int:
-        return sum(n for n, _, _ in self.steps)
+        return sum(n for n, _ in self.steps)
 
     def __enter__(self):
         probe, cls = self, self.tmod.CFMTrainer
@@ -1721,30 +1534,23 @@ class _TrainCliProbe(_CliProbe):
             def made(*a, **k):
                 fn = make(*a, **k)
 
-                def timed(state, batch, generator=None, given=None):
-                    n0, ev = launches(), [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-                    ev[0].record()
+                def counted(state, batch, generator=None, given=None):
+                    n0 = launches()
                     out = fn(state, batch, generator, given)
-                    ev[1].record()
                     n = batch["image"].shape[0] if batch["image"].ndim == 4 else 1
-                    probe.steps.append((n, tuple(b - a for a, b in zip(n0, launches())), ev))
+                    probe.steps.append((n, tuple(b - a for a, b in zip(n0, launches()))))
                     probe.metrics.append(out)
                     return out
-                return timed
+                return counted
             return made
 
         self._patch(self.tmod, "make_cfm_train_step", steps)
         self._patch(self.tmod, "make_cfm_multi_step", steps)
-        self._patch(cls, "_dispatch", self.epoch_clock)
-        self._patch(cls, "_validate", self.timed(
-            self.vals, True, extra=lambda a, out: {"batches": len(a[0]), "metrics": out}))
-        self._patch(cls, "log_images", self.timed(self.logs, True, side=True))
-        self._patch(self.cmod.AudioLogger, "log_img", self.timed(self.writes, False, side=True))
-        self._patch(self.cmod.ImageLogger, "log_img", self.timed(self.pngs, False))
-        self._patch(cls, "save_checkpoint", self.timed(self.saves, True))
-        self._patch(cls, "_encode_caption_list", self.timed(
-            self.towers, False, extra=lambda a, out: {"captions": len(a[0]),
-                                                      "device": out.device}))
+        self._patch(cls, "_validate", self.recorded(
+            self.vals, extra=lambda a, out: {"batches": len(a[0]), "metrics": out}))
+        self._patch(cls, "log_images", self.recorded(self.logs))
+        self._patch(cls, "_encode_caption_list", self.recorded(
+            self.towers, extra=lambda a, out: {"device": out.device}))
         return self
 
 
@@ -1760,28 +1566,22 @@ def _train_cli_run(dev, tag: str, argv: list, expect_steps: int, check=None,
     from versband_tpu_torch.cli import train as cli
 
     run = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()  # count only this run's launches
-    t0 = time.perf_counter()
     with _TrainCliProbe() as probe:
         rc = cli.main(argv, run=run)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    total, peak, trainer = launches(), torch.cuda.max_memory_allocated(), run["trainer"]
-    writer = trainer.writer is not None
+    total, trainer = launches(), run["trainer"]
     depth = DIT["depth"]
     n_steps = probe.n_steps()
-    bad = [(n, k) for n, k, _ in probe.steps if k != (depth * n,) * 3]
+    bad = [(n, k) for n, k in probe.steps if k != (depth * n,) * 3]
     bad += [(v["batches"], v["launches"]) for v in probe.vals
             if v["launches"] != (depth * v["batches"], 0, 0)]
     bad += [(1, g["launches"]) for g in probe.logs if g["launches"] != (LAUNCHES_PER_LOG, 0, 0)]
     want = (depth * (n_steps + sum(v["batches"] for v in probe.vals))
             + LAUNCHES_PER_LOG * len(probe.logs), depth * n_steps, depth * n_steps)
     off_card = sorted({str(t["device"]) for t in probe.towers if t["device"].type != dev.type})
-    print(f"[{phase}] {tag}: main() returned {rc} in {wall:.2f} s host wall; "
+    print(f"[{phase}] {tag}: main() returned {rc}; "
           f"{trainer.global_step} steps in {len(probe.steps)} calls of "
-          f"{[n for n, _, _ in probe.steps]}; {len(probe.vals)} validations of "
+          f"{[n for n, _ in probe.steps]}; {len(probe.vals)} validations of "
           f"{[v['batches'] for v in probe.vals]} batches; {len(probe.logs)} log_images; "
           f"K1/K2/K3 launches {total} (want {want}); the tower ran {len(probe.towers)} "
           f"times on {sorted({str(t['device']) for t in probe.towers})}")
@@ -1793,37 +1593,16 @@ def _train_cli_run(dev, tag: str, argv: list, expect_steps: int, check=None,
     for v in probe.vals:
         loss = v["metrics"].get("val/loss_simple")
         print(f"[{phase}] {tag}: validation over {v['batches']} batches: val/loss_simple "
-              f"{loss}, {v['ms']:.1f} ms host wall (synchronised)")
+              f"{loss}")
         if loss is None or not math.isfinite(loss):
             raise AssertionError(f"[{phase}] {tag}: validation gave {v['metrics']}")
     if check is not None:
         check(run)
-    per_step = [ev[0].elapsed_time(ev[1]) / n for n, _, ev in probe.steps]
-    dev_ms = statistics.median(per_step[1:] or per_step)
-    epoch_ms = [e["ms"] - e["side_ms"] for e in probe.epochs]
-    host_ms = sum(epoch_ms) / sum(e["steps"] for e in probe.epochs)
-    tower = [t for t in probe.towers if t["captions"] == TRAIN_CLI_K * TRAIN_B]
-    print(f"[{phase}] {tag}: event time per train step {dev_ms:.2f} ms (median over the "
-          f"calls after the first, {['%.2f' % x for x in per_step]}), "
-          f"{1e3 / dev_ms:.3f} steps/s on the card; host wall per step {host_ms:.2f} ms "
-          f"({1e3 / host_ms:.3f} steps/s): epochs {['%.1f' % e['ms'] for e in probe.epochs]} ms "
-          f"from on_epoch_start to on_epoch_end (card synchronised), of which image logging "
-          f"{['%.1f' % e['side_ms'] for e in probe.epochs]} ms (taken out), over "
-          f"{[e['steps'] for e in probe.epochs]} steps (loader, tower, copies, the first "
-          f"batch's scale_by_std included); log_images {[round(g['ms'], 1) for g in probe.logs]} "
-          f"ms, writing and vocoding the logs {[round(g['ms'], 1) for g in probe.writes]} ms "
-          f"(of which the PNGs {[round(g['ms'], 1) for g in probe.pngs]} ms; TensorBoard "
-          f"{'on' if writer else 'off'}); "
-          f"save_checkpoint {[round(c['ms'], 1) for c in probe.saves]} ms; the tower per "
-          f"group of {TRAIN_CLI_K * TRAIN_B} captions {[round(t['ms'], 2) for t in tower]} ms "
-          f"host wall on the prefetch thread; peak memory {peak / 2 ** 30:.2f} GiB "
-          f"(max_memory_allocated)")
     logdir, config = run["logdir"], run["config"]
     del run, trainer
     gc.collect()
     torch.cuda.empty_cache()
-    return {"logdir": logdir, "config": config, "launches": total, "device_ms": dev_ms,
-            "host_ms": host_ms, "peak": peak, "probe": probe}
+    return {"logdir": logdir, "config": config, "launches": total, "probe": probe}
 
 
 def phase_train_cli(dev) -> tuple:
@@ -1835,14 +1614,12 @@ def phase_train_cli(dev) -> tuple:
 
     config = CLI_CONFIG.resolve()
     root = CLI_WORK.resolve()
-    t0 = time.perf_counter()
     manifest, midi = write_train_manifest(root / "train_data", TRAIN_CLI_VALID + TRAIN_CLI_TRAIN,
                                           TRAIN_CLI_UNIQUE, TRAIN_CLI_T_MEL, SEED + 30)
     vae = root / "vae.pt"  # phase 11's, at the shipped width
     print(f"[train-cli] manifest of {TRAIN_CLI_VALID + TRAIN_CLI_TRAIN} rows over "
-          f"{TRAIN_CLI_UNIQUE} mel pairs of [80, {TRAIN_CLI_T_MEL}] written in "
-          f"{time.perf_counter() - t0:.1f} s; T5 {T5_DIR}, HiFi-GAN {HIFIGAN_DIR} and {vae.name} "
-          f"from phase 11")
+          f"{TRAIN_CLI_UNIQUE} mel pairs of [80, {TRAIN_CLI_T_MEL}] written; T5 {T5_DIR}, "
+          f"HiFi-GAN {HIFIGAN_DIR} and {vae.name} from phase 11")
     paths = [f"data.params.main_spec_dir_path={manifest}",
              f"data.params.other_condition={midi}",
              f"model.params.first_stage_config.params.ckpt_path={vae}",
@@ -1854,7 +1631,6 @@ def phase_train_cli(dev) -> tuple:
     inline = base + ["-n", "inline", "--max_steps", str(TRAIN_CLI_STEPS), "--max_epochs", "2",
                      "--prefetch_groups", "0", *paths]
     cwd = os.getcwd()
-    gen_stats = []
     try:
         os.chdir(root)  # the YAML's relative useful_ckpts/: resolve here
         vae_saved = torch.load(vae, map_location="cpu", weights_only=True)
@@ -1904,23 +1680,16 @@ def phase_train_cli(dev) -> tuple:
                 "--other_condition", midi, "--scales", "1", "--num_items", "1",
                 "--max_sec", "30", "--pad_to", str(T_MEL), "--seed", str(SEED),
                 "--save_dir", "out_train"]
-        rc = gen_cli.main(argv, stats=gen_stats)
-        torch.cuda.synchronize()
+        rc = gen_cli.main(argv)
         n_gen = launches()
         gen_wavs = sorted((root / "out_train").rglob("*.wav"))
     finally:
         os.chdir(cwd)
-    print(f"[train-cli] host wall per step through fit: prefetch 1 {first['host_ms']:.2f} ms, "
-          f"prefetch 0 {again['host_ms']:.2f} ms, resumed (prefetch 1) "
-          f"{resumed['host_ms']:.2f} ms; event time per step {first['device_ms']:.2f} / "
-          f"{again['device_ms']:.2f} / {resumed['device_ms']:.2f} ms")
     if rc != 0 or len(gen_wavs) != 1 or n_gen != (LAUNCHES_PER_CLIP, 0, 0):
         raise AssertionError(f"[train-cli] cli.generate: rc {rc}, {len(gen_wavs)} wavs, "
                              f"launches {n_gen}")
     print(f"[train-cli] cli.generate from the trained checkpoint ({T_MEL} frames, scale 1): "
-          f"K1 {n_gen[0]}; stages " + ", ".join(
-              f"{st} {gen_stats[0][st + '_ms']:.1f} ms" for st in gen_cli.STAGES
-              if st + "_ms" in gen_stats[0]))
+          f"K1 {n_gen[0]}")
     _check_wav("[train-cli] cli.generate", gen_wavs[0], T_MEL * HOP)
     counts = [r["launches"] for r in (first, again, resumed)] + [n_gen]
     return tuple(sum(c[i] for c in counts) for i in range(3))
@@ -1983,31 +1752,22 @@ def write_vae_train_data(root: Path, seed: int) -> tuple:
 
 
 class _VaeCliProbe(_CliProbe):
-    """For the duration of a ``with``: each VAE-GAN step's events, metrics and
-    launches (the step function is wrapped where the trainer module makes
-    it); the wall, metrics and launches of ``_validate`` and, inside it, of
-    ``save_monitored`` (a checkpoint write); the wall of ``log_images`` and
-    of ``AudioLogger.log_img`` with the K4 launches in it, and each K4 call
-    there (its shape and parameters, and CUDA events around the name
-    ``vocoder/bigvgan.py`` calls, which take in the host's gaps where the
-    card waits for it); ``save_checkpoint``'s wall; each epoch's wall."""
+    """For the duration of a ``with``: each VAE-GAN step's metrics, batch
+    shape and launches (the step function is wrapped where the trainer
+    module makes it); the metrics and launches of ``_validate``; the
+    launches of ``log_images`` and of ``AudioLogger.log_img`` with the clips
+    it vocodes."""
 
     def __init__(self):
         from versband_tpu_torch.train import callbacks as cmod
-        from versband_tpu_torch.train import checkpoints as ckmod
         from versband_tpu_torch.train import trainer as tmod
-        from versband_tpu_torch.vocoder import bigvgan as bmod
 
         super().__init__()
-        self.tmod, self.cmod, self.ckmod, self.bmod = tmod, cmod, ckmod, bmod
-        self.steps, self.vals, self.monitored, self.logs, self.writes, self.saves = \
-            [], [], [], [], [], []
+        self.tmod, self.cmod = tmod, cmod
+        self.steps, self.vals, self.logs, self.writes = [], [], [], []
 
     def counts(self) -> tuple:
         return launches() + (fa1.LAUNCHES,)
-
-    def n_steps(self) -> int:
-        return len(self.steps)
 
     def __enter__(self):
         probe, cls = self, self.tmod.VAETrainer
@@ -2016,58 +1776,24 @@ class _VaeCliProbe(_CliProbe):
             def made(*a, **k):
                 fn = make(*a, **k)
 
-                def timed(gen_state, disc_state, batch, generator=None, given=None):
-                    n0, ev = probe.counts(), [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-                    ev[0].record()
+                def counted(gen_state, disc_state, batch, generator=None, given=None):
+                    n0 = probe.counts()
                     out = fn(gen_state, disc_state, batch, generator, given)
-                    ev[1].record()
-                    probe.steps.append({"metrics": out, "events": ev, "shape": tuple(
-                        batch["image"].shape), "launches": tuple(
-                            b - a for a, b in zip(n0, probe.counts()))})
+                    probe.steps.append({"metrics": out, "shape": tuple(batch["image"].shape),
+                                        "launches": tuple(
+                                            b - a for a, b in zip(n0, probe.counts()))})
                     return out
-                return timed
+                return counted
             return made
 
-        def k4(fn):
-            def call(x, alpha, beta=None, logscale=True):
-                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-                ev[0].record()
-                out = fn(x, alpha, beta, logscale)
-                ev[1].record()
-                probe.k4_calls.append({"events": ev, "key": (tuple(x.shape), x.dtype,
-                                                             beta is None, bool(logscale)),
-                                       "params": (alpha, beta)})
-                return out
-            return call
-
         self._patch(self.tmod, "make_vae_train_step", steps)
-        self._patch(self.bmod, "fused_alias_free_snake", k4)
-        self._patch(cls, "_dispatch", self.epoch_clock)
-        self._patch(cls, "_validate", self.timed(
-            self.vals, True, extra=lambda a, out: {"batches": len(a[0]), "metrics": out}))
-        self._patch(cls, "log_images", self.timed(self.logs, True, side=True))
-        self._patch(self.cmod.AudioLogger, "log_img", self.timed(
-            self.writes, True, side=True, extra=lambda a, out: {"clips": sum(
+        self._patch(cls, "_validate", self.recorded(
+            self.vals, extra=lambda a, out: {"batches": len(a[0]), "metrics": out}))
+        self._patch(cls, "log_images", self.recorded(self.logs))
+        self._patch(self.cmod.AudioLogger, "log_img", self.recorded(
+            self.writes, extra=lambda a, out: {"clips": sum(
                 min(len(m), VAE_MAX_IMAGES) for m in a[1].values())}))
-        self._patch(cls, "save_checkpoint", self.timed(self.saves, True))
-        self._patch(self.ckmod.CheckpointManager, "save_monitored",
-                    self.timed(self.monitored, True))
         return self
-
-
-def k4_replay_ms(calls: list) -> float:
-    """The device time of K4 over ``calls`` (the probe's records): each
-    distinct (shape, type, Snake or SnakeBeta, logscale) timed once by
-    ``cuda_ms`` on a random input with the call's own parameters, times the
-    number of its calls."""
-    groups = {}
-    for c in calls:
-        groups.setdefault(c["key"], [c["params"], 0])[1] += 1
-    total = 0.0
-    for (shape, dtype, _, logscale), ((alpha, beta), n) in groups.items():
-        x = torch.randn(shape, device=alpha.device, dtype=dtype)
-        total += n * cuda_ms(lambda: fa1.fused_alias_free_snake(x, alpha, beta, logscale), 20)
-    return total
 
 
 def _vae_cli_run(tag: str, argv: list, expect_steps: int, check=None) -> dict:
@@ -2081,15 +1807,10 @@ def _vae_cli_run(tag: str, argv: list, expect_steps: int, check=None) -> dict:
     from versband_tpu_torch.cli import train as cli
 
     run = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()  # count only this run's launches
-    t0 = time.perf_counter()
     with _VaeCliProbe() as probe:
         rc = cli.main(argv, run=run)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    total, k4_total, peak = launches(), fa1.LAUNCHES, torch.cuda.max_memory_allocated()
+    total, k4_total = launches(), fa1.LAUNCHES
     trainer = run["trainer"]
     factors = [m["metrics"]["disc_factor"] for m in probe.steps]
     bad = [m["launches"] for m in probe.steps if m["launches"] != (0, 0, 0, 0)]
@@ -2097,7 +1818,7 @@ def _vae_cli_run(tag: str, argv: list, expect_steps: int, check=None) -> dict:
     bad += [(w["clips"], w["launches"]) for w in probe.writes
             if w["launches"] != (0, 0, 0, K4_PER_CLIP * w["clips"])]
     want_k4 = K4_PER_CLIP * sum(w["clips"] for w in probe.writes)
-    print(f"[vae-train-cli] {tag}: main() returned {rc} in {wall:.2f} s host wall; "
+    print(f"[vae-train-cli] {tag}: main() returned {rc}; "
           f"{trainer.global_step} steps on batches {sorted({m['shape'] for m in probe.steps})}"
           f", disc_factor per step {factors} (disc_start lowered to {VAE_DISC_START}); "
           f"{len(probe.vals)} validations of {[v['batches'] for v in probe.vals]} batches; "
@@ -2117,42 +1838,16 @@ def _vae_cli_run(tag: str, argv: list, expect_steps: int, check=None) -> dict:
     for v in probe.vals:
         rec = v["metrics"].get("val/rec_loss")
         print(f"[vae-train-cli] {tag}: validation over {v['batches']} batches: "
-              f"{ {k: round(x, 6) for k, x in v['metrics'].items()} }, {v['ms']:.1f} ms host "
-              f"wall (synchronised)")
+              f"{ {k: round(x, 6) for k, x in v['metrics'].items()} }")
         if rec is None or not math.isfinite(rec):
             raise AssertionError(f"[vae-train-cli] {tag}: validation gave {v['metrics']}")
     if check is not None:
         check(run)
-    per_step = [m["events"][0].elapsed_time(m["events"][1]) for m in probe.steps]
-    dev_ms = statistics.median(per_step[1:] or per_step)
-    host_ms = sum(e["ms"] - e["side_ms"] for e in probe.epochs) / sum(
-        e["steps"] for e in probe.epochs)
-    k4_wall = [sum(c["events"][0].elapsed_time(c["events"][1]) for c in w["k4_calls"])
-               for w in probe.writes]
-    k4_ms = [k4_replay_ms(w["k4_calls"]) for w in probe.writes]
-    print(f"[vae-train-cli] {tag}: event time per train step {dev_ms:.2f} ms (median over the "
-          f"steps after the first, {['%.2f' % x for x in per_step]}), {1e3 / dev_ms:.3f} "
-          f"steps/s on the card; host wall per step {host_ms:.2f} ms ({1e3 / host_ms:.3f} "
-          f"steps/s): epochs {['%.1f' % e['ms'] for e in probe.epochs]} ms from on_epoch_start "
-          f"to on_epoch_end (card synchronised), of which image and audio logging "
-          f"{['%.1f' % e['side_ms'] for e in probe.epochs]} ms (taken out), over "
-          f"{[e['steps'] for e in probe.epochs]} steps (loader, C++ mel reads, copies "
-          f"included); validation {[round(v['ms'], 1) for v in probe.vals]} ms; log_images "
-          f"{[round(g['ms'], 1) for g in probe.logs]} ms; PNGs, vocoding and wavs per log "
-          f"event {[round(w['ms'], 1) for w in probe.writes]} ms, of which K4 "
-          f"{['%.3f' % x for x in k4_ms]} ms of device time ({K4_PER_CLIP} launches x "
-          f"{[w['clips'] for w in probe.writes]} clips, replayed at their shapes with the "
-          f"stream held busy; {['%.1f' % x for x in k4_wall]} ms between CUDA events around "
-          f"the calls in the run, host gaps included); save_monitored inside validation "
-          f"{[round(c['ms'], 1) for c in probe.monitored]} ms; save_checkpoint "
-          f"{[round(c['ms'], 1) for c in probe.saves]} ms; peak memory {peak / 2 ** 30:.2f} GiB "
-          f"(max_memory_allocated)")
     logdir, config = run["logdir"], run["config"]
     del run, trainer
     gc.collect()
     torch.cuda.empty_cache()
-    return {"logdir": logdir, "config": config, "k4": k4_total, "device_ms": dev_ms,
-            "host_ms": host_ms, "k4_ms": k4_ms, "peak": peak, "probe": probe,
+    return {"logdir": logdir, "config": config, "k4": k4_total, "probe": probe,
             "factors": factors}
 
 
@@ -2167,11 +1862,10 @@ def phase_vae_train_cli(dev) -> tuple:
     from versband_tpu_torch.utils.config import load_config
 
     root, v2m = CLI_WORK.resolve(), CLI_CONFIG.resolve()
-    t0 = time.perf_counter()
     manifest, bigvgan = write_vae_train_data(root, SEED + 40)
     print(f"[vae-train-cli] manifest of {VAE_VALID + VAE_TRAIN_ROWS} rows ({VAE_VALID} held out "
           f"for validation) over mels of {list(VAE_T_MELS)} frames and one unreadable file, "
-          f"and {BIGVGAN_DIR}/g_00000001 written in {time.perf_counter() - t0:.1f} s")
+          f"and {BIGVGAN_DIR}/g_00000001 written")
     argv = ["-b", str(VAE_CONFIG.resolve()), "-t", "-l", "logs", "-s", str(SEED), "-n", "vae",
             "--max_steps", str(VAE_STEPS), "--max_epochs", "2",
             f"data.params.spec_dir_path={manifest}",
@@ -2180,7 +1874,7 @@ def phase_vae_train_cli(dev) -> tuple:
             f"lightning.callbacks.image_logger.params.max_images={VAE_MAX_IMAGES}",
             f"model.params.lossconfig.params.disc_start={VAE_DISC_START}"]
     cwd = os.getcwd()
-    gen_stats, loaded = [], []
+    loaded = []
     try:
         os.chdir(root)
         seen = {}
@@ -2252,10 +1946,9 @@ def phase_vae_train_cli(dev) -> tuple:
                     "--seed", str(SEED), "--save_dir", "out_vae"]
         ckmod.load_model_checkpoint = recording_load
         try:
-            rc = gen_cli.main(gen_argv, stats=gen_stats)
+            rc = gen_cli.main(gen_argv)
         finally:
             ckmod.load_model_checkpoint = real_load
-        torch.cuda.synchronize()
         n_gen = launches()
         gen_wavs = sorted((root / "out_vae").rglob("*.wav"))
     finally:
@@ -2271,11 +1964,6 @@ def phase_vae_train_cli(dev) -> tuple:
     print(f"[vae-train-cli] cli.generate --vae_ckpt {last.name} (step {VAE_RESUME_STEPS}): "
           f"decoder weights equal to the checkpoint's {dec_equal}; K1 {n_gen[0]}")
     _check_wav("[vae-train-cli] cli.generate", gen_wavs[0], (CLI_T_MEL + 7) // 8 * 8 * HOP)
-    print(f"[vae-train-cli] per run (run 1 / run 2 resumed): event time per step "
-          f"{first['device_ms']:.2f} / {resumed['device_ms']:.2f} ms, host wall per step "
-          f"{first['host_ms']:.2f} / {resumed['host_ms']:.2f} ms, K4 device ms per log event "
-          f"{first['k4_ms']} / {resumed['k4_ms']}, peak {first['peak'] / 2 ** 30:.2f} / "
-          f"{resumed['peak'] / 2 ** 30:.2f} GiB")
     return first["k4"] + resumed["k4"], n_gen[0]
 
 
@@ -2387,35 +2075,6 @@ def voc_audio(dev, B: int, n: int, seed: int) -> torch.Tensor:
             + 0.05 * torch.randn(B, n, generator=g, device=dev))
 
 
-class CallRecorder:
-    """Wraps ``module.name`` (a kernel's wrapper, as a vocoder module
-    imported it) to keep each call's arguments, then puts it back; the
-    wrapped function still launches and counts the kernel."""
-
-    def __init__(self, module, name: str):
-        self.module, self.name, self.calls = module, name, []
-        self.fn = getattr(module, name)
-
-    def __enter__(self):
-        def record(*args, **kw):
-            self.calls.append((args, kw))
-            return self.fn(*args, **kw)
-
-        setattr(self.module, self.name, record)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.module, self.name, self.fn)
-
-    def replay_ms(self) -> float:
-        """Mean device time per recorded call: each call timed again by
-        ``cuda_ms`` on its own arguments (launches made here are not the main
-        path's: read the counts before)."""
-        with torch.inference_mode():
-            return statistics.mean(cuda_ms(lambda a=a, k=k: self.fn(*a, **k), 3, warmup=1)
-                                   for a, k in self.calls)
-
-
 def _snapshot(module: torch.nn.Module) -> dict:
     return {k: v.detach().clone() for k, v in module.named_parameters()}
 
@@ -2426,31 +2085,19 @@ def _max_moved(module: torch.nn.Module, before: dict) -> float:
 
 
 def run_voc_recipe(tag: str, step, gstate: TrainState, dstate: TrainState, batches: list,
-                   gate: int = None) -> dict:
-    """Run ``step`` over ``batches`` with event timing; check finite metrics,
-    moved generator and discriminator weights and, with ``gate`` (PWG's
-    ``disc_start``), a discriminator unchanged before it and moved after."""
+                   gate: int = None) -> None:
+    """Run ``step`` over ``batches``; check finite metrics, moved generator
+    and discriminator weights and, with ``gate`` (PWG's ``disc_start``), a
+    discriminator unchanged before it and moved after."""
     g0, d0 = _snapshot(gstate.model), _snapshot(dstate.model)
-    events, metrics, d_moved = [], [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    metrics, d_moved = [], []
     for batch in batches:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
         metrics.append(step(gstate, dstate, batch))
-        ev[1].record()
-        events.append(ev)
         if gate is not None:  # a host sync per step: only where the gate is checked
             d_moved.append(_max_moved(dstate.model, d0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    ms = [a.elapsed_time(b) for a, b in events]
     for i, m in enumerate(metrics):
         vals = {k: v.item() for k, v in m.items()}
         print(f"[{tag}] step {i + 1}: " + ", ".join(f"{k} {x:.5f}" for k, x in vals.items())
-              + f"; device {ms[i]:.2f} ms"
               + (f"; discriminator max|d| from start {d_moved[i]:.3e}" if gate is not None
                  else ""))
         if not all(math.isfinite(x) for x in vals.values()):
@@ -2463,15 +2110,10 @@ def run_voc_recipe(tag: str, step, gstate: TrainState, dstate: TrainState, batch
                                  and all(x > 0 for x in d_moved[gate:])):
         raise AssertionError(f"[{tag}] the warm-up gate at step {gate}: discriminator moved "
                              f"{d_moved}")
-    med = statistics.median(ms[1:])
     n_g = sum(p.numel() for p in gstate.params)
     n_d = sum(p.numel() for p in dstate.params)
     print(f"[{tag}] {len(batches)} steps: generator {n_g / 1e6:.2f} M and discriminators "
-          f"{n_d / 1e6:.2f} M parameters moved (max|d| {g_moved:.3e}, {d_end:.3e}); device "
-          f"time per step (median of steps 2-{len(batches)}) {med:.2f} ms, "
-          f"{1e3 / med:.3f} steps/s; host wall {wall * 1e3:.1f} ms; peak memory "
-          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
-    return {"ms": med, "peak_gib": peak / 2 ** 30}
+          f"{n_d / 1e6:.2f} M parameters moved (max|d| {g_moved:.3e}, {d_end:.3e})")
 
 
 def _hifigan_batches(dev, mel_fn, B: int, steps: int, seed: int) -> list:
@@ -2486,7 +2128,7 @@ def _fold_to(gen: torch.nn.Module) -> dict:
     return {k: v.cpu() for k, v in fold_weight_norm_(copy.deepcopy(gen)).state_dict().items()}
 
 
-def phase_voc_train_hifigan(dev) -> dict:
+def phase_voc_train_hifigan(dev) -> None:
     """[voc-train-hifigan]: the HiFi-GAN recipe at full width: ``HifiGanGenerator()``
     trainable, MPD (2, 3, 5, 7, 11) and MSD, the port's ``MelSpectrogram``
     on the card as ``mel_fn``, lambda_fm 2 and lambda_mel 45."""
@@ -2504,42 +2146,28 @@ def phase_voc_train_hifigan(dev) -> dict:
     batches = _hifigan_batches(dev, mel_fn, HIFIGAN_B, HIFIGAN_STEPS, SEED + 41)
     print(f"[voc-train-hifigan] batch {HIFIGAN_B} x {VOC_SEG} samples (mel "
           f"{tuple(batches[0]['mel'].shape)}), AdamW {HIFIGAN_OPT}, fp32")
-    return run_voc_recipe("voc-train-hifigan",
-                          make_hifigan_train_step(gen, mpd, msd, mel_fn), gstate, dstate,
-                          batches)
+    run_voc_recipe("voc-train-hifigan", make_hifigan_train_step(gen, mpd, msd, mel_fn), gstate,
+                   dstate, batches)
 
 
-def _serve_trained(tag: str, voc, trained, mel: torch.Tensor, counter, want: int,
-                   recorder: CallRecorder, ref_fn) -> tuple:
+def _serve_trained(tag: str, voc, mel: torch.Tensor, counter, want: int, ref_fn) -> int:
     """Vocode ``mel`` through the wrapper with its kernel live (counts reset
     just before, read just after); hold it to the trained unfused generator
-    (``ref_fn``) on the card; time both and the kernel per launch."""
-    torch.cuda.synchronize()
+    (``ref_fn``) on the card."""
     reset_launches()  # count only the main path's launches
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    with torch.inference_mode(), recorder:
-        ev[0].record()
-        out = voc()
-        ev[1].record()
-    torch.cuda.synchronize()
-    n = counter.LAUNCHES
     with torch.inference_mode():
-        ev[2].record()
+        out = voc()
+        n = counter.LAUNCHES
         ref = ref_fn()
-        ev[3].record()
-    torch.cuda.synchronize()
     err = _max_diff(out, ref)
-    k_ms = recorder.replay_ms()
     name = "K4" if counter is fa1 else "K5"
     print(f"[{tag}] served the trained generator from its checkpoint: {mel.shape[-1]} frames -> "
-          f"{out.shape[-1]} samples, {n} {name} launches (want {want}); vocode "
-          f"{ev[0].elapsed_time(ev[1]):.2f} ms with {name}, the trained unfused generator "
-          f"{ev[2].elapsed_time(ev[3]):.2f} ms; max|d| {err:.3e} (tol {MODULE_TOL:g}, phase 7's "
-          f"bar for {name} through the generator), |out|max {ref.abs().max():.3f}; {name} "
-          f"{k_ms:.3f} ms per launch (each call replayed)")
+          f"{out.shape[-1]} samples, {n} {name} launches (want {want}); max|d| {err:.3e} (tol "
+          f"{MODULE_TOL:g}, phase 7's bar for {name} through the generator), |out|max "
+          f"{ref.abs().max():.3f}")
     if not (n == want and err <= MODULE_TOL and torch.isfinite(out).all()):
         raise AssertionError(f"[{tag}] {n} {name} launches (want {want}), max|d| {err}")
-    return n, k_ms
+    return n
 
 
 def phase_voc_train_bigvgan(dev) -> dict:
@@ -2549,7 +2177,6 @@ def phase_voc_train_bigvgan(dev) -> dict:
     K4 live."""
     from versband_tpu_torch.dsp.mel import MelSpectrogram
     from versband_tpu_torch.train.vocoder_step import make_hifigan_train_step
-    from versband_tpu_torch.vocoder import bigvgan as vb
     from versband_tpu_torch.vocoder.discriminators import (MultiPeriodDiscriminator,
                                                           MultiResolutionDiscriminator)
 
@@ -2571,8 +2198,8 @@ def phase_voc_train_bigvgan(dev) -> dict:
     batches = _hifigan_batches(dev, mel_fn, BIGVGAN_B, BIGVGAN_STEPS, SEED + 51)
     print(f"[voc-train-bigvgan] batch {BIGVGAN_B} x {VOC_SEG} samples, MRD {MRD_RESOLUTIONS}, "
           f"AdamW {HIFIGAN_OPT}, fp32")
-    out = run_voc_recipe("voc-train-bigvgan", make_hifigan_train_step(gen, mpd, mrd, mel_fn),
-                         gstate, dstate, batches)
+    run_voc_recipe("voc-train-bigvgan", make_hifigan_train_step(gen, mpd, mrd, mel_fn),
+                   gstate, dstate, batches)
 
     ckpt = VOC_DIR / "bigvgan"
     ckpt.mkdir(parents=True, exist_ok=True)
@@ -2580,10 +2207,9 @@ def phase_voc_train_bigvgan(dev) -> dict:
     voc = build_vocoder("bigvgan", str(ckpt), device=dev)
     mel = mel_fn(voc_audio(dev, 1, VOC_T_MEL * HOP, SEED + 52))  # 1500 frames
     gen.eval()
-    n, k_ms = _serve_trained("voc-train-bigvgan", lambda: voc.waveform(mel), gen, mel, fa1,
-                             K4_PER_CLIP, CallRecorder(vb, "fused_alias_free_snake"),
-                             lambda: gen(mel))
-    return {**out, "k4": n, "k4_ms": k_ms}
+    n = _serve_trained("voc-train-bigvgan", lambda: voc.waveform(mel), mel, fa1, K4_PER_CLIP,
+                       lambda: gen(mel))
+    return {"k4": n}
 
 
 def _pwg_batches(dev, mel_fn, B: int, steps: int, seed: int) -> list:
@@ -2620,10 +2246,9 @@ def phase_voc_train_pwg(dev) -> dict:
     print(f"[voc-train-pwg] batch {PWG_B} x {PWG_FRAMES * HOP} samples (mel "
           f"{tuple(batches[0]['mel'].shape)}), RAdam 1e-4 / 5e-5 eps 1e-6, lambda_adv 4, "
           f"disc_start {PWG_DISC_START}, fp32")
-    out = run_voc_recipe("voc-train-pwg",
-                         make_pwg_train_step(gen, disc, lambda_adv=4.0,
-                                             disc_start=PWG_DISC_START),
-                         gstate, dstate, batches, gate=PWG_DISC_START)
+    run_voc_recipe("voc-train-pwg",
+                   make_pwg_train_step(gen, disc, lambda_adv=4.0, disc_start=PWG_DISC_START),
+                   gstate, dstate, batches, gate=PWG_DISC_START)
 
     ckpt = VOC_DIR / "pwg"
     ckpt.mkdir(parents=True, exist_ok=True)
@@ -2635,11 +2260,10 @@ def phase_voc_train_pwg(dev) -> dict:
     noise = torch.randn((1, 1, mel.shape[-1] * HOP), dtype=torch.float32, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(SEED + 63))
     gen.eval()
-    n, k_ms = _serve_trained("voc-train-pwg", lambda: voc.waveform(mel), gen, mel, fw,
-                             K5_PER_CLIP, CallRecorder(vp, "fused_wavenet_layer"),
-                             lambda: gen(noise, F.pad(mel, (w, w), mode="replicate"))[:, 0])
+    n = _serve_trained("voc-train-pwg", lambda: voc.waveform(mel), mel, fw, K5_PER_CLIP,
+                       lambda: gen(noise, F.pad(mel, (w, w), mode="replicate"))[:, 0])
     shutil.rmtree(VOC_DIR, ignore_errors=True)
-    return {**out, "k5": n, "k5_ms": k_ms}
+    return {"k5": n}
 
 
 def _voc_step_grads(step, gstate, dstate, batch) -> tuple:
@@ -2668,7 +2292,7 @@ def phase_voc_step_parity(dev) -> None:
     off: the port's function on the card) at the bars of phase 10, and as
     the recipes train, through cuDNN, at VOC_STEP_CUDNN_GRAD_TOL: cuDNN's
     fp32 convolution backward (its default, deterministic and benchmarked
-    algorithms alike, ``voc_probe.py grad``) left HiFi-GAN's stage-2
+    algorithms alike) left HiFi-GAN's stage-2
     gradients 2.4e-3 of their scale from float64 on an H100 (the forward
     3.5e-7), where PyTorch's own CUDA convolutions and the CPU's fp32 step
     are 9.1e-4 away."""
@@ -2711,12 +2335,8 @@ def phase_voc_step_parity(dev) -> None:
             dstate = TrainState(disc, make_radam(5e-5, eps=1e-6))
             step = make_pwg_train_step(gen, disc, lambda_adv=4.0, disc_start=0)
         batch = {k: v.to(device, dtype) for k, v in batches[name].items()}
-        t0 = time.perf_counter()
         with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
-            out = _voc_step_grads(step, gstate, dstate, batch)
-        print(f"[voc-step] {name} on {device.type} ({dtype}, cuDNN {'on' if cudnn else 'off'}): "
-              f"{(time.perf_counter() - t0) * 1e3:.0f} ms of host wall")
-        return out
+            return _voc_step_grads(step, gstate, dstate, batch)
 
     for name in ("hifigan", "pwg"):
         m_ref, g_ref = run(name, torch.device("cpu"), torch.float64)
@@ -2813,20 +2433,16 @@ def phase_prep_cli(dev) -> dict:
     root = work / "prep"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    t0 = time.perf_counter()
     names = write_prep_inputs(root, SEED + 40)
     print(f"[prep-cli] {PREP_ITEMS + 1} pairs of {PREP_SEC:.0f} s stereo int16 wavs at "
-          f"{PREP_SR} Hz (the last silent) written in {time.perf_counter() - t0:.1f} s")
+          f"{PREP_SR} Hz (the last silent) written")
     cwd = os.getcwd()
     try:
         os.chdir(root)
         rcs = [make_manifest.main(["--prompts", "prompts.tsv", "--data_root", str(root),
                                    "--out", "music.tsv", "--path_template", PREP_TEMPLATE])]
         listed = len(read_tsv("music.tsv"))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         rcs.append(mel_extract.main(["--tsv_path", "music.tsv"]))  # on the card
-        extract_s = time.perf_counter() - t0
         rcs.append(mel_extract.main(["--tsv_path", "music.tsv", "--mode", "addmel2tsv"]))
         table = read_tsv("music.tsv")
         by_name = {r["name"]: r for r in table.rows}
@@ -2842,8 +2458,7 @@ def phase_prep_cli(dev) -> dict:
     finally:
         os.chdir(cwd)
     mels = [np.load(r["mel_path"]) for r in table.rows]
-    print(f"[prep-cli] make_manifest listed {listed} rows; extract on the card took "
-          f"{extract_s:.2f} s host wall for {listed} clips; addmel2tsv kept {len(table)} and "
+    print(f"[prep-cli] make_manifest listed {listed} rows; addmel2tsv kept {len(table)} and "
           f"dropped {listed - len(table)}; postprocess wrote {len(total)} items "
           f"({len(joined)} joined), midi/beats of {sorted({m.shape for m in midi.values()})}")
     if (any(rcs) or listed != 2 * (PREP_ITEMS + 1) or len(table) != 2 * PREP_ITEMS
@@ -2853,29 +2468,18 @@ def phase_prep_cli(dev) -> dict:
                    or not np.isfinite(m).all() for m in mels)):
         raise AssertionError(f"[prep-cli] rcs {rcs}, rows {listed}/{len(table)}/{len(total)}")
 
-    # one clip's mel as extract computes it: on the card (timed) and on the CPU
+    # one clip's mel as extract computes it: on the card and on the CPU
     wav, _ = load_wav(table.rows[0]["audio_path"], SR)
     wav = normalize_loudness(wav, -14.0, SR, max_gain_db=20.0)[: int(PREP_SEC * SR)]
     y = torch.from_numpy(np.ascontiguousarray(wav[None], np.float32))
     melnet = MelSpectrogram()
     with torch.no_grad():
         ref = melnet(y)[0].numpy()
-        y_dev = y.to(dev)
-        times = []
-        for _ in range(12):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-            ev[0].record()
-            out = melnet(y_dev)
-            ev[1].record()
-            ev[1].synchronize()
-            times.append(ev[0].elapsed_time(ev[1]))
-        got = out[0].cpu().numpy()
+        got = melnet(y.to(dev))[0].cpu().numpy()
     d_card = float(np.abs(got - ref).max())
     d_file = float(np.abs(mels[0] - ref).max())
-    mel_ms = statistics.median(times[2:])
-    print(f"[prep-cli] mel of one {PREP_SEC:.0f} s clip on the card: {mel_ms:.3f} ms (CUDA "
-          f"events, median of 10 after 2 warm-up); max|d| against the port's CPU mel "
-          f"{d_card:.3e} (the file extract wrote: {d_file:.3e}), bar {MEL_TOL}")
+    print(f"[prep-cli] mel of one {PREP_SEC:.0f} s clip on the card: max|d| against the port's "
+          f"CPU mel {d_card:.3e} (the file extract wrote: {d_file:.3e}), bar {MEL_TOL}")
     if not (d_card <= MEL_TOL and d_file <= MEL_TOL):
         raise AssertionError(f"[prep-cli] card mel off the CPU's by {d_card}, file {d_file}")
 
@@ -2895,8 +2499,8 @@ def phase_prep_cli(dev) -> dict:
                              phase="prep-cli")
     finally:
         os.chdir(cwd)
-    return {"launches": run["launches"], "mel_ms": mel_ms, "mel_err": d_card,
-            "kept": len(table), "dropped": listed - len(table)}
+    return {"launches": run["launches"], "mel_err": d_card, "kept": len(table),
+            "dropped": listed - len(table)}
 
 
 def _free_port() -> int:
@@ -2913,8 +2517,8 @@ def phase_ddp(dev) -> dict:
     environment (NCCL) against the same run without a process group; cli.train
     under ``torch.distributed.run``; ``--devices`` above the host's cards
     (2 on one card) raises.
-    Returns the in-process runs' K1/K2/K3 launches and the all-reduce
-    figures."""
+    Returns the in-process runs' K1/K2/K3 launches and the all-reduce's
+    bytes."""
     from versband_tpu_torch import parallel
     from versband_tpu_torch.cli import train as cli
     from versband_tpu_torch.data.vocal2accomp import JoinManifestSpecs
@@ -2932,12 +2536,9 @@ def phase_ddp(dev) -> dict:
     reduce_calls = []
     real_reduce = TrainState.reduce_gradients
 
-    def timed_reduce(state):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-        ev[0].record()
+    def counted_reduce(state):
         real_reduce(state)
-        ev[1].record()
-        reduce_calls.append((ev, sum(p.numel() * p.element_size() for p in state.params)))
+        reduce_calls.append(sum(p.numel() * p.element_size() for p in state.params))
 
     # the datasets' draws are not seeded by --seed (ROADMAP Queue 3): each
     # item's stream restarts from [SEED, index], so the two runs see one batch
@@ -2954,7 +2555,7 @@ def phase_ddp(dev) -> dict:
         plain = _train_cli_run(dev, "no process group", base + steps + ["-n", "ddp_plain"],
                                DDP_STEPS, phase="ddp")
         os.environ.update(env)
-        TrainState.reduce_gradients = timed_reduce
+        TrainState.reduce_gradients = counted_reduce
         nccl = _train_cli_run(dev, "torchrun environment, NCCL, world size 1",
                               base + steps + ["-n", "ddp_nccl"], DDP_STEPS, phase="ddp")
     finally:
@@ -2968,27 +2569,23 @@ def phase_ddp(dev) -> dict:
     loss = [torch.cat([m["loss"].reshape(-1).double().cpu() for m in r["probe"].metrics])
             for r in (plain, nccl)]
     diff = float((loss[0] - loss[1]).abs().max())
-    torch.cuda.synchronize()
-    ar_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in reduce_calls]
-    nbytes = reduce_calls[0][1] if reduce_calls else 0
+    nbytes = reduce_calls[0] if reduce_calls else 0
     print(f"[ddp] losses per step without a group {loss[0].tolist()}, under NCCL at world size "
           f"1 {loss[1].tolist()}: max|d| {diff:.3e} (bar {DDP_LOSS_TOL}); the DiT's gradient "
-          f"all-reduce: {nbytes} bytes in one buffer, {statistics.median(ar_ms):.3f} ms a step "
-          f"(CUDA events, median of {len(ar_ms)}: {['%.3f' % x for x in ar_ms]})")
-    if len(ar_ms) != DDP_STEPS or not diff <= DDP_LOSS_TOL * max(1.0, float(loss[0].abs().max())):
-        raise AssertionError(f"[ddp] losses off by {diff} or {len(ar_ms)} all-reduces")
+          f"all-reduce: {nbytes} bytes in one buffer, {len(reduce_calls)} calls")
+    if len(reduce_calls) != DDP_STEPS \
+            or not diff <= DDP_LOSS_TOL * max(1.0, float(loss[0].abs().max())):
+        raise AssertionError(f"[ddp] losses off by {diff} or {len(reduce_calls)} all-reduces")
 
     # a torchrun launch of the CLI, as a user runs it
     argv = base + ["--max_steps", "2", "--max_epochs", "1", "-n", "torchrun"]
     repo = str(Path(__file__).resolve().parent)
     sub_env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
-    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                            "--nproc_per_node", "1", "-m", "versband_tpu_torch.cli.train",
                            *argv], cwd=work, env=sub_env, capture_output=True, text=True,
                           timeout=600)
-    sub_s = time.perf_counter() - t0
     logdirs = sorted((work / "logs").glob("*_torchrun"))
     ckpts = sorted(p.name for d in logdirs for p in (d / "checkpoints").iterdir()) \
         if logdirs else []
@@ -2996,7 +2593,7 @@ def phase_ddp(dev) -> dict:
         if len(logdirs) == 1 and "last_step.json" in ckpts else {}
     lr_lines = [line for line in proc.stdout.splitlines() if "learning rate" in line]
     print(f"[ddp] torch.distributed.run --standalone --nproc_per_node 1 -m "
-          f"versband_tpu_torch.cli.train: exit {proc.returncode} in {sub_s:.1f} s; run "
+          f"versband_tpu_torch.cli.train: exit {proc.returncode}; run "
           f"directories {[d.name for d in logdirs]}, checkpoints {ckpts}, last_step.json "
           f"{meta}; {lr_lines}")
     if proc.returncode != 0 or len(logdirs) != 1 or ckpts.count("last.pt") != 1 \
@@ -3015,8 +2612,7 @@ def phase_ddp(dev) -> dict:
         raise AssertionError(f"[ddp] --devices {n_cards + 1} on {n_cards} card(s) did not raise")
     counts = [plain["launches"], nccl["launches"]]
     return {"launches": tuple(sum(c[i] for c in counts) for i in range(3)),
-            "allreduce_ms": statistics.median(ar_ms), "allreduce_bytes": nbytes,
-            "loss_diff": diff}
+            "allreduce_bytes": nbytes, "loss_diff": diff}
 
 
 # [audioldm]: AudioLDM's best-of-N generation over the shipped DiT
@@ -3208,11 +2804,10 @@ def phase_audioldm(dev) -> dict:
     """[audioldm]: ``AudioLDM.generate_batch`` (DDIM S 200, eta 1, CFG 2.0, 3
     candidates; then PLMS S 50) and ``ddpm_sample_loop`` (B 1, no CFG) at full
     width, with exact K1 launch counts; K1 at the new shape against its plain
-    version; card against CPU; timings."""
+    version; card against CPU."""
     from versband_tpu_torch.models.samplers import ddpm_sample_loop
     from versband_tpu_torch.models.schedules import DiffusionSchedule
 
-    t0 = time.perf_counter()
     ldm, voc, clap = build_audioldm(dev)
     print(f"[audioldm] built {type(ldm).__name__} from {CLI_CONFIG} with target {LDM_TARGET} "
           f"(DiT {sum(p.numel() for p in ldm.model.parameters()) / 1e6:.1f} M, VAE, "
@@ -3220,25 +2815,22 @@ def phase_audioldm(dev) -> dict:
           f"{ldm.schedule.betas[-1]:.5f}), HiFi-GAN, CLAP (Cnn14 "
           f"{sum(p.numel() for p in clap.audio_encoder.parameters()) / 1e6:.1f} M, BERT "
           f"{sum(p.numel() for p in clap.caption_encoder.base.parameters()) / 1e6:.1f} M from "
-          f"{BERT_DIR}) in {time.perf_counter() - t0:.1f} s")
+          f"{BERT_DIR})")
     cond, uncond = ldm_context(dev, T_MEL, SEED + 10)
-    counts, res = {}, {}
+    counts = {}
     n = T_MEL * HOP
     for name, plms, S in (("ddim", False, LDM_DDIM_S), ("plms", True, LDM_PLMS_S)):
-        events, trace = [], {}
+        trace = {}
         model = ldm.model
-        ldm.model = _CallThrough(model, events)
+        ldm.model = counted = _CallCounter(model)
         gen = torch.Generator(device=dev).manual_seed(SEED + 60)
-        torch.cuda.synchronize()
         reset_launches()  # count only the main path's launches
-        t1 = time.perf_counter()
         wav = ldm.generate_batch(cond, LDM_CAPTIONS, voc.waveform, clap, gen, uncond=uncond,
                                  guidance_scale=LDM_SCALE, n_candidates=LDM_N, ddim_steps=S,
                                  eta=LDM_ETA, use_plms=plms, shape=(1, 20, T_LAT), trace=trace)
-        wall = time.perf_counter() - t1
         counts[name] = fa.LAUNCHES
         ldm.model = model
-        calls = len(events)
+        calls = counted.calls
         want_calls = S + int(plms)
         if calls != want_calls or counts[name] != DIT["depth"] * want_calls:
             raise AssertionError(f"[audioldm] {name}: {calls} model calls, {counts[name]} K1 "
@@ -3250,12 +2842,9 @@ def phase_audioldm(dev) -> dict:
                                  f"{bool(torch.isfinite(w).all())}")
         if wav.shape != (1, n) or not np.isfinite(wav).all():
             raise AssertionError(f"[audioldm] {name}: the chosen waveform {wav.shape}")
-        step_ms = events[0].elapsed_time(events[-1]) / (calls - 1)
-        res[name] = dict(step_ms=step_ms, wall=wall, best=trace["best_index"])
         print(f"[audioldm] {name} S {S}: {calls} DiT calls at batch {2 * LDM_N} (CFG), K1 "
-              f"launches {counts[name]} (= 4 x {want_calls}); {step_ms:.2f} ms per step (device, "
-              f"between the calls' ends); generate_batch host wall {wall * 1e3:.1f} ms; "
-              f"candidates {tuple(w.shape)} finite, chosen row {trace['best_index']}, "
+              f"launches {counts[name]} (= 4 x {want_calls}); candidates {tuple(w.shape)} "
+              f"finite, chosen row {trace['best_index']}, "
               f"similarities {np.round(trace['sims'][:, 0], 4).tolist()}")
 
     # the ancestral loop, B 1 without CFG
@@ -3264,36 +2853,17 @@ def phase_audioldm(dev) -> dict:
     if LDM_ANCESTRAL_T != ldm.num_timesteps:
         print(f"[audioldm] ancestral loop cut to {LDM_ANCESTRAL_T} of {ldm.num_timesteps} "
               f"timesteps (the same linear range)")
-    events = []
     gen = torch.Generator(device=dev).manual_seed(SEED + 61)
-    torch.cuda.synchronize()
     reset_launches()
-    t1 = time.perf_counter()
-    z = ddpm_sample_loop(_CallThrough(ldm.model, events), sched, (1, 20, T_LAT), cond, gen,
-                         device=dev)
-    torch.cuda.synchronize()
-    anc_wall = time.perf_counter() - t1
+    z = ddpm_sample_loop(ldm.model, sched, (1, 20, T_LAT), cond, gen, device=dev)
     counts["ancestral"] = fa.LAUNCHES
     if counts["ancestral"] != DIT["depth"] * LDM_ANCESTRAL_T or not torch.isfinite(z).all():
         raise AssertionError(f"[audioldm] ancestral: {counts['ancestral']} K1 launches "
                              f"(expected {DIT['depth'] * LDM_ANCESTRAL_T}), finite "
                              f"{bool(torch.isfinite(z).all())}")
-    anc_ms = events[0].elapsed_time(events[-1]) / (len(events) - 1)
     print(f"[audioldm] ancestral T {LDM_ANCESTRAL_T} at B 1: K1 launches {counts['ancestral']} "
-          f"(= 4 x {LDM_ANCESTRAL_T}); {anc_ms:.2f} ms per step (device); host wall "
-          f"{anc_wall:.2f} s; latents {tuple(z.shape)} finite, |z|max {z.abs().max():.3f}")
-
-    # the rerank's parts, timed on the card
-    wav3 = torch.randn(LDM_N, n, generator=torch.Generator(device=dev).manual_seed(SEED + 62),
-                       device=dev) * 0.1
-    cnn_ms = cuda_ms(lambda: clap.audio_encoder(wav3), 5) / LDM_N
-    ids = torch.from_numpy(np.asarray(clap.tokenize(LDM_CAPTIONS), np.int64)).to(dev)
-    bert_ms = cuda_ms(lambda: clap.caption_encoder.base(ids), 20)
-    rerank_ms = LDM_N * cnn_ms + bert_ms
-    print(f"[audioldm] CLAP: Cnn14 {cnn_ms:.2f} ms per 20 s candidate, BERT "
-          f"{tuple(ids.shape)} {bert_ms:.2f} ms per call (device); the rerank ~{rerank_ms:.1f} ms "
-          f"is {rerank_ms / (res['ddim']['wall'] * 1e3):.2%} of DDIM's generate_batch wall and "
-          f"{rerank_ms / (res['plms']['wall'] * 1e3):.2%} of PLMS's")
+          f"(= 4 x {LDM_ANCESTRAL_T}); latents {tuple(z.shape)} finite, |z|max "
+          f"{z.abs().max():.3f}")
 
     # K1 at the new shape: DDIM/PLMS with CFG over 3 candidates, fp32
     g = torch.Generator(device=dev).manual_seed(SEED + 63)
@@ -3303,19 +2873,11 @@ def phase_audioldm(dev) -> dict:
     err = _max_diff(got, ref)
     if not err <= K1_TOL[torch.float32]:
         raise AssertionError(f"[audioldm] K1 at q{tuple(q.shape)} fp32 disagrees: {err}")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 50)
-    plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), 10)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 50)
-    bound, by = k1_bound_ms(q, k, v, None)
     print(f"[audioldm] K1 q{tuple(q.shape)} fp32: max|kernel-plain| {err:.3e} (tol "
-          f"{K1_TOL[torch.float32]:g}); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"scaled_dot_product_attention {lib:.4f} ms, bound {bound:.4f} ms ({by}), kernel at "
-          f"{bound / ms:.1%} of bound")
+          f"{K1_TOL[torch.float32]:g})")
 
     phase_audioldm_parity(ldm, voc, clap, dev)
     shutil.rmtree(BERT_DIR, ignore_errors=True)
-    print(f"[audioldm] phase wall {time.perf_counter() - t0:.1f} s")
     return {"k1": sum(counts.values())}
 
 
@@ -3358,46 +2920,18 @@ def perturb_zeros(model: torch.nn.Module, seed: int, std: float = 0.02) -> int:
     return n
 
 
-def timefreq_flops(B: int, T: int, Ty: int, cfg: dict) -> float:
-    """FLOPs of one TimeFreqMoeDiT forward: per block the q/k/v/o and caption
-    k/v projections, self and cross attention, the dense time and frequency
-    experts (E x 3 SwiGLU products each) and adaLN; proj_in, the final layer
-    and the caption embedder once."""
-    from versband_tpu_torch.nn.core import swiglu_hidden_dim
-
-    H, E, C = cfg["hidden_size"], cfg["num_experts"], cfg["in_channels"]
-    h = swiglu_hidden_dim(4 * H, cfg["multiple_of"])
-    block = (2 * B * T * 4 * H * H + 2 * B * Ty * 2 * H * H + 4 * B * T * (T + Ty) * H
-             + 2 * E * 3 * 2 * B * T * H * h + 2 * B * 6 * H * H)
-    return cfg["depth"] * block + 2 * B * T * C * H * 2 + 2 * B * Ty * (cfg["context_dim"] + H) * H
-
-
-def concat_flops(B: int, T: int, Tc: int, cfg: dict) -> float:
-    """FLOPs of one ConcatOrderDiT forward over L = 1 + Tc + T tokens: per
-    block the 1x1 convs, two attentions (4 projections and the products each)
-    and the k9 GEGLU convs (8H and 4H channels out of H and 4H: 108 H^2 per
-    token); proj_in (k5), the caption embedder and the head once."""
-    H, C, L = cfg["hidden_size"], cfg["in_channels"], 1 + Tc + T
-    block = 2 * B * L * (2 + 8 + 108) * H * H + 2 * 4 * B * L * L * H
-    return (cfg["depth"] * block + 2 * B * T * 5 * C * H + 2 * B * Tc * (cfg["context_dim"] + H) * H
-            + 2 * B * T * H * C)
-
-
 def phase_timefreq_cli(dev) -> int:
     """[timefreq-cli]: ``cli.generate.main`` on configs/vocal2music.yaml with
     its ``unet_config`` replaced by ``VideoFlagLargeDiT`` at the published
     widths, from ``CLI_WORK`` as phase 11 left it (the T5 directory, the VAE,
     the manifest), 1 item at ``--scales 2`` vocoded by BigVGAN; returns its K4
-    launches (73; K1 none: the attention is plain, as in JAX), the sampler's
-    ms and TFLOP/s a step and the parameter count."""
+    launches (73; K1 none: the attention is plain, as in JAX)."""
     from versband_tpu_torch.cli import generate as cli
-    from versband_tpu_torch.models import cfm as cfm_mod
     from versband_tpu_torch.models.dit_timefreq import TimeFreqMoeDiT
     from versband_tpu_torch.utils.config import config_to_yaml, load_config
     from versband_tpu_torch.utils.misc import count_params
 
     root = CLI_WORK.resolve()
-    t0 = time.perf_counter()
     cfg = load_config(str(CLI_CONFIG))
     cfg["model"]["params"]["unet_config"] = {"target": TIMEFREQ_TARGET, "params": dict(TIMEFREQ)}
     (root / "timefreq.yaml").write_text(config_to_yaml(cfg))
@@ -3417,20 +2951,10 @@ def phase_timefreq_cli(dev) -> int:
                    root / TIMEFREQ_BIGVGAN / "g_00000001")
     print(f"[timefreq-cli] {TIMEFREQ_TARGET} {TIMEFREQ}: {n_params / 1e9:.3f} B parameters "
           f"(count_params), {n_params * 4 / 1e9:.2f} GB in fp32; its zero-init layers "
-          f"({count_params(part) / 1e6:.1f} M) and a BigVGAN written in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"({count_params(part) / 1e6:.1f} M) and a BigVGAN written")
     del meta, part
 
-    builds, shapes = [], []
-    build, fwd = cfm_mod.LatentDiffusion._build, TimeFreqMoeDiT.forward
-
-    def timed_build(self, config):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        m = build(self, config)
-        torch.cuda.synchronize()
-        builds.append((type(m).__name__, time.perf_counter() - t))
-        return m
+    shapes, fwd = [], TimeFreqMoeDiT.forward
 
     def seen_forward(self, x, t, context, *a, **k):
         ctx = context.get("c_crossattn", context) if isinstance(context, dict) else context
@@ -3443,49 +2967,31 @@ def phase_timefreq_cli(dev) -> int:
             str(root / "manifest"), "--other_condition", str(root / "midi.npy"),
             "--scales", TIMEFREQ_SCALE, "--num_items", "1", "--seed", str(SEED),
             "--save_dir", "out_timefreq"]
-    cwd, stats = os.getcwd(), []
-    cfm_mod.LatentDiffusion._build, TimeFreqMoeDiT.forward = timed_build, seen_forward
+    cwd = os.getcwd()
+    TimeFreqMoeDiT.forward = seen_forward
     try:
         os.chdir(root)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_launches()  # count only this path's launches
-        t0 = time.perf_counter()
-        rc = cli.main(argv, stats=stats)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        rc = cli.main(argv)
         k1, k4, k5 = fa.LAUNCHES, fa1.LAUNCHES, fw.LAUNCHES
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
         os.chdir(cwd)
-        cfm_mod.LatentDiffusion._build, TimeFreqMoeDiT.forward = build, fwd
-    print(f"[timefreq-cli] main() returned {rc} in {wall:.2f} s host wall (builds, checkpoint "
-          f"loads, T5 and BigVGAN included); built on {dev}: "
-          + ", ".join(f"{n} {s:.2f} s" for n, s in builds)
-          + f"; peak memory {peak:.2f} GiB; launches K1 {k1}, K4 {k4} (want {K4_PER_CLIP}), "
-            f"K5 {k5}")
+        TimeFreqMoeDiT.forward = fwd
+    print(f"[timefreq-cli] main() returned {rc} on {dev}; launches K1 {k1}, K4 {k4} (want "
+          f"{K4_PER_CLIP}), K5 {k5}")
     if rc != 0 or k1 or k5 or k4 != K4_PER_CLIP:
         raise AssertionError(f"[timefreq-cli] rc {rc}, launches K1 {k1}, K4 {k4}, K5 {k5}")
     (B, _, T), (_, Ty, _) = shapes[0]
     if len(shapes) != STEPS - 1 or B != 2 or T != T_LAT:
         raise AssertionError(f"[timefreq-cli] {len(shapes)} DiT calls of {shapes[0]}; expected "
                              f"{STEPS - 1} at B 2 (CFG) x T {T_LAT}")
-    row = stats[0]
-    for st in cli.STAGES:
-        if st + "_ms" in row:
-            print(f"[timefreq-cli] stage {st}: {row[st + '_ms']:.2f} ms host wall, "
-                  f"{row[st + '_device_ms']:.2f} ms device")
-    step_ms = row["sampler_device_ms"] / (STEPS - 1)
-    flops = timefreq_flops(B, T, Ty, TIMEFREQ)
     print(f"[timefreq-cli] sampler: {STEPS - 1} Euler steps at B {B} (CFG) x T {T} (caption "
-          f"{Ty} tokens), {step_ms:.2f} ms a step (device; the stage over its steps), "
-          f"{flops / 1e12:.2f} TFLOP a step, {flops / step_ms / 1e9:.2f} TFLOP/s; the stage "
-          f"{row['sampler_device_ms'] / 1e3:.2f} s")
+          f"{Ty} tokens)")
     wavs = sorted((root / "out_timefreq").rglob("*.wav"))
     if len(wavs) != 1:
         raise AssertionError(f"[timefreq-cli] {len(wavs)} wavs, want 1")
     _check_wav("[timefreq-cli]", wavs[0], (CLI_T_MEL + 7) // 8 * 8 * HOP)
-    return dict(k4=k4, step_ms=step_ms, tflops=flops / step_ms / 1e9, params=n_params)
+    return k4
 
 
 def order_context(dev, bert_dir: Path, seed: int) -> dict:
@@ -3510,7 +3016,7 @@ def order_context(dev, bert_dir: Path, seed: int) -> dict:
 
 
 @torch.no_grad()
-def phase_concat_order(dev) -> dict:
+def phase_concat_order(dev) -> None:
     """[concat-order]: ``LatentDiffusionOrder`` over ``ConcatOrderDiT`` at its
     class defaults (built through the resolver), DDIM S 25, eta 0, batch 2,
     no CFG, decode, HiFi-GAN."""
@@ -3521,7 +3027,6 @@ def phase_concat_order(dev) -> dict:
 
     if 1 + ORDER_TC + T_LAT > CONCAT_ORDER["max_len"]:
         raise AssertionError(f"[concat-order] 1 + {ORDER_TC} + {T_LAT} tokens exceed max_len")
-    t0 = time.perf_counter()
     if not BERT_DIR.exists():
         write_bert_dir(BERT_DIR, BERT_BASE_UNCASED, SEED + 40)
     ctx = order_context(dev, BERT_DIR, SEED + 80)
@@ -3531,11 +3036,7 @@ def phase_concat_order(dev) -> dict:
                                "params": dict(CONCAT_ORDER)},
                   cond_stage_config=None, conditioning_key="crossattn")
     torch.manual_seed(SEED)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     ldm = instantiate_from_config({"target": ORDER_LDM_TARGET, "params": params}, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t1
     if not isinstance(ldm.model, ConcatOrderDiT):
         raise AssertionError(f"[concat-order] built {type(ldm.model).__name__}")
     drawn = perturb_zeros(ldm.model, SEED + 81)
@@ -3544,50 +3045,37 @@ def phase_concat_order(dev) -> dict:
     ids = ctx["token_ids"]
     print(f"[concat-order] {type(ldm).__name__} ({ORDER_LDM_TARGET}) over ConcatOrderDiT "
           f"{CONCAT_ORDER}: {n_params / 1e9:.3f} B parameters, {n_params * 4 / 1e9:.2f} GB fp32, "
-          f"built on {dev} in {build_s:.2f} s ({drawn / 1e6:.2f} M zero-init weights drawn); "
+          f"built on {dev} ({drawn / 1e6:.2f} M zero-init weights drawn); "
           f"captions {ORDER_CAPTIONS} -> ids {tuple(ids.shape)} (separators "
           f"{(ids == ORDER_SEP_ID).sum(1).tolist()}, [CLS] {ids[:, 0].tolist()}), orders "
-          f"{ctx['orders'].tolist()}, BERT states {tuple(ctx['token_embedding'].shape)}; "
-          f"setup {time.perf_counter() - t0:.1f} s")
-    events, shape = [], (len(ORDER_CAPTIONS), 20, T_LAT)
-    model = _CallThrough(lambda x, t, c: ldm.apply_model(x, t, c), events)
+          f"{ctx['orders'].tolist()}, BERT states {tuple(ctx['token_embedding'].shape)}")
+    shape = (len(ORDER_CAPTIONS), 20, T_LAT)
+    model = _CallCounter(lambda x, t, c: ldm.apply_model(x, t, c))
     gen = torch.Generator(device=dev).manual_seed(SEED + 82)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()  # count only the main path's launches
-    t1 = time.perf_counter()
     sampler = DDIMSampler(model, ldm.schedule)
     n_steps = len(sampler.make_schedule(ORDER_DDIM_S)[0])
     z = sampler.sample(shape, ctx, gen, S=ORDER_DDIM_S, eta=0.0, device=dev)
     mel = ldm.decode_first_stage(z)
     wav = voc.waveform(mel)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
     k1, k4, k5 = fa.LAUNCHES, fa1.LAUNCHES, fw.LAUNCHES
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = events[0].elapsed_time(events[-1]) / (len(events) - 1)
-    flops = concat_flops(shape[0], T_LAT, ORDER_TC, CONCAT_ORDER)
     n = T_MEL * HOP
-    print(f"[concat-order] DDIM S {ORDER_DDIM_S} eta 0 at B {shape[0]}: {len(events)} model "
-          f"calls, {step_ms:.2f} ms a step (device, between the calls' ends), "
-          f"{flops / 1e12:.2f} TFLOP a step, {flops / step_ms / 1e9:.2f} TFLOP/s; sample + "
-          f"decode + HiFi-GAN {wall:.2f} s host wall; peak memory {peak:.2f} GiB; launches K1 "
-          f"{k1}, K4 {k4}, K5 {k5}; waveforms {tuple(wav.shape)}, finite "
+    print(f"[concat-order] DDIM S {ORDER_DDIM_S} eta 0 at B {shape[0]}: {model.calls} model "
+          f"calls; launches K1 {k1}, K4 {k4}, K5 {k5}; waveforms {tuple(wav.shape)}, finite "
           f"{bool(torch.isfinite(wav).all())}, std {wav.std().item():.4f}")
-    if (len(events) != n_steps or k1 or k4 or k5 or tuple(wav.shape) != (shape[0], n)
+    if (model.calls != n_steps or k1 or k4 or k5 or tuple(wav.shape) != (shape[0], n)
             or not torch.isfinite(wav).all() or not wav.std() > 0
             or not torch.isfinite(z).all()):
-        raise AssertionError(f"[concat-order] {len(events)} calls, launches {k1}/{k4}/{k5}, "
+        raise AssertionError(f"[concat-order] {model.calls} calls, launches {k1}/{k4}/{k5}, "
                              f"waveforms {tuple(wav.shape)}")
     del ldm, voc, ctx, z, mel, wav
-    return dict(step_ms=step_ms, tflops=flops / step_ms / 1e9, params=n_params, wall=wall)
 
 
 @torch.no_grad()
 def phase_ae2d(dev) -> None:
     """[ae2d]: AudioLDM's first stage as ``AutoencoderKL2D`` on a
-    ``[2, 1, 1024, 64]`` log-mel image: ``encode().mode()`` and ``decode``
-    timed on the card, card against CPU."""
+    ``[2, 1, 1024, 64]`` log-mel image: ``encode().mode()`` and ``decode``,
+    card against CPU."""
     from versband_tpu_torch.models.autoencoder2d import AutoencoderKL2D
     from versband_tpu_torch.utils.misc import count_params
 
@@ -3598,12 +3086,8 @@ def phase_ae2d(dev) -> None:
     xd = x.to(dev)
     z = gpu.encode(xd).mode()
     rec = gpu.decode(z)
-    enc_ms = cuda_ms(lambda: gpu.encode(xd).mode(), 5, warmup=1)
-    dec_ms = cuda_ms(lambda: gpu.decode(z), 5, warmup=1)
-    t0 = time.perf_counter()
     z_cpu = cpu.encode(x).mode()
     rec_cpu = cpu.decode(z_cpu)
-    cpu_s = time.perf_counter() - t0
     errs = []
     for name, a, b in (("latent", z, z_cpu), ("reconstruction", rec, rec_cpu)):
         scale = max(1.0, b.abs().max().item())
@@ -3611,8 +3095,7 @@ def phase_ae2d(dev) -> None:
         print(f"[ae2d] {name} {tuple(b.shape)} card vs CPU: max|d| / max(1, |cpu|max) "
               f"{errs[-1]:.3e} (tol {MODULE_TOL:g}), |cpu|max {b.abs().max().item():.3f}")
     print(f"[ae2d] AutoencoderKL2D {AE2D} ({count_params(cpu) / 1e6:.2f} M parameters) on "
-          f"{tuple(x.shape)}: encode().mode() {enc_ms:.2f} ms, decode {dec_ms:.2f} ms (device); "
-          f"the CPU took {cpu_s:.1f} s for both")
+          f"{tuple(x.shape)}")
     if not (max(errs) <= MODULE_TOL and torch.isfinite(rec).all()):
         raise AssertionError(f"[ae2d] the card disagrees with the CPU: {errs}")
 
@@ -3708,25 +3191,20 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-class _CallThrough:
-    """A backbone that records a CUDA event after each call (to time the
-    sampler's steps on the card) and otherwise is the backbone."""
+class _CallCounter:
+    """A backbone that counts its calls and otherwise is the backbone."""
 
-    def __init__(self, model, events: list):
-        self.model, self.events = model, events
+    def __init__(self, model):
+        self.model, self.calls = model, 0
 
     def __call__(self, *args, **kw):
-        out = self.model(*args, **kw)
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.events.append(ev)
-        return out
+        self.calls += 1
+        return self.model(*args, **kw)
 
 
 # [tp]: tensor and expert parallelism (the model axis) on one card. Ranks
 # share cuda:0 over a gloo group (NCCL takes one card per rank); each runs K1
-# forward and K2/K3 backward on its own heads. The times are those of
-# processes sharing one card over gloo, not a multi-card figure.
+# forward and K2/K3 backward on its own heads.
 TP_LAYOUTS = ((1, 2), (2, 2))  # (data, model); the first also writes a checkpoint
 TP_WORLD, TP_B, TP_T_MEL, TP_STEPS = 4, 8, 1536, 3  # 1536-frame mels -> latent 768
 # a constant LR, large enough that 1e-3 x LR is above float32's spacing at the
@@ -3824,17 +3302,11 @@ def _tp_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
             def place(b, mesh=mesh):
                 return shard_batch(b, mesh)
 
-            metrics, ms, counts, reduces = [], [], [], []
+            metrics, counts, reduces = [], [], []
             for batch, given in steps[:TP_STEPS]:
-                torch.cuda.synchronize()
                 reset_launches()
                 r0 = (parallel.MODEL_REDUCES, parallel.MODEL_REDUCE_BYTES)
-                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-                ev[0].record()
                 m = _tp_step(trainer, batch, given, dev, place)
-                ev[1].record()
-                torch.cuda.synchronize()
-                ms.append(ev[0].elapsed_time(ev[1]))
                 counts.append(launches())
                 reduces.append((parallel.MODEL_REDUCES - r0[0],
                                 parallel.MODEL_REDUCE_BYTES - r0[1]))
@@ -3846,7 +3318,7 @@ def _tp_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
                 trainer.save_checkpoint("last")  # every rank gathers; rank 0 writes
             first = mesh.data_rank == 0 and mesh.model_rank == 0
             out[layout] = {"coords": (mesh.data_rank, mesh.model_rank), "metrics": metrics,
-                           "ms": ms, "launches": counts, "reduces": reduces,
+                           "launches": counts, "reduces": reduces,
                            "state_bytes": 3 * local, "checksum": checksum,
                            "params": params if first else None}
             del trainer, cfm
@@ -3868,7 +3340,6 @@ def phase_tp(dev) -> dict:
     from versband_tpu_torch import parallel
     from versband_tpu_torch.train.checkpoints import CheckpointManager
 
-    t_phase = time.perf_counter()
     shutil.rmtree(TP_WORK, ignore_errors=True)
     TP_WORK.mkdir(parents=True)
     ranks = mp.start_processes(_tp_rank, args=(TP_WORLD, str((TP_WORK / "rdzv").resolve()),
@@ -3879,14 +3350,9 @@ def phase_tp(dev) -> dict:
     checksum = _tp_checksum(cfm.model) + _tp_checksum(cfm.first_stage)
     trainer = _tp_trainer(cfm, TP_WORK / "one")
     trainer.init_state({"image": steps[0][0]["image"]})
-    one, one_ms = [], []
+    one = []
     for i, (batch, given) in enumerate(steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-        ev[0].record()
         m = _tp_step(trainer, batch, given, dev)
-        ev[1].record()
-        torch.cuda.synchronize()
-        one_ms.append(ev[0].elapsed_time(ev[1]))
         one.append({k: v.item() for k, v in m.items()})
         if i == TP_STEPS - 1:
             one_params = {k: v.detach().cpu().clone() for k, v in cfm.model.state_dict().items()}
@@ -3934,15 +3400,13 @@ def phase_tp(dev) -> dict:
                                  f"from the one-process steps (bar {TP_PARAM_TOL})")
         n, b = members[0]["reduces"][-1]
         for m in sorted(members, key=lambda m: m["coords"]):
-            print(f"[tp] ({layout[0]} data, {layout[1]} model) rank {m['coords']}: event ms "
-                  f"per step {['%.2f' % x for x in m['ms']]}; K1/K2/K3 per step "
-                  f"{m['launches'][-1]}; params + Adam state {m['state_bytes'] / 2 ** 20:.1f} "
+            print(f"[tp] ({layout[0]} data, {layout[1]} model) rank {m['coords']}: K1/K2/K3 per "
+                  f"step {m['launches'][-1]}; params + Adam state {m['state_bytes'] / 2 ** 20:.1f} "
                   f"MiB (one process: {whole_bytes / 2 ** 20:.1f} MiB)")
         print(f"[tp] ({layout[0]} data, {layout[1]} model): {n} model-axis all-reduces "
               f"a step, {b / 2 ** 20:.1f} MiB a step per rank; losses and gradient norm within "
               f"{worst:.3e} of the one-process steps (bar {TP_LOSS_TOL}), gathered parameters "
-              f"within {p_gap:.3e} x LR x scale (bar {TP_PARAM_TOL}); {TP_WORLD} processes "
-              f"share one card over gloo: not a multi-card figure")
+              f"within {p_gap:.3e} x LR x scale (bar {TP_PARAM_TOL})")
 
     # the (1, 2) run's whole checkpoint, resumed without a group
     cfm, steps = _tp_inputs()
@@ -3961,8 +3425,7 @@ def phase_tp(dev) -> dict:
                              f"{TP_STEPS + 1} loss {resumed} against {want} uninterrupted")
     print(f"[tp] checkpoint of ({layout[0]} data, {layout[1]} model) resumed in one process: "
           f"step {TP_STEPS + 1} loss {resumed:.6f}, uninterrupted {want:.6f} (|d| {gap:.2e} "
-          f"relative); one-process event ms per step {['%.2f' % x for x in one_ms]}; phase "
-          f"{time.perf_counter() - t_phase:.1f} s")
+          f"relative)")
     del trainer, cfm
     free_card()
     shutil.rmtree(TP_WORK, ignore_errors=True)
@@ -4085,7 +3548,6 @@ def _tpl_cli_rank(rank: int, world: int, rendezvous: str, out_dir: str, argv: li
         trainer = run["trainer"]
         out = {"rc": rc, "coords": (trainer.mesh.data_rank, trainer.mesh.model_rank),
                "metrics": [{k: v.item() for k, v in m.items()} for m in probe.metrics],
-               "ms": [ev[0].elapsed_time(ev[1]) for _, _, ev in probe.steps],
                "launches": launches(), "reduces": reduces, "logdir": run["logdir"],
                "held": _tpl_held(trainer.cfm.model),
                "state_bytes": 3 * _param_bytes(trainer.state.params)}
@@ -4113,21 +3575,15 @@ def _tpl_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
             trainer = _tp_trainer(cfm, Path(out_dir) / f"run_{kind}", mesh)
             trainer.init_state({"image": steps[0][0]["image"]})
             cut = trainer.state.layout
-            row = {"coords": (mesh.data_rank, mesh.model_rank), "metrics": [], "ms": [],
+            row = {"coords": (mesh.data_rank, mesh.model_rank), "metrics": [],
                    "launches": [], "reduces": [],
                    "state_bytes": 3 * _param_bytes(trainer.state.params),
                    "slices": len(cut.slices), "owned": len(cut.owned), "absent": len(cut.absent),
                    "held": _tpl_held(cfm.model) if kind == "timefreq" else None}
             for batch, given in steps:
-                torch.cuda.synchronize()
                 reset_launches()
                 r0 = (parallel.MODEL_REDUCES, parallel.MODEL_REDUCE_BYTES)
-                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-                ev[0].record()
                 m = _tp_step(trainer, batch, given, dev, lambda b, mesh=mesh: shard_batch(b, mesh))
-                ev[1].record()
-                torch.cuda.synchronize()
-                row["ms"].append(ev[0].elapsed_time(ev[1]))
                 row["launches"].append(launches())
                 row["reduces"].append((parallel.MODEL_REDUCES - r0[0],
                                        parallel.MODEL_REDUCE_BYTES - r0[1]))
@@ -4149,16 +3605,11 @@ def _tpl_one(kind: str, dev, seed: int) -> dict:
     cfm, steps = _tpl_cfm(kind, dev), _tpl_steps(TPL_STEPS, seed)
     trainer = _tp_trainer(cfm, TPL_WORK / f"one_{kind}")
     trainer.init_state({"image": steps[0][0]["image"]})
-    metrics, ms = [], []
+    metrics = []
     for batch, given in steps:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-        ev[0].record()
         m = _tp_step(trainer, batch, given, dev)
-        ev[1].record()
-        torch.cuda.synchronize()
-        ms.append(ev[0].elapsed_time(ev[1]))
         metrics.append({k: v.item() for k, v in m.items()})
-    out = {"metrics": metrics, "ms": ms, "state_bytes": 3 * _param_bytes(trainer.state.params),
+    out = {"metrics": metrics, "state_bytes": 3 * _param_bytes(trainer.state.params),
            "params": {k: v.detach().cpu().clone() for k, v in cfm.model.state_dict().items()}}
     del trainer, cfm
     free_card()
@@ -4217,13 +3668,13 @@ def _tpl_rank_bytes(dev, m: int) -> tuple:
     """Rank 0's part of the Time/Freq DiT at depth 28 cut at (1, m) by a mesh
     without a group (cutting needs no collective), with its gradients and
     Adam state made; returns (its parameters, the bytes its tensors
-    requested, the allocator's bytes, seconds). Its tensors are freed when
-    this returns."""
+    requested, the allocator's bytes). Its tensors are freed when this
+    returns."""
     from versband_tpu_torch.models.dit_timefreq import TimeFreqMoeDiT
     from versband_tpu_torch.parallel.mesh import Mesh
     from versband_tpu_torch.parallel.sharding import shard_module_
 
-    base, t0 = _card_bytes(), time.perf_counter()
+    base = _card_bytes()
     with torch.device(dev):
         model = TimeFreqMoeDiT(**TIMEFREQ)
     shard_module_(model, Mesh(1, m, 0, 0))
@@ -4235,7 +3686,7 @@ def _tpl_rank_bytes(dev, m: int) -> tuple:
     state.optimizer.step()  # Adam's moments, made as its first step makes them
     torch.cuda.synchronize()
     req, got = (b - a for a, b in zip(base, _card_bytes()))
-    return sum(p.numel() for p in state.params), req, got, time.perf_counter() - t0
+    return sum(p.numel() for p in state.params), req, got
 
 
 def _tpl_full_depth(dev, smi: str) -> dict:
@@ -4251,7 +3702,7 @@ def _tpl_full_depth(dev, smi: str) -> dict:
     out = {"whole_params": whole}
     for m in (2, 4):
         free_card()
-        n, req, got, secs = _tpl_rank_bytes(dev, m)
+        n, req, got = _tpl_rank_bytes(dev, m)
         want = 16 * n  # fp32 parameter, gradient, Adam's two moments
         print(f"[tp-legacy] (c) {TIMEFREQ_TARGET} depth {TIMEFREQ['depth']}, rank 0 of (1 data, "
               f"{m} model): {n:,} parameters; parameters + gradients + Adam state "
@@ -4259,7 +3710,7 @@ def _tpl_full_depth(dev, smi: str) -> dict:
               f"{want / 2 ** 30:.2f} GiB), {got / 2 ** 30:.2f} GiB in the allocator's blocks, "
               f"of the card's {total / 2 ** 30:.2f} GiB (total_memory); one process "
               f"{16 * whole / 2 ** 30:.2f} GiB, {whole:,} parameters, by arithmetic only; "
-              f"built, cut and stepped in {secs:.1f} s; {smi}")
+              f"{smi}")
         # the cut's index tensors aside (under 1 MiB), the tensors are the arithmetic
         if not 0 <= req - want < 2 ** 20 or got >= total:
             raise AssertionError(f"[tp-legacy] (c) model {m}: {req} bytes requested against "
@@ -4287,12 +3738,11 @@ def phase_tp_legacy(dev, smi: str) -> dict:
     from versband_tpu_torch.train.checkpoints import CheckpointManager
     from versband_tpu_torch.utils.config import config_to_yaml, load_config
 
-    t_phase = time.perf_counter()
     shutil.rmtree(TPL_WORK, ignore_errors=True)
     TPL_WORK.mkdir(parents=True)
     work, out_dir = CLI_WORK.resolve(), TPL_WORK.resolve()
     # (a) the shipped YAML, the backbone swapped; batch 4, a constant LR 1e-3,
-    # no validation set and no loggers (the phase times the steps)
+    # no validation set and no loggers (the phase checks the steps)
     cfg = load_config(str(CLI_CONFIG))
     params = cfg["model"]["params"]
     params["unet_config"] = _tpl_unet("timefreq")
@@ -4309,17 +3759,13 @@ def phase_tp_legacy(dev, smi: str) -> dict:
             f"data.params.main_spec_dir_path={data / 'manifests'}",
             f"data.params.other_condition={data / 'midi.npy'}",
             f"model.params.first_stage_config.params.ckpt_path={work / 'vae.pt'}"]
-    t0 = time.perf_counter()
     mp.start_processes(_tpl_cli_rank, args=(2, str(out_dir / "rdzv_cli"), str(out_dir),
                                             argv + ["--devices", "2", "--n_model", "2",
                                                     "-n", "model2"]),
                        nprocs=2, join=True, start_method="spawn")
-    cli_s = time.perf_counter() - t0
     ranks = [torch.load(out_dir / f"cli_rank{r}.pt", weights_only=False) for r in range(2)]
     reset_launches()
-    t0 = time.perf_counter()
     rc, run, probe, _ = _tpl_cli(argv + ["-n", "one"])
-    one_s = time.perf_counter() - t0
     if parallel.active() or rc != 0 or any(r["rc"] != 0 for r in ranks):
         raise AssertionError(f"[tp-legacy] cli.train returned {rc}, ranks "
                              f"{[r['rc'] for r in ranks]}")
@@ -4335,8 +3781,8 @@ def phase_tp_legacy(dev, smi: str) -> dict:
     n_red, b_red = ranks[0]["reduces"]
     one_bytes = 3 * _param_bytes(trainer.state.params)
     for r in sorted(ranks, key=lambda r: r["coords"]):
-        print(f"[tp-legacy] cli.train --devices 2 --n_model 2, rank {r['coords']}: event ms "
-              f"per step {['%.2f' % x for x in r['ms']]}; per block {r['held'][0][0]} of "
+        print(f"[tp-legacy] cli.train --devices 2 --n_model 2, rank {r['coords']}: per "
+              f"block {r['held'][0][0]} of "
               f"{TIMEFREQ['num_heads']} heads, frequency experts {r['held'][0][1]}, all "
               f"{len(r['held'][0][2])} time experts; params + Adam state "
               f"{r['state_bytes'] / 2 ** 30:.2f} GiB (one process "
@@ -4346,10 +3792,7 @@ def phase_tp_legacy(dev, smi: str) -> dict:
     print(f"[tp-legacy] cli (1 data, 2 model) against the same CLI run in one process: "
           f"losses and gradient norm within {worst:.3e} (bar "
           f"{TP_LOSS_TOL}), the checkpoint's weights within {p_gap:.3e} x LR "
-          f"x scale (bar {TP_PARAM_TOL}); one-process event ms per step "
-          f"{['%.2f' % (ev[0].elapsed_time(ev[1])) for _, _, ev in probe.steps]}; the 2 ranks "
-          f"took {cli_s:.1f} s, the one-process run {one_s:.1f} s (process starts, the T5 "
-          f"tower's load, the whole checkpoint's write included)")
+          f"x scale (bar {TP_PARAM_TOL})")
 
     # the (1, 2) checkpoint resumed in this process, a 4th step on fixed draws
     # against the one-process run's 4th step on the same draws
@@ -4379,13 +3822,11 @@ def phase_tp_legacy(dev, smi: str) -> dict:
     # one-process steps here (the Time/Freq ones first: the card holds one
     # side at a time; the ConcatDiT ones while the ranks run)
     ref = {"timefreq": _tpl_one("timefreq", dev, SEED + 82)}
-    t0 = time.perf_counter()
     procs = mp.start_processes(_tpl_rank, args=(4, str(out_dir / "rdzv"), str(out_dir)),
                                nprocs=4, join=False, start_method="spawn")
     ref["concat"] = _tpl_one("concat", dev, SEED + 83)
     while not procs.join(timeout=600):
         pass
-    ranks_s = time.perf_counter() - t0
     got = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(4)]
     for kind, layout in (("timefreq", (2, 2)), ("concat", (1, 2))):
         members = [r[kind] for r in got if r[kind] is not None]
@@ -4407,16 +3848,15 @@ def phase_tp_legacy(dev, smi: str) -> dict:
         n, b = members[0]["reduces"][-1]
         for m in sorted(members, key=lambda m: m["coords"]):
             print(f"[tp-legacy] {kind} ({layout[0]} data, {layout[1]} model) rank "
-                  f"{m['coords']}: event ms per step {['%.2f' % x for x in m['ms']]}; params + "
-                  f"Adam state {m['state_bytes'] / 2 ** 30:.3f} GiB (one process "
+                  f"{m['coords']}: params + Adam state {m['state_bytes'] / 2 ** 30:.3f} GiB (one "
+                  f"process "
                   f"{ref[kind]['state_bytes'] / 2 ** 30:.3f} GiB); cut leaves "
                   f"{m['slices']}, experts owned {m['owned'] // 3} and absent "
                   f"{m['absent'] // 3}; K1/K2/K3 per step {m['launches'][-1]}")
         print(f"[tp-legacy] {kind} ({layout[0]} data, {layout[1]} model): {n} model-axis "
               f"all-reduces, {b / 2 ** 20:.1f} MiB a step per rank; losses and gradient norm "
               f"within {worst:.3e}, gathered parameters within "
-              f"{p_gap:.3e} x LR x scale of the one-process steps (event ms "
-              f"{['%.2f' % x for x in ref[kind]['ms']]}); {smi}")
+              f"{p_gap:.3e} x LR x scale of the one-process steps; {smi}")
     if any(tuple(c) != (0, 0, 0) for c in k123):
         raise AssertionError(f"[tp-legacy] K1/K2/K3 launched on a plain-attention path: {k123}")
     del ref, got
@@ -4424,21 +3864,17 @@ def phase_tp_legacy(dev, smi: str) -> dict:
 
     full = _tpl_full_depth(dev, smi)
     shutil.rmtree(TPL_WORK, ignore_errors=True)
-    wall = time.perf_counter() - t_phase
-    print(f"[tp-legacy] phase {wall:.1f} s (the CLI ranks {cli_s:.1f} s, the trainer ranks "
-          f"{ranks_s:.1f} s); processes that share one card over gloo, not a multi-card "
-          f"figure; {smi}")
-    return {"launches": (0, 0, 0), "wall_s": wall, "full": full}
+    return {"launches": (0, 0, 0), "full": full}
+
 
 def main() -> None:
-    t_start = time.perf_counter()
     smi = phase_card()
     dev = torch.device("cuda")
-    parents = phase_build()
+    phase_build()
     k1 = phase_k1(dev)
     k23 = phase_k23(dev)
-    k4 = phase_k4(dev, parents.get("fused_act1d"))
-    k5 = phase_k5(dev, parents.get("fused_wavenet"))
+    k4 = phase_k4(dev)
+    k5 = phase_k5(dev)
     phase_modules(dev)
     served = phase_serve(dev)
     bf16 = phase_bf16_serve(dev)
@@ -4447,43 +3883,23 @@ def main() -> None:
     n_cli = phase_cli(dev)
     n_train_cli = phase_train_cli(dev)
     n_vae_cli, n_vae_gen = phase_vae_train_cli(dev)
-    t_phase = time.perf_counter()
     prep = phase_prep_cli(dev)
-    prep["wall_s"] = time.perf_counter() - t_phase
-    t_phase = time.perf_counter()
     ddp = phase_ddp(dev)
-    ddp["wall_s"] = time.perf_counter() - t_phase
     tp = phase_tp(dev)
     tp_legacy = phase_tp_legacy(dev, smi)
-    t_phase = time.perf_counter()
-    timefreq = phase_timefreq_cli(dev)
-    timefreq["wall_s"] = time.perf_counter() - t_phase
+    n_timefreq = phase_timefreq_cli(dev)
     shutil.rmtree(CLI_WORK, ignore_errors=True)
     free_card()
     phase_vae_step_parity(dev)
-    voc_hifigan = phase_voc_train_hifigan(dev)
+    phase_voc_train_hifigan(dev)
     voc_bigvgan = phase_voc_train_bigvgan(dev)
     voc_pwg = phase_voc_train_pwg(dev)
     phase_voc_step_parity(dev)
-    t_phase = time.perf_counter()
     phase_legacy_modules(dev)
     phase_ae2d(dev)
-    legacy_s = time.perf_counter() - t_phase
-    t_phase = time.perf_counter()
-    order = phase_concat_order(dev)
-    order["wall_s"] = time.perf_counter() - t_phase
+    phase_concat_order(dev)
     free_card()
     audioldm = phase_audioldm(dev)
-    print(f"[legacy] TimeFreqMoeDiT {timefreq['params'] / 1e9:.3f} B: {timefreq['step_ms']:.2f} "
-          f"ms an Euler step, {timefreq['tflops']:.2f} TFLOP/s ([timefreq-cli] phase "
-          f"{timefreq['wall_s']:.1f} s); ConcatOrderDiT {order['params'] / 1e9:.3f} B: "
-          f"{order['step_ms']:.2f} ms a DDIM step, {order['tflops']:.2f} TFLOP/s ([concat-order] "
-          f"phase {order['wall_s']:.1f} s); [legacy-modules] and [ae2d] {legacy_s:.1f} s")
-    print(f"[voc-train] per step (device, median): hifigan {voc_hifigan['ms']:.2f} ms "
-          f"({voc_hifigan['peak_gib']:.2f} GiB), bigvgan {voc_bigvgan['ms']:.2f} ms "
-          f"({voc_bigvgan['peak_gib']:.2f} GiB), pwg {voc_pwg['ms']:.2f} ms "
-          f"({voc_pwg['peak_gib']:.2f} GiB); on the trained generators K4 "
-          f"{voc_bigvgan['k4_ms']:.3f} ms and K5 {voc_pwg['k5_ms']:.3f} ms per launch")
     n_train = tuple(sum(n) for n in zip(trained["launches"], n_train_cli, prep["launches"],
                                         ddp["launches"], tp["launches"]))
     n_serve = {k: sum(f[k] for f in served.values()) for k in ("k1", "k4", "k5")}
@@ -4503,7 +3919,7 @@ def main() -> None:
         {"name": "fused_alias_free_snake", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/fused_act1d.cu",
          "replaces": "versband_tpu/ops/fused_act1d.py:94",
-         "launches": n_serve["k4"] + n_vae_cli + voc_bigvgan["k4"] + timefreq["k4"], **k4},
+         "launches": n_serve["k4"] + n_vae_cli + voc_bigvgan["k4"] + n_timefreq, **k4},
         {"name": "fused_wavenet_layer", "route": "cuda",
          "source": "versband_tpu_torch/ops/csrc/fused_wavenet.cu",
          "replaces": "versband_tpu/ops/fused_wavenet.py:46",
@@ -4512,13 +3928,12 @@ def main() -> None:
     if not all(k["launches"] > 0 for k in table):
         raise AssertionError(f"a kernel did not run on the main path: "
                              f"{[(k['name'], k['launches']) for k in table]}")
-    print(f"[prep-cli] mel per {PREP_SEC:.0f} s clip {prep['mel_ms']:.3f} ms, max|d| card vs "
-          f"CPU {prep['mel_err']:.3e}; rows kept {prep['kept']}, dropped {prep['dropped']}; "
+    print(f"[prep-cli] mel per {PREP_SEC:.0f} s clip max|d| card vs CPU "
+          f"{prep['mel_err']:.3e}; rows kept {prep['kept']}, dropped {prep['dropped']}; "
           f"K1/K2/K3 {prep['launches']}. [ddp] NCCL world size 1: losses within "
           f"{ddp['loss_diff']:.3e} of the run without a group, all-reduce of "
-          f"{ddp['allreduce_bytes']} bytes {ddp['allreduce_ms']:.3f} ms a step, K1/K2/K3 "
-          f"{ddp['launches']} (both in-process runs); the phases took {prep['wall_s']:.1f} s "
-          f"and {ddp['wall_s']:.1f} s")
+          f"{ddp['allreduce_bytes']} bytes a step, K1/K2/K3 {ddp['launches']} (both in-process "
+          f"runs)")
     print(f"kernels: {[k['name'] for k in table]}; K1 launches: serving {n_serve['k1']}, "
           f"bf16-serve {bf16['k1']}, "
           f"training {trained['launches'][0]}, cli {n_cli}, train-cli {n_train_cli[0]}, "
@@ -4529,8 +3944,8 @@ def main() -> None:
           f"(train-cli's K2/K3 {n_train_cli[1]}/{n_train_cli[2]}), audioldm {audioldm['k1']}; "
           f"K4 {n_serve['k4']} (bigvgan) + "
           f"{n_vae_cli} (vae-train-cli audio logs) + {voc_bigvgan['k4']} (the trained "
-          f"BigVGAN) + {timefreq['k4']} (timefreq-cli), K5 {n_serve['k5']} (pwg) + {voc_pwg['k5']} (the trained PWG)")
-    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s wall, kernel builds included")
+          f"BigVGAN) + {n_timefreq} (timefreq-cli), K5 {n_serve['k5']} (pwg) + {voc_pwg['k5']} "
+          f"(the trained PWG)")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,7 +28,6 @@ import json
 import math
 import os
 import sys
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -38,7 +37,6 @@ from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.dsp.audio_io import safe_path, write_wav  # noqa: F401 (CLI API)
 
 CSV_COLUMNS = ["audio_path", "caption", "name"]
-STAGES = ("t5", "sampler", "decode", "vocode", "write")
 
 
 def get_parser():
@@ -161,42 +159,6 @@ def start_noise(generator: torch.Generator, shape, device: torch.device) -> torc
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
 
 
-class _StageClock:
-    """Host wall (and, on the card, device time) of each stage of one
-    (item, scale), kept only for callers that pass ``stats`` to :func:`main`:
-    the card is then synchronised at every stage boundary, which a plain run
-    does not do."""
-
-    def __init__(self, device: torch.device, enabled: bool):
-        self.enabled = enabled
-        self.cuda = device.type == "cuda"
-        self.row: Dict[str, float] = {}
-        self._open = None
-
-    def start(self, stage: str) -> None:
-        if not self.enabled:
-            return
-        ev = None
-        if self.cuda:
-            torch.cuda.synchronize()
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-        self._open = (stage, time.perf_counter(), ev)
-
-    def stop(self) -> None:
-        if not self.enabled:
-            return
-        stage, t0, ev = self._open
-        if self.cuda:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            torch.cuda.synchronize()
-            key = f"{stage}_device_ms"
-            self.row[key] = self.row.get(key, 0.0) + ev.elapsed_time(end)
-        key = f"{stage}_ms"
-        self.row[key] = self.row.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
-
-
 def _merge_rank_csvs(save_dir: str, nproc: int) -> None:
     from versband_tpu_torch.data.manifests import concat, read_tsv, write_tsv
 
@@ -227,10 +189,7 @@ def _restore_scale_factor(cfm, opt) -> None:
                   "scale_factor=1.0")
 
 
-def main(argv: List[str] = None, stats: Optional[List[Dict]] = None) -> int:
-    """Run the CLI on ``argv``. ``stats``, when given, receives one dict per
-    (item, scale) with each stage's host wall (``<stage>_ms``) and, on the
-    card, device time (``<stage>_device_ms``)."""
+def main(argv: List[str] = None) -> int:
     opt = get_parser().parse_args(argv)
     if opt.nproc > 1:
         from versband_tpu_torch.utils.fanout import spawn_ranks
@@ -294,7 +253,6 @@ def main(argv: List[str] = None, stats: Optional[List[Dict]] = None) -> int:
         acoustic = torch.from_numpy(np.stack([item["acoustic"]] * B)).to(device)
         midi = torch.from_numpy(np.stack([item["midi"]] * B).astype(np.int64)).to(device)
         beats = torch.from_numpy(np.stack([item["beats"]] * B).astype(np.int64)).to(device)
-        clock = _StageClock(device, stats is not None)
 
         def learned(caption_text):
             cond = {"caption": [caption_text] * B,
@@ -302,30 +260,19 @@ def main(argv: List[str] = None, stats: Optional[List[Dict]] = None) -> int:
                     "name": [item["name"]] * B}
             return cfm.get_learned_conditioning(cond)
 
-        clock.start("t5")
         c = learned(item["caption"])
         # the uncond pass only where some scale applies CFG (uncond keeps the
         # acoustic conditions, test_final.py:401-407)
         uc = learned("") if any(s != 1.0 for s in scales) else None
-        clock.stop()
-        t5_row = clock.row  # counted with the item's first scale
-        for k, scale in enumerate(scales):
-            clock.row = t5_row if k == 0 else {}
+        for scale in scales:
             shape = (B, cfm.mel_dim, cfm.latent_length(acoustic.shape[2]))
-            clock.start("sampler")
             x0 = start_noise(generator, shape, device)
             z = sampler.sample_cfg(c, scale, None if scale == 1.0 else uc, batch_size=B,
                                    x_latent=x0)
-            clock.stop()
-            clock.start("decode")
             mels = cfm.decode_first_stage(z)
-            clock.stop()
             out_dir = os.path.join(opt.save_dir, f"cond_gtcodec_accomp_scale_{scale}")
             for widx, mel in enumerate(mels):
-                clock.start("vocode")
                 wav = vocoder(mel)
-                clock.stop()
-                clock.start("write")
                 if opt.pad_to:
                     wav = wav[: true_frames * 320]  # trim the padding's tail
                 wav = normalize_loudness(wav, -23.0)
@@ -339,10 +286,6 @@ def main(argv: List[str] = None, stats: Optional[List[Dict]] = None) -> int:
                 if isinstance(gt, str) and gt and os.path.exists(gt):
                     _write_ground_truth(gt, wav, out_dir, f"{opt.rank}-{item_idx:04d}[{widx}]",
                                         normalize_loudness)
-                clock.stop()
-            if stats is not None:
-                stats.append({"item": item_idx, "name": item["name"], "scale": scale,
-                              **clock.row})
         print(f"[{opt.rank}] {item_idx + 1}/{len(items)} {item['name']}")
 
     csv_name = "clap.csv" if opt.world == 1 else f"clap_rank{opt.rank}.csv"
