@@ -72,6 +72,13 @@ in place shows in the next replay, and new storage drops the graphs.
 ``PipelinedGenerator``'s collect on the card: request i comes back from its
 own pinned copy while request i+1 still runs, bit-equal to
 ``.float().cpu().numpy()``.
+
+The caption tower through CUDA graphs (``_FrozenT5Tower``, fp32, 80 tokens;
+the shipped 24 blocks at 1 and 4 rows): the caption and ``""`` back to back,
+1 eager call, 1 capture and replays, each bit-equal to the eager tower; a
+returned or hooked state survives later replays; a weight changed in place
+shows in the next replay and new storage drops the graphs; a capture on a
+second thread while the main thread launches and allocates.
 """
 
 import math
@@ -1313,3 +1320,150 @@ def test_a_replay_sees_weights_changed_in_place_and_new_storage_drops_the_graphs
                       "models.cfm.graph.replays": 1}
     assert all(torch.equal(z, fresh) for z, _ in calls)
     assert all(k1 == 24 * cfm.model.depth for _, k1 in calls)
+
+
+SHIPPED_T5 = dict(d_model=1024, d_ff=2816, d_kv=64, num_heads=16, num_layers=24,
+                  feed_forward_proj="gated-gelu", vocab_size=32128)
+CAPTION = "Style: soft piano Musical: This melody, set in C major, moves slowly."
+
+
+def _t5_tower(cuda, **config):
+    """A random ``_FrozenT5Tower`` (no directory, ``HashTokenizer``), max length 80."""
+    from versband_tpu_torch.text.embedders import _FrozenT5Tower
+
+    return _FrozenT5Tower("no-such-t5-directory", 80, config, cuda)
+
+
+@pytest.fixture(scope="module")
+def shipped_t5():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return _t5_tower(torch.device("cuda"), **SHIPPED_T5)
+
+
+def _fresh_graphs(tower):
+    from versband_tpu_torch.models.cfm import GraphSlots
+
+    tower.graphs, tower._storage = GraphSlots(), ()
+    return tower
+
+
+@torch.no_grad()
+def _eager_states(tower, texts):
+    ids = torch.from_numpy(np.asarray(tower.tokenize(texts), np.int64)).to(tower.device)
+    return tower.model(ids)
+
+
+def _tower_calls(tower, texts_seq):
+    """Each texts through the tower, and the graph counters of the calls."""
+    from versband_tpu_torch.utils import profiling
+
+    profiling.spans_on()
+    try:
+        outs = [tower(texts) for texts in texts_seq]
+        torch.cuda.synchronize()
+    finally:
+        profiling.spans_off()
+    counts = profiling.drain()[1]
+    return outs, {k: v for k, v in counts.items() if k.startswith("text.tower.graph")}
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+def test_t5_tower_replays_its_graph_bit_for_bit(cuda, shipped_t5, rows):
+    """The shipped geometry (fp32, 24 blocks, 80 tokens): the caption and
+    ``""`` back to back, three requests' worth: 1 eager call, 1 capture, 4
+    replays, each bit-equal to the eager tower."""
+    tower = _fresh_graphs(shipped_t5)
+    texts = [[CAPTION] * rows, [""] * rows]
+    want = [_eager_states(tower, t) for t in texts]
+    outs, counts = _tower_calls(tower, texts * 3)
+    assert counts == {"text.tower.graph.eager": 1, "text.tower.graph.captures": 1,
+                      "text.tower.graph.replays": 4}
+    for i, out in enumerate(outs):
+        assert out.shape == (rows, 80, 1024) and out.dtype == torch.float32
+        assert torch.equal(out, want[i % 2])
+    assert not torch.equal(want[0], want[1])
+
+
+def test_t5_tower_returns_states_no_later_replay_overwrites(cuda, shipped_t5):
+    """What a call returns, and what a forward hook on the tower receives (the
+    benchmark's serve loop keeps it for ``cond_gap``), still equals its eager value after
+    later replays of the same graph."""
+    tower = _fresh_graphs(shipped_t5)
+    texts = [[CAPTION], [""]]
+    want = [_eager_states(tower, t) for t in texts]
+    hooked = []
+    handle = tower.register_forward_hook(lambda _m, _a, out: hooked.append(out))
+    try:
+        outs, counts = _tower_calls(tower, texts * 4)
+    finally:
+        handle.remove()
+    assert counts["text.tower.graph.replays"] == 6
+    for i, (out, seen) in enumerate(zip(outs, hooked, strict=True)):
+        assert seen is out
+        assert torch.equal(out, want[i % 2])
+
+
+def test_t5_tower_replay_sees_weights_changed_in_place_and_new_storage_drops_graphs(cuda):
+    """A weight changed in place shows in the next replay (the relative-position
+    table too: it is looked up inside the graph); a parameter given new
+    storage drops the graphs, so the next call runs eagerly."""
+    tower = _t5_tower(cuda, feed_forward_proj="gated-gelu")
+    texts = [CAPTION] * 2
+    before = _eager_states(tower, texts)
+    outs, counts = _tower_calls(tower, [texts] * 3)
+    assert counts["text.tower.graph.replays"] == 1
+    assert all(torch.equal(o, before) for o in outs)
+    attn = tower.model.encoder.block[0].layer[0].SelfAttention
+    with torch.no_grad():
+        tower.model.encoder.block[1].layer[1].DenseReluDense.wo.weight.mul_(1.5)
+        attn.relative_attention_bias.weight.add_(0.25)
+    after = _eager_states(tower, texts)
+    assert not torch.equal(after, before)
+    outs, counts = _tower_calls(tower, [texts])
+    assert counts == {"text.tower.graph.replays": 1} and torch.equal(outs[0], after)
+    w = tower.model.encoder.block[0].layer[0].SelfAttention.q.weight
+    w.data = w.data * 0.5  # new storage
+    fresh = _eager_states(tower, texts)
+    outs, counts = _tower_calls(tower, [texts] * 3)
+    assert counts == {"text.tower.graph.eager": 1, "text.tower.graph.captures": 1,
+                      "text.tower.graph.replays": 1}
+    assert all(torch.equal(o, fresh) for o in outs)
+
+
+def test_t5_tower_captures_on_a_second_thread_while_the_main_thread_works(cuda):
+    """The trainer's case: the tower's eager call on the main thread, then its
+    capture and replays on a prefetch thread while the main thread keeps
+    launching products and allocating new blocks; every state bit-equal to
+    the eager tower."""
+    import threading
+
+    tower = _t5_tower(cuda, feed_forward_proj="gated-gelu")
+    texts = [CAPTION, "", "lo-fi hip hop", "jazz trio"]
+    want = _eager_states(tower, texts)
+    outs, counts = _tower_calls(tower, [texts])
+    assert counts == {"text.tower.graph.eager": 1}
+    done, got, errors = threading.Event(), [], []
+
+    def prefetch():
+        try:
+            got.extend(_tower_calls(tower, [texts] * 3))
+        except BaseException as e:  # noqa: BLE001 - reported on the main thread
+            errors.append(e)
+        finally:
+            done.set()
+
+    worker = threading.Thread(target=prefetch, name="cfm-xfer")
+    x, launched, held = torch.randn(512, 512, device=cuda), 0, []
+    worker.start()
+    while not done.is_set():
+        x = torch.tanh(x @ x.T / 512)
+        held = held[-7:] + [torch.empty(1 << (12 + launched % 9), device=cuda)]
+        launched += 1
+    worker.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    outs, counts = got
+    assert launched > 0 and torch.isfinite(x).all()
+    assert counts == {"text.tower.graph.captures": 1, "text.tower.graph.replays": 2}
+    assert all(torch.equal(o, want) for o in outs)

@@ -8,6 +8,12 @@
 * ``TextVocalMusicalEmbedder``: ``<csep>``-split captions, both halves
   encoded and concatenated along the sequence.
 
+On a card the T5 tower's encoder runs from a CUDA graph kept per input
+signature (:func:`tower_graph_key`): the first call with a signature runs
+eagerly, the second captures, later ones replay (``GraphSlots``, as the served
+sampler does), so a call's ~700 launches become one. Tokenising stays on the
+host; the ids go from a fresh pinned tensor straight into the graph's.
+
 The tower loads a local Hugging Face checkpoint directory (``config.json``
 and ``model.safetensors`` or ``pytorch_model.bin``, and ``tokenizer.json``).
 With weights but no ``tokenizer.json`` it warns loudly and hashes words
@@ -38,8 +44,9 @@ checkpoint or a copy of JAX's arrays sets them.
 from __future__ import annotations
 
 import os
+import threading
 import warnings
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Hashable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,19 +55,39 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from versband_tpu_torch.device import DeviceLike, resolve_device
+from versband_tpu_torch.models.cfm import GraphSlots, _Graph
 from versband_tpu_torch.text.bert import BertModel, load_bert
 from versband_tpu_torch.text.t5 import T5Encoder, load_t5_encoder
 from versband_tpu_torch.text.tokenizer import (HashTokenizer, UnigramTokenizer,
                                                WordPieceTokenizer)
-from versband_tpu_torch.utils.profiling import annotate
+from versband_tpu_torch.utils.profiling import annotate, count
+
+_TOWER_COUNTERS = {"eager": "text.tower.graph.eager", "capture": "text.tower.graph.captures",
+                   "replay": "text.tower.graph.replays"}
 
 
 def _local_exists(version: str) -> bool:
     return os.path.isdir(version) and os.path.exists(os.path.join(version, "config.json"))
 
 
+def tower_graph_key(ids: torch.Tensor, device: torch.device, model: nn.Module) -> Hashable:
+    """What fixes a tower call's captured work: the ids' shape (rows, length)
+    and dtype, the device, the parameters' dtype, and the float32 matmul and
+    cuDNN precision in force."""
+    return (tuple(ids.shape), ids.dtype, device, next(model.parameters()).dtype,
+            torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+
+
 class _FrozenT5Tower(nn.Module):
-    """Frozen FLAN-T5/T5 encoder on ``device``, with the offline fallbacks."""
+    """Frozen FLAN-T5/T5 encoder on ``device``, with the offline fallbacks.
+
+    On a CUDA device the encoder runs from CUDA graphs, one per
+    :func:`tower_graph_key`, in a memory pool of their own. A weight changed in
+    place shows in the next replay; if a parameter's storage is replaced, the
+    graphs are dropped. Captures run in thread-local mode, so a trainer's
+    prefetch thread captures while its main thread launches a step; a lock
+    keeps callers on several threads from sharing the static buffers at once
+    (they enqueue on one stream, as the trainer does)."""
 
     # default config of the random-init fallback (dev/test)
     FALLBACK = dict(d_model=1024, d_ff=2816, d_kv=64, num_heads=16, num_layers=2,
@@ -90,6 +117,10 @@ class _FrozenT5Tower(nn.Module):
         if self.tokenizer is None:
             self.tokenizer = HashTokenizer(self.model.config["vocab_size"])
         self.model.to(self.device).eval().requires_grad_(False)
+        self.graphs = GraphSlots()
+        self._graph_lock = threading.Lock()
+        self._pool = self._stream = None
+        self._storage: Tuple[int, ...] = ()
 
     def tokenize(self, text: Sequence[str]) -> np.ndarray:
         if isinstance(self.tokenizer, HashTokenizer):
@@ -101,13 +132,48 @@ class _FrozenT5Tower(nn.Module):
     def forward(self, text: Sequence[str]) -> torch.Tensor:
         """Hidden states ``[B, max_length, d_model]``, computed without
         autograd (``no_grad``, not ``inference_mode``: a trainer feeds them
-        to layers it differentiates). On the card the ids go from pinned
-        memory, so a caller on another thread does not wait for queued work."""
+        to layers it differentiates). On the card the ids go from a fresh
+        pinned tensor (one reused across calls could be rewritten before its
+        copy lands), so a caller on another thread does not wait for queued
+        work, and the states come back as a copy of the graph's own."""
         with annotate("text.tower"):
             ids = torch.from_numpy(np.asarray(self.tokenize(text), np.int64))
             if self.device.type == "cuda":
-                return self.model(ids.pin_memory().to(self.device, non_blocking=True))
+                return self._on_card(ids.pin_memory())
             return self.model(ids.to(self.device))
+
+    def _on_card(self, ids: torch.Tensor) -> torch.Tensor:
+        key = tower_graph_key(ids, self.device, self.model)
+        with self._graph_lock:
+            storage = tuple(p.data_ptr() for p in self.model.parameters())
+            if storage != self._storage:  # the graphs read the replaced storage
+                self.graphs.clear()
+                self._storage = storage
+            action = self.graphs.decide(key)
+            count(_TOWER_COUNTERS[action])
+            if action == "eager":
+                return self.model(ids.to(self.device, non_blocking=True))
+            if action == "capture":
+                self.graphs.put(key, self._capture(ids))
+            return self.graphs.graphs[key].replay([ids])
+
+    def _capture(self, ids: torch.Tensor) -> _Graph:
+        """Capture the encoder over a static copy of ``ids`` on the tower's own
+        stream and pool. It first runs once on that stream from this thread, so
+        the thread's cuBLAS handle and the stream's workspace exist before the
+        capture starts (the eager call may have run on another thread)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        static = ids.to(self.device, non_blocking=True)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            self.model(static)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            out = self.model(static)
+        return _Graph(graph, [static], out, 0)
 
 
 class FlanT5Embedder(nn.Module):

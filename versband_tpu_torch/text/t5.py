@@ -10,8 +10,9 @@ which the JAX caption tower calls (``versband_tpu/text/embedders.py:76,88-99,
   computed in fp32);
 * attention with **no** 1/sqrt(d) scaling and a relative-position bias:
   bidirectional buckets (``relative_attention_num_buckets``, ``..._max_distance``)
-  computed as ``transformers`` computes them, in fp32 on the CPU, looked up by
-  block 0's table and added in every block;
+  computed as ``transformers`` computes them, in fp32 on the CPU, kept on the
+  device once per length, looked up by block 0's table in every forward and
+  added in every block;
 * ``DenseReluDense`` (``feed_forward_proj: relu``, T5Config's default) or the
   gated tanh-GELU one (``gated-gelu``, flan-t5);
 * a final norm.
@@ -28,7 +29,7 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -92,15 +93,27 @@ class T5Attention(nn.Module):
         self.max_distance = cfg["relative_attention_max_distance"]
         if has_relative_attention_bias:
             self.relative_attention_bias = nn.Embedding(self.num_buckets, self.n_heads)
+        self._buckets: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+    def bucket_indices(self, length: int, device: torch.device) -> torch.Tensor:
+        """``[L, L]`` bucket of each (query, key) pair on ``device``: computed on
+        the CPU, so that every device looks up the same ones, copied once per
+        (length, device) and kept, so a forward copies nothing from the host
+        (and a CUDA graph can capture it)."""
+        key = (length, torch.device(device))
+        buckets = self._buckets.get(key)
+        if buckets is None:
+            pos = torch.arange(length, dtype=torch.long)
+            buckets = relative_position_bucket(pos[None, :] - pos[:, None], self.num_buckets,
+                                               self.max_distance).to(device)
+            self._buckets[key] = buckets
+        return buckets
 
     def compute_bias(self, length: int) -> torch.Tensor:
-        """``[1, H, L, L]`` bias; the buckets are computed on the CPU so that
-        every device looks up the same ones."""
-        pos = torch.arange(length, dtype=torch.long)
-        buckets = relative_position_bucket(pos[None, :] - pos[:, None], self.num_buckets,
-                                           self.max_distance)
+        """``[1, H, L, L]`` bias, looked up in the table at every call (a table
+        changed in place shows in the next bias)."""
         table = self.relative_attention_bias.weight
-        return table[buckets.to(table.device)].permute(2, 0, 1)[None]
+        return table[self.bucket_indices(length, table.device)].permute(2, 0, 1)[None]
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         B, L, _ = x.shape
