@@ -20,7 +20,10 @@ half an ulp is 2^-9 of a value).
 K4 (fused alias-free Snake) against its plain version: fp32 2e-5 x max(1,
 max|plain|) (the JAX test's bar: FIRs in another order, sin^2 by a reduced
 polynomial within 2.3e-7); bf16 1e-2 x max|plain| (both sides compute in
-fp32 from the same bf16 input and round the output to bf16 once). K5 (fused
+fp32 from the same bf16 input and round the output to bf16 once); also in
+fp32 on the widest and longest rows of ``accomp_band_bigvgan.serve``, and
+one take of that cell's published-width BigVGAN against the benchmark's
+plain reference at the cell's ``voc_gap`` limit. K5 (fused
 WaveNet layer): x' and skip' each within 1e-5 x their largest plain value in
 fp32 (JAX's bar: sums over 3R + A and G terms in another order, as three TF32
 passes over split operands); in bf16, x' within 1e-2 x (rounded to bf16 once)
@@ -453,6 +456,44 @@ def test_k4_variants_and_strided_input(cuda, variant, logscale):
     alpha = torch.rand(6, generator=g, device=cuda) + 0.2
     beta = torch.rand(6, generator=g, device=cuda) + 0.2 if variant == "snakebeta" else None
     _k4_check(x, alpha, beta, logscale)
+
+
+@pytest.mark.parametrize("C,T", [(768, 7520), (24, 481280)], ids=["widest", "longest"])
+def test_k4_at_the_bigvgan_cells_extreme_rows(cuda, C, T):
+    """K4 in fp32 on the widest and the longest rows that
+    ``accomp_band_bigvgan.serve`` gives it: BigVGAN's first stage (768
+    channels of a 20 s take's 7,520 samples) and its last (24 channels of
+    481,280)."""
+    g = torch.Generator(cuda).manual_seed(C)
+    x = torch.randn(1, C, T, generator=g, device=cuda)
+    alpha, beta = (torch.randn(C, generator=g, device=cuda) * 0.3 for _ in range(2))
+    _k4_check(x, alpha, beta, True)
+
+
+def test_published_bigvgan_take_against_the_plain_reference(cuda):
+    """One 20 s take (T_mel 1504) of ``accomp_band_bigvgan.serve``'s
+    vocoder (``build_vocoder("bigvgan")`` at the published widths, K4,
+    fp32) with the cell's weight rule, against ``benchmark/reference/bigvgan.py``
+    on the same mel, at the cell's ``voc_gap`` limit; 109 K4 launches."""
+    from benchmark.drivers import serve_bigvgan as sb
+    from benchmark.lib import cells, compare, weights
+    from benchmark.reference import bigvgan as ref
+
+    cell = cells.cell("accomp_band_bigvgan.serve")
+    vocoder = cell["config_data"]["vocoder"]
+    voc = sb.build_vocoder(vocoder, cuda)
+    W = sb.vocoder_weights(weights.spec_of(voc.model), 2 ** 31 + 25, cuda, vocoder["init"])
+    with torch.no_grad():
+        for name, p in voc.model.named_parameters():
+            p.copy_(W[name])
+    mel = torch.randn(1, 80, 1504, generator=torch.Generator(cuda).manual_seed(25),
+                      device=cuda)
+    n = fa1.LAUNCHES
+    wav = voc.waveform(mel)
+    torch.cuda.synchronize()
+    assert fa1.LAUNCHES - n == 109 and wav.shape == (1, 1504 * 320)
+    gap = compare.rel_l2(wav, ref.vocode(W, vocoder["generator"], mel, ref.Precision()))
+    assert gap <= cell["limits"]["voc_gap"], gap
 
 
 def _k5_layer(cuda, R, G2, S, A, d, seed):

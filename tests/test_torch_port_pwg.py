@@ -166,6 +166,23 @@ def test_build_vocoder_families(name, cls):
     assert wav.shape == (2 * 320,) and np.isfinite(wav).all()
 
 
+@pytest.mark.parametrize("name,key,width", [("hifigan", "upsample_initial_channel", 48),
+                                            ("bigvgan", "upsample_initial_channel", 48),
+                                            ("nsf", "upsample_initial_channel", 48),
+                                            ("pwg", "residual_channels", 16)])
+def test_build_vocoder_passes_generator_overrides(name, key, width):
+    """Keyword arguments past ``dtype`` reach the wrapper's generator
+    geometry, as a benchmark configuration's ``vocoder.generator`` is
+    served."""
+
+    def widths(**generator):
+        voc = build_vocoder(name, device="cpu", **generator)
+        return sorted({p.shape[0] for p in voc.model.parameters() if p.ndim == 3})
+
+    ours, default = widths(**{key: width}), widths()
+    assert width in ours and width not in default and ours != default
+
+
 def test_build_vocoder_errors_and_default_device():
     from versband_tpu_torch.vocoder.nsf import HifiGAN_NSF
 

@@ -134,23 +134,24 @@ class InferDataset:
 
 
 def build_vocoder(name: str, ckpt: Optional[str] = None, device: DeviceLike = None,
-                  dtype: torch.dtype = torch.float32):
+                  dtype: torch.dtype = torch.float32, **generator):
     """The runtime wrapper of vocoder family ``name`` (``--vocoder``), on
-    ``device`` (``None``: the card) in ``dtype``. Every wrapper serves
+    ``device`` (``None``: the card) in ``dtype``; ``generator`` overrides the
+    wrapper's generator geometry (keys of its config). Every wrapper serves
     ``wrapper(mel_2d) -> np.ndarray`` and ``wrapper.waveform(mel) ->`` a
     device tensor (``nsf`` estimates each mel's f0 on the host)."""
     if name == "hifigan":
         from versband_tpu_torch.vocoder.hifigan import HifiGAN
-        return HifiGAN(ckpt, device=device, dtype=dtype)
+        return HifiGAN(ckpt, device=device, dtype=dtype, **generator)
     if name == "bigvgan":
         from versband_tpu_torch.vocoder.bigvgan import VocoderBigVGAN
-        return VocoderBigVGAN(ckpt, device=device, dtype=dtype)
+        return VocoderBigVGAN(ckpt, device=device, dtype=dtype, **generator)
     if name == "pwg":
         from versband_tpu_torch.vocoder.pwg import ParallelWaveGAN
-        return ParallelWaveGAN(ckpt, device=device, dtype=dtype)
+        return ParallelWaveGAN(ckpt, device=device, dtype=dtype, **generator)
     if name == "nsf":
         from versband_tpu_torch.vocoder.nsf import HifiGAN_NSF
-        return HifiGAN_NSF(ckpt, device=device, dtype=dtype)
+        return HifiGAN_NSF(ckpt, device=device, dtype=dtype, **generator)
     raise ValueError(f"unknown vocoder family: {name}")
 
 

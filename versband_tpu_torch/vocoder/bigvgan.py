@@ -11,7 +11,13 @@ package's convention, ``vocoder/conv.py``); with ``use_fused=False`` it is
 what ``train/vocoder_step.py`` trains. Defaults are the 24 kHz / hop-320
 generator: 512 initial channels, rates (5, 4, 4, 4), upsample kernels
 (9, 8, 8, 8), ``resblock "1"`` with kernels (3, 7, 11) at dilations
-(1, 3, 5), SnakeBeta with ``logscale``.
+(1, 3, 5), SnakeBeta with ``logscale``. While the program's spans are on
+(``utils/profiling.py``) the generator's forward records
+``vocoder.bigvgan.upsample`` around each stage's transposed convolution,
+``vocoder.bigvgan.amp`` around each stage's AMP blocks and their mean, and
+the counter ``vocoder.bigvgan.samples`` (the output's B x T); each
+``Activation1d`` records ``vocoder.bigvgan.act`` (fused or not) and adds its
+input's B x C x T to the counter ``vocoder.bigvgan.act_samples``.
 
 Parameter names are the reference's (``vocoder/bigvgan/models.py``):
 ``conv_pre``, ``ups.{i}.0`` (each upsampler in a one-element
@@ -38,7 +44,7 @@ from versband_tpu_torch.device import DeviceLike, resolve_device
 from versband_tpu_torch.ops.fused_act1d import (downsample1d, fused_alias_free_snake,
                                                 kaiser_sinc_filter1d, snake, upsample1d)
 from versband_tpu_torch.utils.checkpoint import get_last_checkpoint
-from versband_tpu_torch.utils.profiling import annotate
+from versband_tpu_torch.utils.profiling import annotate, count
 from versband_tpu_torch.vocoder.conv import apply_weight_norm
 from versband_tpu_torch.vocoder.hifigan import _conv, load_generator_state_dict
 
@@ -102,9 +108,12 @@ class Activation1d(nn.Module):
         self.downsample = DownSample1d(2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.use_fused:
-            return fused_alias_free_snake(x, self.act.alpha, self.act.beta, self.act.logscale)
-        return self.downsample(self.act(self.upsample(x)))
+        count("vocoder.bigvgan.act_samples", x.numel())
+        with annotate("vocoder.bigvgan.act"):
+            if self.use_fused:
+                return fused_alias_free_snake(x, self.act.alpha, self.act.beta,
+                                              self.act.logscale)
+            return self.downsample(self.act(self.upsample(x)))
 
 
 class AMPBlock1(nn.Module):
@@ -182,12 +191,16 @@ class BigVGANGenerator(nn.Module):
         x = self.conv_pre(mel.to(self.conv_pre.bias.dtype))
         K = self.num_kernels
         for i, up in enumerate(self.ups):
-            x = up[0](x)
-            acc = self.resblocks[i * K](x)
-            for j in range(1, K):
-                acc = acc + self.resblocks[i * K + j](x)
-            x = acc / K
-        return torch.tanh(self.conv_post(self.activation_post(x)))[:, 0]
+            with annotate("vocoder.bigvgan.upsample"):
+                x = up[0](x)
+            with annotate("vocoder.bigvgan.amp"):
+                acc = self.resblocks[i * K](x)
+                for j in range(1, K):
+                    acc = acc + self.resblocks[i * K + j](x)
+                x = acc / K
+        wav = torch.tanh(self.conv_post(self.activation_post(x)))[:, 0]
+        count("vocoder.bigvgan.samples", wav.numel())
+        return wav
 
 
 _CONFIG_KEYS = ("num_mels", "upsample_initial_channel", "upsample_rates",
